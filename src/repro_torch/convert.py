@@ -1,0 +1,84 @@
+"""Carry the reference's state into the port.
+
+The system has no weights: its state is the graph and its layouts.
+:func:`from_reference` turns the numpy arrays of a reference
+``HostGraph``, ``DeviceGraph`` or ``BlockedGraph`` into the port's
+containers, so that both packages can run on byte-identical inputs.  The
+caller flattens the reference object into numpy arrays (the port imports
+nothing of the reference package):
+
+* ``HostGraph``: its fields ``n, src, dst, w, row_ptr, deg, rtow, max_w``;
+* ``DeviceGraph``: ``src, dst, w, row_ptr, deg, rtow, max_w, n_edges2``;
+* ``BlockedGraph``: its static fields ``n, block_v, n_blocks,
+  n_dst_blocks, src_base, tile_e, dense_grid_tiles``, ``deg``, and one
+  ``slabs/<i>/<field>`` entry per slab field (``src_local, dst, w,
+  tile_dst, tile_first, bucket_nonempty``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.graph import BlockedGraph, DeviceGraph, HostGraph
+
+_SLAB_FIELDS = ("src_local", "dst", "w", "tile_dst", "tile_first",
+                "bucket_nonempty")
+
+
+def _host(a: dict) -> HostGraph:
+    return HostGraph(n=int(a["n"]), src=np.asarray(a["src"], np.int32),
+                     dst=np.asarray(a["dst"], np.int32),
+                     w=np.asarray(a["w"], np.float32),
+                     row_ptr=np.asarray(a["row_ptr"], np.int32),
+                     deg=np.asarray(a["deg"], np.int32),
+                     rtow=np.asarray(a["rtow"], np.float32),
+                     max_w=float(a["max_w"]))
+
+
+def _device(a: dict, dev: torch.device) -> DeviceGraph:
+    def t(key, dtype):
+        return torch.from_numpy(np.array(a[key])).to(dev, dtype)
+    return DeviceGraph(src=t("src", torch.int64), dst=t("dst", torch.int64),
+                       w=t("w", torch.float32),
+                       row_ptr=t("row_ptr", torch.int64),
+                       deg=t("deg", torch.int32), rtow=t("rtow", torch.float32),
+                       max_w=t("max_w", torch.float32),
+                       n_edges2=t("n_edges2", torch.int32))
+
+
+def _blocked(a: dict, dev: torch.device) -> BlockedGraph:
+    if int(a["src_base"]) != 0 or int(a["n_blocks"]) != int(a["n_dst_blocks"]):
+        raise NotImplementedError("shard slices come with the sharded slice "
+                                  "of the port")
+    nb, bv = int(a["n_blocks"]), int(a["block_v"])
+    slabs = [{f: np.asarray(a[f"slabs/{i}/{f}"]) for f in _SLAB_FIELDS}
+             for i in range(nb)]
+    ntiles = [s["tile_dst"].shape[0] for s in slabs]
+    slab_ptr = np.concatenate([[0], np.cumsum(ntiles)])
+    cat = lambda f, dtype: torch.from_numpy(np.ascontiguousarray(
+        np.concatenate([s[f] for s in slabs]).astype(dtype))).to(dev)
+    src = np.concatenate([s["src_local"].astype(np.int32) + i * bv
+                          for i, s in enumerate(slabs)])
+    return BlockedGraph(
+        n=int(a["n"]), block_v=bv, n_blocks=nb,
+        n_dst_blocks=int(a["n_dst_blocks"]), tile_e=int(a["tile_e"]),
+        dense_grid_tiles=int(a["dense_grid_tiles"]),
+        slab_ptr=tuple(int(x) for x in slab_ptr),
+        src=torch.from_numpy(src).to(dev), dst=cat("dst", np.int32),
+        w=cat("w", np.float32), tile_dst=cat("tile_dst", np.int32),
+        tile_first=cat("tile_first", bool),
+        bucket_nonempty=torch.from_numpy(np.stack(
+            [s["bucket_nonempty"].astype(bool) for s in slabs])).to(dev),
+        deg=torch.from_numpy(np.array(a["deg"], np.int32)).to(dev))
+
+
+def from_reference(arrays: dict, device):
+    """The port's container for a flattened reference graph or layout
+    (see the module docstring for the keys).  A ``HostGraph`` stays on
+    the host; the others land on ``device``."""
+    dev = torch.device(device)
+    if any(k.startswith("slabs/") for k in arrays):
+        return _blocked(arrays, dev)
+    if "n_edges2" in arrays:
+        return _device(arrays, dev)
+    return _host(arrays)

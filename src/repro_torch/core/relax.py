@@ -1,0 +1,251 @@
+"""Pluggable relaxation backends (port of ``repro.core.relax``).
+
+The windowed edge relaxation is the algorithm's inner loop (paper Algo 2
+l.8-17).  A backend is ``relax_window(layout, dist, parent, frontier, lb,
+ub) -> (new_dist, new_parent, RoundMetrics)`` plus a ``prepare(graph,
+**opts)`` that builds its layout once; the registry selects them by name.
+
+``segment_min``
+    The dense flat edge list: a masked ``scatter_reduce`` min over all
+    edges, then a min-source-id winner pass.  Plain torch ops.
+
+``blocked_pallas`` (alias ``blocked``)
+    The :class:`~repro_torch.core.graph.BlockedGraph` layout driving the
+    ``kernels/edge_relax`` kernel: one call per round over all slabs
+    (the hand-written CUDA kernel on the card, its plain version on the
+    CPU).
+
+Every backend resolves ties toward the smallest source id, so
+``dist``/``parent`` and the logical counters are bitwise-identical across
+backends and to the reference.  The physical counters (tiles,
+invocations) describe each layout's own work.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from .graph import BlockedGraph, DeviceGraph, build_blocked
+from ..kernels.edge_relax.ops import relax_bucket
+
+INT_MAX = 2 ** 31 - 1
+INF = float("inf")
+
+
+class RoundMetrics(NamedTuple):
+    """Per-round relaxation outcome (0-d device tensors besides
+    ``improved``).  The logical counters are int32; the physical ones are
+    float32, as in the reference."""
+    improved: torch.Tensor         # [N] bool — vertices whose dist improved
+    n_trav: torch.Tensor           # in-window edge touches (push)
+    n_relax: torch.Tensor          # relaxations attempted
+    n_updates: torch.Tensor        # successful dist improvements
+    n_extended: torch.Tensor       # non-leaf dist improvements
+    n_pruned: torch.Tensor         # ALT cuts (always 0 here)
+    n_tiles_scanned: torch.Tensor  # edge tiles actually run
+    n_tiles_dense: torch.Tensor    # dense-grid tile cost
+    n_invocations: torch.Tensor    # kernel launches
+
+
+def count(mask: torch.Tensor) -> torch.Tensor:
+    """Number of set entries as an int32 0-d tensor (the reference's
+    counter width; ``torch.sum`` alone would give int64)."""
+    return mask.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# shared relaxation primitives
+# ---------------------------------------------------------------------------
+
+def leaf_pruned(frontier, dist, deg):
+    """Algo 2 l.8: paths reaching a leaf are never extended."""
+    return frontier & ((dist <= 0.0) | (deg > 1))
+
+
+def edge_candidates(d_src, f_src, p_src, dst, w, lb, ub):
+    """Algo 2 l.10-11: windowed candidate lengths over gathered edge values.
+
+    Returns ``(cand, in_window, active)``; ``cand`` is +inf outside
+    ``active``, which also excludes the relaxation back along the parent
+    edge (it can never improve)."""
+    cand_len = d_src + w
+    in_window = f_src & (cand_len >= lb) & (cand_len < ub)
+    active = in_window & (dst != p_src)
+    return torch.where(active, cand_len, INF), in_window, active
+
+
+def segment_partial_min(cand, seg, num_segments: int):
+    """Per-destination min of candidates; +inf for an empty segment."""
+    out = torch.full((num_segments,), INF, dtype=cand.dtype,
+                     device=cand.device)
+    return out.scatter_reduce_(0, seg, cand, "amin")
+
+
+def winner_partial(cand, mask, ids, seg, best, num_segments: int):
+    """Deterministic winner recovery: min ``ids`` among candidates that
+    achieve ``best`` at their segment (INT_MAX where none)."""
+    win = torch.where(mask & (cand <= best[seg]), ids, INT_MAX)
+    out = torch.full((num_segments,), INT_MAX, dtype=win.dtype,
+                     device=win.device)
+    return out.scatter_reduce_(0, seg, win, "amin").to(torch.int32)
+
+
+def segment_min_with_winner(cand, mask, ids, seg, num_segments: int):
+    """The (min, argmin-by-min-id) segment reduction."""
+    best = segment_partial_min(cand, seg, num_segments)
+    return best, winner_partial(cand, mask, ids, seg, best, num_segments)
+
+
+def apply_updates(dist, parent, best, winner, gate=None):
+    """Commit improvements where ``best < dist`` (optionally gated)."""
+    improved = best < dist
+    if gate is not None:
+        improved = improved & gate
+    return (torch.where(improved, best, dist),
+            torch.where(improved, winner, parent), improved)
+
+
+def combine_block_partials(vals, wins):
+    """Combine stacked (min, winner) partials over the leading axis with
+    the min-value / min-id-on-tie rule."""
+    best = vals.min(dim=0).values
+    winner = torch.where(vals <= best[None, :], wins, INT_MAX) \
+        .min(dim=0).values
+    return best, winner
+
+
+def window_frontier(dist, st, lb, ub, max_w):
+    """Function 1's frontier: the push band [max(0, lb - maxW), st] plus
+    the window occupants."""
+    lb0 = torch.clamp(lb - max_w, min=0.0)
+    return ((dist >= lb0) & (dist <= st)) | ((dist >= lb) & (dist < ub))
+
+
+def settled_mask(dist, lb):
+    """Vertices whose distance is final under the stepping invariant."""
+    return dist < lb
+
+
+# ---------------------------------------------------------------------------
+# backend registry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RelaxBackend:
+    """An implementation of the windowed relaxation hot path."""
+    name: str
+    prepare: Callable[..., Any]
+    relax_window: Callable[..., Any]
+
+
+_REGISTRY: dict = {}
+
+
+def register_backend(backend: RelaxBackend, aliases=()) -> RelaxBackend:
+    _REGISTRY[backend.name] = backend
+    for alias in aliases:
+        _REGISTRY[alias] = backend
+    return backend
+
+
+def available_backends() -> tuple:
+    """Canonical backend names (aliases resolve but are not listed)."""
+    return tuple(sorted({b.name for b in _REGISTRY.values()}))
+
+
+def get_backend(name) -> RelaxBackend:
+    if isinstance(name, RelaxBackend):
+        return name
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown relax backend {name!r}; available: "
+            f"{available_backends()}") from None
+
+
+# ---------------------------------------------------------------------------
+# backend: segment_min (dense flat edge list)
+# ---------------------------------------------------------------------------
+
+def _segment_min_prepare(g: DeviceGraph, **_opts) -> DeviceGraph:
+    return g            # the flat edge list is its own layout
+
+
+def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub):
+    paths = leaf_pruned(frontier, dist, g.deg)
+    cand, in_window, active = edge_candidates(
+        dist[g.src], paths[g.src], parent[g.src], g.dst, g.w, lb, ub)
+    best, winner = segment_min_with_winner(cand, active, g.src, g.dst, g.n)
+    new_dist, new_parent, improved = apply_updates(dist, parent, best,
+                                                   winner)
+    zero = torch.zeros((), dtype=torch.float32, device=dist.device)
+    rm = RoundMetrics(
+        improved=improved, n_trav=count(in_window), n_relax=count(active),
+        n_updates=count(improved), n_extended=count(improved & (g.deg > 1)),
+        n_pruned=torch.zeros((), dtype=torch.int32, device=dist.device),
+        n_tiles_scanned=zero, n_tiles_dense=zero, n_invocations=zero)
+    return new_dist, new_parent, rm
+
+
+SEGMENT_MIN = register_backend(RelaxBackend(
+    name="segment_min", prepare=_segment_min_prepare,
+    relax_window=_segment_min_relax))
+
+
+# ---------------------------------------------------------------------------
+# backend: blocked_pallas (BlockedGraph layout -> edge_relax kernel)
+# ---------------------------------------------------------------------------
+
+def _blocked_prepare(g, **opts) -> BlockedGraph:
+    return build_blocked(g, **opts)
+
+
+def _pad(x, n_out, value):
+    pad = n_out - x.shape[0]
+    return torch.cat([x, torch.full((pad,), value, dtype=x.dtype,
+                                    device=x.device)]) if pad else x
+
+
+def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub):
+    dist_p = _pad(dist, bg.n_out, INF)
+    parent_p = _pad(parent, bg.n_out, -1)
+    frontier_p = _pad(frontier, bg.n_out, False)
+    paths = leaf_pruned(frontier_p, dist_p, bg.deg)
+
+    # one call over all source blocks' slabs (global source ids): the
+    # per-block (min, min-id) partials of the reference combine by the
+    # same rule, so the result is the same
+    best, winner, n_tiles = relax_bucket(
+        dist_p, paths, bg.src, bg.dst, bg.w, bg.tile_first, lb, ub,
+        tile_e=bg.tile_e, n_out=bg.n_out)
+
+    # the traversal counters are torch reductions over the slab (the
+    # kernel owns only the scatter-min); padding slots carry w=+inf and
+    # are never in the window
+    src = bg.src
+    _, in_window, active = edge_candidates(
+        dist_p[src], paths[src], parent_p[src], bg.dst, bg.w, lb, ub)
+
+    new_dist, new_parent, improved = apply_updates(dist_p, parent_p, best,
+                                                   winner)
+    n = bg.n
+    improved = improved[:n]
+    rm = RoundMetrics(
+        improved=improved, n_trav=count(in_window), n_relax=count(active),
+        n_updates=count(improved),
+        n_extended=count(improved & (bg.deg[:n] > 1)),
+        n_pruned=torch.zeros((), dtype=torch.int32, device=dist.device),
+        n_tiles_scanned=n_tiles.to(torch.float32),
+        n_tiles_dense=torch.full((), float(bg.dense_grid_tiles),
+                                 dtype=torch.float32, device=dist.device),
+        n_invocations=torch.ones((), dtype=torch.float32,
+                                 device=dist.device))
+    return new_dist[:n], new_parent[:n], rm
+
+
+BLOCKED_PALLAS = register_backend(RelaxBackend(
+    name="blocked_pallas", prepare=_blocked_prepare,
+    relax_window=_blocked_relax), aliases=("blocked",))

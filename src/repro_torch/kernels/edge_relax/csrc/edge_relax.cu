@@ -1,0 +1,128 @@
+// edge_relax for Hopper (sm_90a): one round of frontier-compacted,
+// windowed scatter-min with deterministic min-source-id winners.
+//
+// Replaces the Pallas TPU kernel `edge_relax` (src/repro/kernels/edge_relax/
+// edge_relax.py:188, body `_kernel` at :130, jnp prepass `schedule_tiles`
+// at :98).  It computes what that kernel computes, not how: the TPU has no
+// scatter, so it built a [TILE_E x BLOCK_V] broadcast-compare plane per
+// tile.  Here each in-window candidate does one 64-bit atomicMin into a key
+// per destination:
+//
+//   key = (float bits of dist[src] + w) << 32 | global source id
+//
+// Candidates are non-negative (dist >= 0, w > 0), so the float bits order
+// like the value and the minimum key is exactly (min value, min source id
+// on a tie), whatever order the threads run in.  Keys start at
+// (bits(+inf), INT_MAX), which is also the reference's value for a
+// destination block that no tile visits.
+//
+// Launch sequence (one call of edge_relax_launch, all on one stream):
+//   1. flag_tiles: prefill the keys; flag each tile that holds an edge with
+//      a frontier source and a finite weight, or is a bucket's forced first
+//      tile, and append it to `sched` (order is free: the min is
+//      order-independent).  `sched_n` is the active-tile count and stays on
+//      the device.
+//   2. relax_tiles: one block per tile of the static count; a block at or
+//      above *sched_n exits at once, the others walk one scheduled tile.
+//   3. unpack: keys -> (vals f32, wins i32).
+//
+// Bound on this card: bytes.  12 B per scheduled edge slot (src, dst, w),
+// 5 B of gathers per frontier edge (paths i8 + dist f32), 8 B per output
+// key written and read back, plus the prepass's 9 B per slot.  No arithmetic
+// to speak of.  The atomics on the hub destinations of Kronecker graphs are
+// the expected contention point; a later version can pre-reduce per warp.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned long long kEmptyKey =
+    (0x7F800000ull << 32) | 0x7FFFFFFFull;   // (+inf, INT_MAX)
+
+__global__ void flag_tiles(const uint8_t* __restrict__ paths,
+                           const int32_t* __restrict__ src,
+                           const float* __restrict__ w,
+                           const uint8_t* __restrict__ tile_first,
+                           int64_t n_tiles, int tile_e,
+                           int32_t* __restrict__ sched,
+                           int32_t* __restrict__ sched_n,
+                           unsigned long long* __restrict__ keys,
+                           int64_t n_out) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n_out;
+       j += stride)
+    keys[j] = kEmptyKey;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t base = t * tile_e;
+    int hit = threadIdx.x == 0 && tile_first[t];
+    for (int i = threadIdx.x; i < tile_e && !hit; i += blockDim.x) {
+      const int64_t e = base + i;
+      hit = paths[src[e]] && isfinite(w[e]);
+    }
+    if (__syncthreads_or(hit) && threadIdx.x == 0)
+      sched[atomicAdd(sched_n, 1)] = (int32_t)t;
+  }
+}
+
+__global__ void relax_tiles(const float* __restrict__ dist,
+                            const uint8_t* __restrict__ paths,
+                            const int32_t* __restrict__ src,
+                            const int32_t* __restrict__ dst,
+                            const float* __restrict__ w,
+                            const float* __restrict__ lb_p,
+                            const float* __restrict__ ub_p,
+                            const int32_t* __restrict__ sched,
+                            const int32_t* __restrict__ sched_n, int tile_e,
+                            unsigned long long* __restrict__ keys) {
+  if ((int32_t)blockIdx.x >= *sched_n) return;
+  const float lb = *lb_p, ub = *ub_p;
+  const int64_t base = (int64_t)sched[blockIdx.x] * tile_e;
+  for (int i = threadIdx.x; i < tile_e; i += blockDim.x) {
+    const int64_t e = base + i;
+    const int32_t s = src[e];
+    if (!paths[s]) continue;
+    const float c = __fadd_rn(dist[s], w[e]);
+    if (c >= lb && c < ub)
+      atomicMin(&keys[dst[e]],
+                ((unsigned long long)__float_as_uint(c) << 32) |
+                    (unsigned int)s);
+  }
+}
+
+__global__ void unpack(const unsigned long long* __restrict__ keys,
+                       int64_t n_out, float* __restrict__ vals,
+                       int32_t* __restrict__ wins) {
+  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_out) return;
+  const unsigned long long k = keys[j];
+  vals[j] = __uint_as_float((unsigned int)(k >> 32));
+  wins[j] = (int32_t)(k & 0xFFFFFFFFull);
+}
+
+}  // namespace
+
+// Returns the cudaError_t of the first launch that failed, else 0.
+extern "C" int edge_relax_launch(
+    const float* dist, const uint8_t* paths, const int32_t* src,
+    const int32_t* dst, const float* w, const uint8_t* tile_first,
+    const float* lb, const float* ub, int64_t n_tiles, int tile_e,
+    int64_t n_out, int32_t* sched, int32_t* sched_n,
+    unsigned long long* keys, float* vals, int32_t* wins, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(sched_n, 0, sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = tile_e >= 256 ? 256 : ((tile_e + 31) / 32) * 32;
+  const int64_t want = n_tiles > (n_out + threads - 1) / threads
+                           ? n_tiles : (n_out + threads - 1) / threads;
+  const int flag_blocks = (int)(want < 132 * 32 ? want : 132 * 32);
+  flag_tiles<<<flag_blocks, threads, 0, st>>>(paths, src, w, tile_first,
+                                              n_tiles, tile_e, sched,
+                                              sched_n, keys, n_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  relax_tiles<<<(unsigned int)n_tiles, threads, 0, st>>>(
+      dist, paths, src, dst, w, lb, ub, sched, sched_n, tile_e, keys);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  unpack<<<(unsigned int)((n_out + 255) / 256), 256, 0, st>>>(keys, n_out,
+                                                             vals, wins);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,52 @@
+"""The port stands alone: ``import repro_torch`` and a CPU solve load
+neither jax nor the reference package, entry points need ``cuda`` unless
+told ``device="cpu"``, and a CPU tensor never counts as a kernel launch."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import json, sys
+import repro_torch
+from repro_torch.core.sssp import sssp
+from repro_torch.data.generators import kronecker
+from repro_torch.kernels.edge_relax.ops import LAUNCHES
+g = kronecker(7, 4, seed=1)
+d, p, m = sssp(g, 0, backend="blocked", device="cpu", block_v=64, tile_e=64)
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "launches": LAUNCHES.edge_relax,
+                  "reached": int(d.isfinite().sum())}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["launches"] == 0           # CPU tensors: the plain version
+    assert res["reached"] > 1
+
+
+def test_entry_point_needs_a_card_unless_told_cpu():
+    from repro_torch.core.graph import build_csr
+    from repro_torch.core.sssp import sssp
+    g = build_csr(3, [0, 1], [1, 2], [1.0, 2.0])
+    if torch.cuda.is_available():
+        dist, _, _ = sssp(g, 0)
+        assert dist.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sssp(g, 0)
+    dist, _, _ = sssp(g, 0, device="cpu")
+    assert dist.tolist() == [0.0, 1.0, 3.0]

@@ -43,11 +43,6 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 KRON = dict(scale=20, edge_factor=16, seed=1)
 ROAD = dict(side=1024, seed=5)
-# per-graph blocked geometry: the kernel keeps no destination block in
-# shared memory, so a wide block_v costs nothing and keeps the per-bucket
-# tile padding of a scale-free graph near 1x
-GEOMETRY = {"kronecker": dict(block_v=65536, tile_e=256),
-            "road_grid": dict(block_v=512, tile_e=512)}
 
 
 def log(*a):
@@ -193,11 +188,11 @@ def main_path(graphs, device):
     from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
     from repro_torch.kernels.edge_relax.ops import LAUNCHES
     out = {}
-    for name, hg, geo in graphs:
+    for name, hg in graphs:
         dg = hg.to_device(device)
         source = int(np.argmax(hg.deg))
         t0 = time.perf_counter()
-        bg = build_blocked(dg, device=device, **geo)
+        bg = build_blocked(dg)          # the geometry derived for the card
         layout_s = time.perf_counter() - t0
         slots = bg.src.shape[0]
         log(f"[layout] {name}: block_v={bg.block_v} tile_e={bg.tile_e} "
@@ -319,10 +314,10 @@ def main() -> int:
         "bitwise equal")
 
     t0 = time.perf_counter()
-    graphs = [("kronecker(20,16)", kronecker(**KRON), GEOMETRY["kronecker"]),
-              ("road_grid(1024)", road_grid(**ROAD), GEOMETRY["road_grid"])]
+    graphs = [("kronecker(20,16)", kronecker(**KRON)),
+              ("road_grid(1024)", road_grid(**ROAD))]
     log(f"[data] generated in {time.perf_counter() - t0:.2f} s: " + ", ".join(
-        f"{n}: n={g.n} m={g.m}" for n, g, _ in graphs))
+        f"{n}: n={g.n} m={g.m}" for n, g in graphs))
     warm_up(device)
     results = main_path(graphs, device)
 

@@ -6,10 +6,15 @@ buckets ``floor(log2(deg))``.  A one-ulp difference in either moves a
 window edge or a bucket, which changes the logical counters that the
 port must reproduce exactly.  The reference's numbers come from XLA's
 CPU lowering, which expands these functions into fixed Cephes-style
-polynomials evaluated with separate, unfused float32 multiplies and
-adds.  The functions below evaluate the same polynomials in the same
-order with float32 tensor ops, so they give the same bits on any
-device (every op is a separately rounded IEEE float32 operation).
+polynomials, and its x86 backend contracts most multiply-add pairs of
+those polynomials into fused multiply-adds.  The functions below
+evaluate the same polynomials in the same order and fuse the same
+pairs.  Each fused multiply-add is emulated by :func:`_fma` as an exact
+float64 product plus a sum rounded to float64 and then to float32; the
+remaining multiplies and adds are plain float32 ops.  The results are
+the same bits on any device, except where that double rounding of a
+sum meets a tie at both widths, which a true fused multiply-add would
+round once (no such input has been seen).
 """
 from __future__ import annotations
 

@@ -33,6 +33,9 @@ N_DEG_BUCKETS = EXACT_DEG + 26
 # blocked-layout geometry defaults (the edge_relax kernel's own)
 DEFAULT_BLOCK_V = 512
 DEFAULT_TILE_E = 512
+# tile width of the layout derived for the CUDA kernel (one thread block
+# of 256 threads walks one tile)
+CUDA_TILE_E = 256
 
 
 class DeviceGraph(NamedTuple):
@@ -267,17 +270,37 @@ def bucket_edges(src_local, dst, w, *, n_dst_blocks: int, block_v: int,
     return s, d, ww, td, tf, ne[0], tile_ptr.astype(np.int32)
 
 
-def build_blocked(g, *, block_v: int = DEFAULT_BLOCK_V,
-                  tile_e: int = DEFAULT_TILE_E, device=None) -> BlockedGraph:
+def default_geometry(n: int, device) -> Tuple[int, int]:
+    """``(block_v, tile_e)`` when the caller gives neither.
+
+    On the CPU these are the reference's defaults, so the physical tile
+    counters follow its layout.  The CUDA kernel keeps no destination
+    block in shared memory, so a block that covers every vertex costs it
+    nothing: the layout is then one bucket in CSR order, padded by less
+    than one tile, where 512 x 512 buckets would pad a scale-free graph
+    many times over (63.5x on kronecker(20, 16)).
+    """
+    if torch.device(device).type == "cuda":
+        return max(-(-n // CUDA_TILE_E), 1) * CUDA_TILE_E, CUDA_TILE_E
+    return DEFAULT_BLOCK_V, DEFAULT_TILE_E
+
+
+def build_blocked(g, *, block_v: int | None = None,
+                  tile_e: int | None = None, device=None) -> BlockedGraph:
     """Pre-bucket a graph (``HostGraph`` or ``DeviceGraph``) for the kernel.
 
     Bucketing runs on the host in numpy; the layout lands on ``device``
-    (default: the device of a ``DeviceGraph``).
+    (default: the device of a ``DeviceGraph``).  ``block_v``/``tile_e``
+    left out come from :func:`default_geometry`.
     """
     if device is None:
         if not isinstance(g, DeviceGraph):
             raise ValueError("build_blocked needs device= for a HostGraph")
         device = g.device
+    if block_v is None or tile_e is None:
+        auto_v, auto_e = default_geometry(int(g.deg.shape[0]), device)
+        block_v = auto_v if block_v is None else block_v
+        tile_e = auto_e if tile_e is None else tile_e
     as_np = (lambda a: a.cpu().numpy()) if isinstance(g, DeviceGraph) \
         else np.asarray
     src = as_np(g.src).astype(np.int32)

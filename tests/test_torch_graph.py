@@ -153,6 +153,26 @@ def test_build_blocked_from_device_graph():
         tgraph.build_blocked(tg)
 
 
+def test_default_geometry():
+    rg, tg = _random_graph(5, 1500, 6000)
+    # on the CPU: the reference's own defaults and layout
+    rb = rgraph.build_blocked(rg)
+    tb = tgraph.build_blocked(tg, device="cpu")
+    assert (tb.block_v, tb.tile_e, tb.dense_grid_tiles) == \
+        (rb.block_v, rb.tile_e, rb.dense_grid_tiles)
+    # for the card: one block over every vertex, padded by under a tile
+    block_v, tile_e = tgraph.default_geometry(tg.n, "cuda")
+    assert (block_v, tile_e) == (1536, tgraph.CUDA_TILE_E)
+    assert tgraph.default_geometry(1 << 20, "cuda") == (1 << 20, 256)
+    cb = tgraph.build_blocked(tg, block_v=block_v, tile_e=tile_e,
+                              device="cpu")
+    assert cb.n_blocks == 1 and cb.n_out >= tg.n
+    assert 0 <= cb.src.shape[0] - tg.m < tile_e
+    # one bucket in CSR order: the slab is the flat edge list, then padding
+    assert torch.equal(cb.src[:tg.m], torch.from_numpy(tg.src))
+    assert torch.equal(cb.dst[:tg.m], torch.from_numpy(tg.dst))
+
+
 def test_convert_host_graph():
     rg = rgen.road_grid(6, seed=1)
     hg = convert.from_reference(ref_arrays(rg), "cpu")

@@ -19,6 +19,7 @@ from repro.core.sssp import LOGICAL_METRIC_FIELDS as REF_LOGICAL
 from repro.core.sssp import sssp as ref_sssp
 from repro_torch import convert
 from repro_torch.core.baselines import dijkstra_host
+from repro_torch.core.graph import default_geometry
 from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, metrics_dict,
                                    normalized_metrics, prepare_layout, sssp)
 from test_torch_graph import ref_arrays
@@ -114,6 +115,21 @@ def test_benchmark_graphs_match_reference(name):
     for be, out in outs.items():
         assert_same(ref, out, f"{name} {be}")
     assert_dijkstra(hg, src, outs["blocked"][0])
+
+
+@pytest.mark.parametrize("name", ["Road", "gr8_16"])
+def test_card_geometry_matches_reference(name):
+    """The one-bucket layout derived for the card, relaxed by the plain
+    version, against the reference."""
+    maker, kwargs = BENCH_GRAPHS[name]
+    rg = getattr(rgen, maker)(**kwargs)
+    src = int(np.argmax(rg.deg))
+    ref = _np(ref_sssp(rg.to_device(), src, backend="segment_min"))
+    hg = convert.from_reference(ref_arrays(rg), "cpu")
+    block_v, tile_e = default_geometry(hg.n, "cuda")
+    out = sssp(hg, src, backend="blocked", device="cpu", block_v=block_v,
+               tile_e=tile_e)
+    assert_same(ref, _port(out), f"{name} one-bucket layout")
 
 
 def _property_graph(seed):

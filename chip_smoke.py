@@ -6,24 +6,32 @@ Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit; build every CUDA kernel from
    the sources in this checkout (one ``nvcc`` per source, in parallel).
-2. Kernel vs plain version: the ``edge_relax`` kernel against its plain
-   PyTorch version on seeded random slabs (empty buckets, an all-padding
-   slab, ``lb <= 0``, forced ties); ``vals``, ``wins`` and ``n_tiles``
-   must be bitwise equal.
+2. Kernels vs plain versions on seeded random slabs: ``edge_relax``
+   (empty buckets, an all-padding slab, ``lb <= 0``, forced ties;
+   ``vals``, ``wins`` and ``n_tiles`` bitwise equal) and
+   ``edge_relax_fused`` (ties, ``lb <= 0``, ``fused_rounds`` 1, 4 and 8,
+   a call that stops after its first round, then 40 seeded cases over
+   geometries and round caps; each kernel call made twice; ``dist``,
+   ``parent``, ``frontier`` and the eight counters bitwise equal).
 3. Main path: a full shortest-path-tree solve from the max-degree source
    of ``kronecker(20, 16, seed=1)`` and of ``road_grid(1024, seed=5)``,
-   once on the blocked backend (the CUDA kernel) and once on
-   ``segment_min`` (plain torch).  ``dist``/``parent`` must be bitwise
-   equal and the logical counters equal between the two, the kernel must
-   have launched, and ``dist`` must match scipy's float64 Dijkstra at
-   ``rtol=1e-4, atol=1e-5``.  Scale 20 is a cut: the paper's graphs are
-   scale 26-27 (its road network has 24M vertices), and the numpy
-   generator needs about a minute at scale 20 and about four times that
-   per step of scale, which the run's time limit does not hold.
+   on the blocked backend (the ``edge_relax`` kernel), on the blocked
+   backend with ``fused_rounds=4`` (the ``edge_relax_fused`` kernel) and
+   on ``segment_min`` (plain torch).  ``dist``/``parent`` must be bitwise
+   equal and the logical counters equal across the three, each kernel
+   must have launched in its own solve, the fused solve must not launch
+   ``edge_relax`` and, on the road graph, must make at most half the
+   unfused solve's invocations, and ``dist`` must match scipy's float64
+   Dijkstra at ``rtol=1e-4, atol=1e-5``.  Scale 20 is a cut: the paper's
+   graphs are scale 26-27 (its road network has 24M vertices), and the
+   numpy generator needs about a minute at scale 20 and about four times
+   that per step of scale, which the run's time limit does not hold.
 4. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the byte bound at 3.35 TB/s,
-   launches on the main path), and each graph's solve seconds, rounds and
-   host syncs.
+   launches on the main path), and each graph's solve seconds, rounds,
+   iterations (one host sync each), kernel invocations, and the seconds
+   its step transitions and relaxation calls took (CUDA events around
+   each call, :class:`PhaseTimes`).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside the repository, the script exits non-zero and prints
@@ -43,6 +51,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 KRON = dict(scale=20, edge_factor=16, seed=1)
 ROAD = dict(side=1024, seed=5)
+FUSED_ROUNDS = 4
 
 
 def log(*a):
@@ -105,7 +114,7 @@ def _slab_case(rng, n, m, *, block_v, tile_e, ties, lb0, device):
     t = lambda a: torch.from_numpy(a).to(device)
     f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
     return (t(dist), t(frontier), bg.src, bg.dst, bg.w, bg.tile_first,
-            f32(lb), f32(ub)), dict(tile_e=bg.tile_e, n_out=bg.n_out)
+            f32(lb), f32(ub)), dict(tile_e=bg.tile_e, n_out=bg.n_out), bg
 
 
 def kernel_vs_plain(device, seed: int = 0) -> int:
@@ -124,7 +133,7 @@ def kernel_vs_plain(device, seed: int = 0) -> int:
              dict(n=5000, m=40000, block_v=1024, tile_e=256, ties=False,
                   lb0=True)]
     for i, case in enumerate(cases):
-        args, kw = _slab_case(rng, device=device, **case)
+        args, kw, _ = _slab_case(rng, device=device, **case)
         vals, wins, nt = ops.relax_bucket(*args, **kw)
         pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
         _, pn = ref.schedule_tiles(args[1], args[2], args[4], args[5],
@@ -133,6 +142,61 @@ def kernel_vs_plain(device, seed: int = 0) -> int:
                 and int(nt) == int(pn)):
             raise AssertionError(f"edge_relax case {i} {case}: kernel and "
                                  "plain version disagree")
+    return len(cases)
+
+
+def fused_vs_plain(device, seed: int = 1, n_random: int = 40) -> int:
+    """Slabs through the fused kernel (twice, to catch races) and its
+    plain version: the named cases, then ``n_random`` seeded ones over
+    geometries, windows and round caps.  Returns the number of cases,
+    raises on the first disagreement."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    rng = np.random.default_rng(seed)
+    cases = [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=False,
+                  lb0=False, rounds=4),
+             dict(n=1000, m=6000, block_v=128, tile_e=128, ties=True,
+                  lb0=False, rounds=8),
+             dict(n=700, m=3000, block_v=256, tile_e=64, ties=True,
+                  lb0=True, rounds=4),
+             dict(n=5000, m=40000, block_v=1024, tile_e=256, ties=False,
+                  lb0=False, rounds=1),
+             dict(n=5000, m=40000, block_v=5120, tile_e=256, ties=True,
+                  lb0=False, rounds=8),
+             dict(n=300, m=2000, block_v=128, tile_e=128, ties=False,
+                  lb0=False, rounds=4, stop=True)]
+    for _ in range(n_random):
+        n = int(rng.integers(64, 20000))
+        cases.append(dict(
+            n=n, m=int(rng.integers(0, 8 * n)),
+            block_v=int(rng.choice([64, 1024, -(-n // 256) * 256])),
+            tile_e=int(rng.choice([32, 64, 256, 512])),
+            ties=bool(rng.random() < 0.5), lb0=bool(rng.random() < 0.2),
+            rounds=int(rng.choice([1, 2, 4, 8, 16]))))
+    names = list(ops.FUSED_COUNTERS)
+    for i, case in enumerate(cases):
+        rounds, stop = case.pop("rounds"), case.pop("stop", False)
+        (dist, front, *_, lb, ub), _, bg = _slab_case(rng, device=device,
+                                                       **case)
+        if stop:                 # nothing to relax: one round, then exit
+            front = torch.zeros_like(front)
+        n_out = bg.n_out
+        parent = torch.from_numpy(np.where(
+            np.isfinite(dist.cpu().numpy()), rng.integers(0, n_out, n_out),
+            -1).astype(np.int32)).to(device)
+        args = (dist, parent, front, bg.deg, bg.src, bg.dst, bg.w,
+                bg.tile_first, lb, ub)
+        kw = dict(tile_e=bg.tile_e, fused_rounds=rounds)
+        want = ref.edge_relax_fused_ref(*args, **kw)
+        for _ in range(2):
+            out = ops.relax_fused(*args, **kw)
+            same = bitwise_equal(out[0], want[0]) and all(
+                a.equal(b) for a, b in zip(out[1:], want[1:]))
+            if not same or (stop and int(out[3][names.index("n_exec")])
+                            != 1):
+                raise AssertionError(
+                    f"edge_relax_fused case {i} {case} rounds={rounds}: "
+                    f"kernel {out[3].tolist()} and plain version "
+                    f"{want[3].tolist()} disagree")
     return len(cases)
 
 
@@ -154,18 +218,66 @@ def scipy_dist(g, source: int) -> np.ndarray:
     return dijkstra(a, directed=True, indices=source)
 
 
+class PhaseTimes:
+    """CUDA events around each step transition and relaxation call of
+    one solve (``core/sssp.py``'s ``_transition``, ``_relax_round`` and
+    ``_fused_relax_rounds``, wrapped while the context is open).  The
+    events are recorded on the stream with no synchronize, so the solve
+    keeps its own host reads; a span runs from the call's first launch to
+    its last, the host's launch gaps included, since the loop's host read
+    leaves the stream idle when the call begins."""
+    NAMES = ("_transition", "_relax_round", "_fused_relax_rounds")
+
+    def __enter__(self):
+        from repro_torch.core import sssp as mod
+        self.mod, self.saved = mod, {}
+        self.spans = {name: [] for name in self.NAMES}
+        for name in self.NAMES:
+            self.saved[name] = getattr(mod, name)
+            setattr(mod, name, self._timed(self.saved[name],
+                                           self.spans[name]))
+        return self
+
+    @staticmethod
+    def _timed(fn, spans):
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+    def seconds(self) -> dict:
+        """Calls and summed seconds per wrapped function (after a
+        synchronize)."""
+        return {name.strip("_"): dict(
+            calls=len(spans),
+            s=sum(a.elapsed_time(b) for a, b in spans) / 1e3)
+            for name, spans in self.spans.items() if spans}
+
+
 def solve(g, source, backend, device, **opts):
+    """One timed solve; returns ``(dist, parent, metrics, seconds,
+    phases)`` with ``phases`` from :class:`PhaseTimes`."""
     from repro_torch.core.sssp import sssp
-    sync(device)
-    t0 = time.perf_counter()
-    dist, parent, metrics = sssp(g, source, backend=backend, device=device,
-                                 **opts)
-    sync(device)
-    return dist, parent, metrics, time.perf_counter() - t0
+    with PhaseTimes() as phases:
+        sync(device)
+        t0 = time.perf_counter()
+        dist, parent, metrics = sssp(g, source, backend=backend,
+                                     device=device, **opts)
+        sync(device)
+        secs = time.perf_counter() - t0
+    return dist, parent, metrics, secs, phases.seconds()
 
 
-def check_against_dijkstra(hg, source, dist):
-    ref = scipy_dist(hg, source)
+def check_against_dijkstra(ref, dist):
     d = dist.cpu().numpy()
     np.testing.assert_allclose(np.where(np.isfinite(d), d, -1.0),
                                np.where(np.isfinite(ref), ref, -1.0),
@@ -177,13 +289,15 @@ def warm_up(device):
     the process's first use of each CUDA kernel."""
     from repro_torch.data.generators import kronecker
     g = kronecker(10, 8, seed=0)
-    for backend in ("blocked", "segment_min"):
-        solve(g, int(np.argmax(g.deg)), backend, device)
+    for backend, opts in (("blocked", {}), ("blocked", dict(fused_rounds=4)),
+                          ("segment_min", {})):
+        solve(g, int(np.argmax(g.deg)), backend, device, **opts)
 
 
 def main_path(graphs, device):
-    """Both solves per graph; returns per-graph results.  The launch
-    counter is zeroed just before the blocked solves and read after."""
+    """Three solves per graph; returns per-graph results.  The launch
+    counters are zeroed just before each kernel's solve and read just
+    after it."""
     from repro_torch.core.graph import build_blocked
     from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
     from repro_torch.kernels.edge_relax.ops import LAUNCHES
@@ -199,26 +313,59 @@ def main_path(graphs, device):
             f"padded slots={slots} over m={hg.m} "
             f"(blow-up {slots / max(hg.m, 1):.4f}x) in {layout_s:.2f} s")
         LAUNCHES.reset()
-        kd, kp, km, ks = solve(dg, source, "blocked", device, layout=bg)
+        kd, kp, km, ks, kt = solve(dg, source, "blocked", device,
+                                   layout=bg)
         launches = LAUNCHES.edge_relax
-        pd, pp, pm, ps = solve(dg, source, "segment_min", device)
-        kmd, pmd = metrics_dict(km), metrics_dict(pm)
-        if not (kd.equal(pd) and kp.equal(pp)):
-            raise AssertionError(f"{name}: blocked and segment_min differ")
-        bad = [f for f in LOGICAL_METRIC_FIELDS if kmd[f] != pmd[f]]
-        if bad:
-            raise AssertionError(f"{name}: logical counters differ: {bad}")
+        LAUNCHES.reset()
+        fd, fp, fm, fs, ft = solve(dg, source, "blocked", device,
+                                   layout=bg, fused_rounds=FUSED_ROUNDS)
+        fused_launches = LAUNCHES.edge_relax_fused
+        stray = LAUNCHES.edge_relax
+        pd, pp, pm, ps, pt = solve(dg, source, "segment_min", device)
+        kmd, fmd, pmd = metrics_dict(km), metrics_dict(fm), metrics_dict(pm)
+        for what, d, p, md in (("blocked", kd, kp, kmd),
+                               ("fused", fd, fp, fmd)):
+            if not (bitwise_equal(d, pd) and p.equal(pp)):
+                raise AssertionError(f"{name}: {what} and segment_min "
+                                     "differ")
+            bad = [f for f in LOGICAL_METRIC_FIELDS if md[f] != pmd[f]]
+            if bad:
+                raise AssertionError(f"{name}: {what} logical counters "
+                                     f"differ from segment_min: {bad}")
         if launches <= 0:
             raise AssertionError(f"{name}: the edge_relax kernel never ran")
-        check_against_dijkstra(hg, source, kd)
-        log(f"[solve] {name}: source={source} blocked {ks:.3f} s, "
-            f"segment_min {ps:.3f} s, rounds={kmd['n_rounds']} "
-            f"steps={kmd['n_steps']} host_syncs={int(kmd['n_host_syncs'])} "
-            f"edge_relax launches={launches} "
-            f"tiles_scanned={int(kmd['n_tiles_scanned'])} "
-            f"reached={int(np.isfinite(kd.cpu().numpy()).sum())}")
-        out[name] = dict(graph=dg, layout=bg, dist=kd, launches=launches,
-                         solve_s=ks, plain_solve_s=ps, metrics=kmd)
+        if fused_launches <= 0 or stray:
+            raise AssertionError(
+                f"{name}: the fused solve launched edge_relax_fused "
+                f"{fused_launches} times and edge_relax {stray} times")
+        if name.startswith("road") and 2 * fmd["n_invocations"] > \
+                kmd["n_invocations"]:
+            raise AssertionError(
+                f"{name}: the fused solve made {fmd['n_invocations']} "
+                f"invocations, more than half of {kmd['n_invocations']}")
+        ref = scipy_dist(hg, source)
+        check_against_dijkstra(ref, kd)
+        check_against_dijkstra(ref, fd)
+        reached = int(np.isfinite(kd.cpu().numpy()).sum())
+        for what, secs, md, n_launch, phases in (
+                ("blocked", ks, kmd, launches, kt),
+                ("fused", fs, fmd, fused_launches, ft),
+                ("segment_min", ps, pmd, None, pt)):
+            spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
+                             for k, v in phases.items())
+            log(f"[solve] {name} {what}: source={source} {secs!r} s, "
+                f"rounds={md['n_rounds']} steps={md['n_steps']} "
+                f"iterations={int(md['n_host_syncs'])} "
+                f"host_syncs={int(md['n_host_syncs'])} "
+                f"invocations={int(md['n_invocations'])} "
+                f"launches={n_launch} "
+                f"tiles_scanned={int(md['n_tiles_scanned'])} "
+                f"reached={reached} {spans}")
+        out[name] = dict(graph=dg, layout=bg, dist=kd, parent=kp,
+                         launches=launches, fused_launches=fused_launches,
+                         solve_s=ks, fused_solve_s=fs, plain_solve_s=ps,
+                         phases=kt, fused_phases=ft, plain_phases=pt,
+                         metrics=kmd, fused_metrics=fmd)
     return out
 
 
@@ -294,6 +441,55 @@ def measure(res, device):
                 candidates=int(ok.sum()))
 
 
+def fused_window_inputs(res, device):
+    """A mid-solve state of the main path's layout: the vertices below
+    the median distance settled (their solved dist and parent), the push
+    band [median - maxW, median) on the frontier, the rest unreached,
+    and the window [median, median + maxW)."""
+    dg, bg, dist, parent = (res["graph"], res["layout"], res["dist"],
+                            res["parent"])
+    lb = dist[torch.isfinite(dist)].median()
+    ub = lb + dg.max_w
+    settled = dist < lb
+    pad = bg.n_out - dg.n
+    grow = lambda x, v: torch.cat([x, torch.full((pad,), v, dtype=x.dtype,
+                                                 device=device)])
+    d0 = grow(torch.where(settled, dist, float("inf")), float("inf"))
+    p0 = grow(torch.where(settled, parent, -1), -1)
+    f0 = grow(settled & (dist >= lb - dg.max_w), False)
+    return (d0, p0, f0, bg.deg, bg.src, bg.dst, bg.w, bg.tile_first,
+            lb.reshape(()), ub.reshape(()))
+
+
+def measure_fused(res, device):
+    from repro_torch.kernels.edge_relax import ops, ref
+    bg = res["layout"]
+    args = fused_window_inputs(res, device)
+    kw = dict(tile_e=bg.tile_e, fused_rounds=FUSED_ROUNDS)
+    out = ops.relax_fused(*args, **kw)
+    want = ref.edge_relax_fused_ref(*args, **kw)
+    if not (bitwise_equal(out[0], want[0])
+            and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
+        raise AssertionError("edge_relax_fused disagrees with its plain "
+                             "version on the main path's layout")
+    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
+    kernel_ms = cuda_ms(lambda: ops.relax_fused(*args, **kw))
+    plain_ms = cuda_ms(lambda: ref.edge_relax_fused_ref(*args, **kw))
+    # least bytes for this call's data, per executed round: src of every
+    # slot and tile_first (the flag pass), dst and w of the scheduled
+    # slots, and per vertex the key written and read back (16), dist read
+    # (4), front read and written (2), deg (4); once per call, per vertex,
+    # dist written and parent read and written (12)
+    cnt = dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
+    e, nt, n_out = bg.src.shape[0], bg.tile_first.shape[0], bg.n_out
+    bytes_ = (cnt["n_exec"] * (4 * e + nt + 26 * n_out) + 12 * n_out
+              + 8 * cnt["n_tiles"] * bg.tile_e)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                bytes=bytes_, counts=cnt, window=[float(args[8]),
+                                                  float(args[9])])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -310,8 +506,10 @@ def main() -> int:
     built = _build.build_all()
     log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f} s")
 
-    log(f"[kernel-vs-plain] {kernel_vs_plain(device)} random slab cases "
-        "bitwise equal")
+    log(f"[kernel-vs-plain] edge_relax: {kernel_vs_plain(device)} random "
+        "slab cases bitwise equal")
+    log(f"[kernel-vs-plain] edge_relax_fused: {fused_vs_plain(device)} "
+        "random slab cases bitwise equal")
 
     t0 = time.perf_counter()
     graphs = [("kronecker(20,16)", kronecker(**KRON)),
@@ -324,7 +522,11 @@ def main() -> int:
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
         log(f"[edge_relax] {name}: " + json.dumps(m))
-    head = per_graph["kronecker(20,16)"]
+    fused = {name: measure_fused(res, device)
+             for name, res in results.items()}
+    for name, m in fused.items():
+        log(f"[edge_relax_fused] {name}: " + json.dumps(m))
+    head, fhead = per_graph["kronecker(20,16)"], fused["kronecker(20,16)"]
     kernels = [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -335,14 +537,30 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
         "library_ms": head["library_ms"],
         "launches_per_solve": {n: r["launches"] for n, r in results.items()},
+    }, {
+        "name": "edge_relax_fused", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/"
+                  "edge_relax_fused.cu",
+        "replaces": "src/repro/kernels/edge_relax/edge_relax.py:431",
+        "launches": sum(r["fused_launches"] for r in results.values()),
+        "max_abs_err": max(m["max_abs_err"] for m in fused.values()),
+        "ms": fhead["ms"], "plain_ms": fhead["plain_ms"],
+        "bound_ms": fhead["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_per_solve": {n: r["fused_launches"]
+                               for n, r in results.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
-    log(json.dumps({"solves": {n: dict(solve_s=r["solve_s"],
-                                       plain_solve_s=r["plain_solve_s"],
-                                       rounds=r["metrics"]["n_rounds"],
-                                       host_syncs=int(
-                                           r["metrics"]["n_host_syncs"]))
-                               for n, r in results.items()}}))
+    log(json.dumps({"solves": {n: dict(
+        solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
+        plain_solve_s=r["plain_solve_s"], phases=r["phases"],
+        fused_phases=r["fused_phases"], plain_phases=r["plain_phases"],
+        rounds=r["metrics"]["n_rounds"],
+        host_syncs=int(r["metrics"]["n_host_syncs"]),
+        fused_host_syncs=int(r["fused_metrics"]["n_host_syncs"]),
+        invocations=int(r["metrics"]["n_invocations"]),
+        fused_invocations=int(r["fused_metrics"]["n_invocations"]))
+        for n, r in results.items()}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,8 @@ ub) -> (new_dist, new_parent, RoundMetrics)`` plus a ``prepare(graph,
     The :class:`~repro_torch.core.graph.BlockedGraph` layout driving the
     ``kernels/edge_relax`` kernel: one call per round over all slabs
     (the hand-written CUDA kernel on the card, its plain version on the
-    CPU).
+    CPU).  :func:`blocked_fused_rounds` runs up to ``fused_rounds`` of
+    those rounds in one call of the fused kernel.
 
 Every backend resolves ties toward the smallest source id, so
 ``dist``/``parent`` and the logical counters are bitwise-identical across
@@ -28,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .graph import BlockedGraph, DeviceGraph, build_blocked
-from ..kernels.edge_relax.ops import relax_bucket
+from ..kernels.edge_relax.ops import relax_bucket, relax_fused
 
 INT_MAX = 2 ** 31 - 1
 INF = float("inf")
@@ -249,3 +250,31 @@ def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub):
 BLOCKED_PALLAS = register_backend(RelaxBackend(
     name="blocked_pallas", prepare=_blocked_prepare,
     relax_window=_blocked_relax), aliases=("blocked",))
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-round kernel (kernels/edge_relax, edge_relax_fused)
+# ---------------------------------------------------------------------------
+
+def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
+                         *, fused_rounds: int):
+    """Up to ``fused_rounds`` relaxation rounds in one kernel call.
+
+    The fused twin of calling :func:`_blocked_relax` once per round until
+    the window settles: the same dist/parent/frontier and logical
+    counters, with the state kept on the device across rounds and the
+    counters folded into the kernel.  Returns ``(dist, parent, frontier,
+    counts)`` over the unpadded vertex range; ``counts`` is the kernel's
+    int32 ``FUSED_COUNTERS`` vector.
+    """
+    if bg.n_pad != bg.n_out:
+        raise ValueError(
+            "the fused kernel needs a whole-graph blocked layout (source "
+            f"range == destination range); got n_pad={bg.n_pad}, "
+            f"n_out={bg.n_out}")
+    n = bg.n
+    dist2, parent2, front2, cnt = relax_fused(
+        _pad(dist, bg.n_out, INF), _pad(parent, bg.n_out, -1),
+        _pad(frontier, bg.n_out, False), bg.deg, bg.src, bg.dst, bg.w,
+        bg.tile_first, lb, ub, tile_e=bg.tile_e, fused_rounds=fused_rounds)
+    return dist2[:n], parent2[:n], front2[:n], cnt

@@ -5,9 +5,11 @@ The reference flattens the solve into one ``lax.while_loop`` on the
 device.  Here the loop is Python and the state stays in device tensors
 (``lb``, ``ub``, ``st`` and ``done`` are 0-d tensors).  Each iteration
 runs one round of windowed relaxation through a backend from
-:mod:`.relax`; when the frontier empties, the same iteration performs the
-step transition (Function 2's ``computeST``, the dynamic-stepping
-``gap``, Function 1's pull phase and the empty-window fast-forward).
+:mod:`.relax` (or, with ``fused_rounds > 0`` on the blocked backend, up
+to that many rounds in one call of the fused kernel); when the frontier
+empties, the same iteration performs the step transition (Function 2's
+``computeST``, the dynamic-stepping ``gap``, Function 1's pull phase and
+the empty-window fast-forward).
 
 Host syncs: the loop reads one small tensor per iteration, carrying both
 ``done`` (set by the previous transition) and ``any(frontier)`` after
@@ -105,6 +107,31 @@ def _relax_round(backend: relax.RelaxBackend, layout,
                         frontier=rm.improved, metrics=metrics)
 
 
+def _fused_relax_rounds(bg, st_: SsspState, fused_rounds: int) -> SsspState:
+    """Up to ``fused_rounds`` synchronized rounds in one call of the fused
+    kernel: the twin of calling :func:`_relax_round` once per round until
+    the window settles, with the same dist/parent/frontier and logical
+    counters."""
+    new_dist, new_parent, new_front, cnt = relax.blocked_fused_rounds(
+        bg, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub,
+        fused_rounds=fused_rounds)
+    m = st_.metrics
+    n_exec = cnt[6].to(torch.float32)
+    metrics = m._replace(
+        n_rounds=m.n_rounds + cnt[4],
+        n_trav=m.n_trav + cnt[0],
+        n_relax=m.n_relax + cnt[1],
+        n_updates=m.n_updates + cnt[2],
+        n_extended=m.n_extended + cnt[3],
+        n_pruned=m.n_pruned + cnt[7],
+        n_tiles_scanned=m.n_tiles_scanned + cnt[5].to(torch.float32),
+        # the dense-grid comparator charges one full grid per round
+        n_tiles_dense=m.n_tiles_dense + n_exec * bg.dense_grid_tiles,
+        n_invocations=m.n_invocations + 1)
+    return st_._replace(dist=new_dist, parent=new_parent,
+                        frontier=new_front, metrics=metrics)
+
+
 def _bootstrap_ub(g: DeviceGraph, st_: SsspState,
                   high_d0: torch.Tensor) -> SsspState:
     """Algo 2 l.18-20: during the first step, tighten ub to the shortest
@@ -183,8 +210,10 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts) -> SsspState:
 
 
 def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
-         max_iters: int, alpha: float, beta: float):
-    """One SSSP computation; returns ``(dist, parent, metrics)``."""
+         max_iters: int, alpha: float, beta: float, fused_rounds: int = 0):
+    """One SSSP computation; returns ``(dist, parent, metrics)``.
+    ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
+    kernel, up to that many rounds per call."""
     n = g.n
     dev = g.device
     deg_f0 = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -210,10 +239,15 @@ def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
                   done=torch.zeros((), dtype=torch.bool, device=dev),
                   metrics=metrics0)
 
+    if fused_rounds > 0:
+        relax_step = lambda s: _fused_relax_rounds(layout, s, fused_rounds)
+    else:
+        relax_step = lambda s: _relax_round(backend, layout, s)
+
     syncs = 0
     for _ in range(max_iters):
         prev = s
-        s = _relax_round(backend, layout, s)
+        s = relax_step(s)
         s = _bootstrap_ub(g, s, c.high_d0)
         done, any_front = torch.stack([s.done, s.frontier.any()]).tolist()
         syncs += 1
@@ -257,7 +291,6 @@ def prepare_layout(g, backend="segment_min", *, device=None,
 
 _LATER = {
     "goal": "the query-goal slice (p2p, bounded, knear)",
-    "fused_rounds": "the fused-megakernel slice (edge_relax_fused)",
     "policy": "the adaptive-policy slice",
     "trace": "the observability slice",
     "landmarks": "the ALT slice",
@@ -275,30 +308,37 @@ def sssp(g, source, *, backend="segment_min", layout=None,
     and must be given as ``"cpu"`` to run without a card.  ``backend``
     is ``"segment_min"`` or ``"blocked"``; ``layout_opts`` (``block_v``,
     ``tile_e``) shape the blocked layout, or pass a prebuilt ``layout``.
+    ``fused_rounds > 0`` (blocked backend only) runs up to that many
+    rounds per call of the fused kernel, with the same result.
     Returns ``(dist, parent, metrics)`` as device tensors.
 
-    The other query goals, fused rounds, the adaptive policy, tracing and
-    ALT landmarks belong to later slices of the port and raise
-    ``NotImplementedError``.
+    The other query goals, the adaptive policy, tracing and ALT landmarks
+    belong to later slices of the port and raise ``NotImplementedError``.
     """
-    asked = {"goal": goal != "tree", "fused_rounds": bool(fused_rounds),
-             "policy": policy != "static", "trace": bool(trace),
-             "landmarks": landmarks is not None}
+    asked = {"goal": goal != "tree", "policy": policy != "static",
+             "trace": bool(trace), "landmarks": landmarks is not None}
     for name, on in asked.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet; it comes "
                                       f"with {_LATER[name]}")
+    be = relax.get_backend(backend)
+    fused_rounds = int(fused_rounds)
+    if fused_rounds < 0:
+        raise ValueError(f"fused_rounds must be >= 0, got {fused_rounds}")
+    if fused_rounds and be is not relax.BLOCKED_PALLAS:
+        raise ValueError(f"fused_rounds needs the blocked backend, not "
+                         f"{be.name!r} (set backend='blocked', or drop "
+                         "fused_rounds)")
     dev = resolve_device(device)
     g = _on_device(g, dev)
     if not 0 <= int(source) < g.n:
         raise ValueError(f"source {source} out of range for n={g.n}")
-    be = relax.get_backend(backend)
     if layout is None:
         layout = be.prepare(g, **layout_opts)
     elif layout_opts:
         raise ValueError("pass either layout= or layout options, not both")
     return _run(g, layout, int(source), be, max_iters, float(alpha),
-                float(beta))
+                float(beta), fused_rounds)
 
 
 def metrics_dict(metrics: SsspMetrics) -> dict:

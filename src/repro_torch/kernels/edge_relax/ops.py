@@ -1,9 +1,11 @@
-"""Wrapper of the edge_relax kernel: one relaxation round over a slab.
+"""Wrappers of the edge_relax kernels.
 
-:func:`relax_bucket` takes the tensors where they lie.  CPU tensors go to
-the plain version in :mod:`.ref`; CUDA tensors go to the hand-written
-kernel in ``csrc/edge_relax.cu`` (built on first use), or the call
-raises.  There is no fallback from one to the other.
+:func:`relax_bucket` runs one relaxation round over a slab,
+:func:`relax_fused` up to ``fused_rounds`` rounds in one call.  Both take
+the tensors where they lie.  CPU tensors go to the plain versions in
+:mod:`.ref`; CUDA tensors go to the hand-written kernels in
+``csrc/edge_relax.cu`` and ``csrc/edge_relax_fused.cu`` (built on first
+use), or the call raises.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -11,21 +13,25 @@ import ctypes
 
 import torch
 
-from .ref import INT_MAX, edge_relax_ref, schedule_tiles
+from .ref import (FUSED_COUNTERS, INT_MAX, edge_relax_fused_ref,
+                  edge_relax_ref, schedule_tiles)
 
-__all__ = ["relax_bucket", "edge_relax_ref", "schedule_tiles", "INT_MAX",
-           "LAUNCHES"]
+__all__ = ["relax_bucket", "relax_fused", "edge_relax_ref",
+           "edge_relax_fused_ref", "schedule_tiles", "FUSED_COUNTERS",
+           "INT_MAX", "LAUNCHES"]
 
 
 class _Counter:
-    """Launches of the CUDA kernel chain (one per :func:`relax_bucket`
-    call on the card); CPU calls never count."""
+    """Launches of the CUDA kernels: ``edge_relax`` counts one per
+    :func:`relax_bucket` call on the card, ``edge_relax_fused`` one per
+    :func:`relax_fused` call; CPU calls never count."""
 
     def __init__(self):
-        self.edge_relax = 0
+        self.reset()
 
     def reset(self):
         self.edge_relax = 0
+        self.edge_relax_fused = 0
 
 
 LAUNCHES = _Counter()
@@ -35,12 +41,17 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
              ctypes.c_int64, _P, _P, _P, _P, _P, _P]
 
 
-def _library():
+_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, _P, _P,
+                   _P, _P, _P, _P, _P]
+
+
+def _library(name="edge_relax", argtypes=_ARGTYPES):
     from .. import _build
-    lib = _build.load("edge_relax")
-    fn = lib.edge_relax_launch
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -113,3 +124,83 @@ def relax_bucket(dist, frontier, src, dst, w, tile_first, lb, ub, *,
                                 n_out=n_out)
     _, n_tiles = schedule_tiles(frontier, src, w, tile_first, tile_e)
     return vals, wins, n_tiles
+
+
+def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
+                           tile_first, lb, ub, *, tile_e: int,
+                           fused_rounds: int):
+    dev = dist.device
+    e = src.shape[0]
+    nt = tile_first.shape[0]
+    if e != nt * tile_e or nt == 0:
+        raise ValueError(f"slab of {e} slots is not {nt} tiles of {tile_e}")
+    n_out = dist.shape[0]
+    for name, t, dtype, shape in (
+            ("dist", dist, torch.float32, (n_out,)),
+            ("parent", parent, torch.int32, (n_out,)),
+            ("frontier", frontier, torch.bool, (n_out,)),
+            ("deg", deg, torch.int32, (n_out,)),
+            ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
+            ("w", w, torch.float32, (e,)),
+            ("tile_first", tile_first, torch.bool, (nt,)),
+            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
+        _check(name, t, dtype, shape, dev)
+    fn = _library("edge_relax_fused", _FUSED_ARGTYPES)
+    empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
+    dist_out = empty(n_out, torch.float32)
+    parent_out = empty(n_out, torch.int32)
+    front_out = empty(n_out, torch.bool)
+    counts = empty(8, torch.int32)
+    keys = empty(n_out, torch.int64)
+    sched = empty(nt, torch.int32)
+    scalars = empty(3, torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dist.data_ptr(), parent.data_ptr(), frontier.data_ptr(),
+                 deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                 w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
+                 ub.data_ptr(), nt, tile_e, n_out, fused_rounds,
+                 dist_out.data_ptr(), parent_out.data_ptr(),
+                 front_out.data_ptr(), counts.data_ptr(), keys.data_ptr(),
+                 sched.data_ptr(), scalars.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"edge_relax_fused launch failed: {_error(err)}")
+    LAUNCHES.edge_relax_fused += 1
+    return dist_out, parent_out, front_out, counts
+
+
+def _error(code: int) -> str:
+    """``cudaGetErrorName`` of a code the C launcher returned."""
+    from .. import _build
+    fn = _build.load("edge_relax_fused").edge_relax_fused_error_name
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return f"{fn(code).decode()} ({code})"
+
+
+def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
+                ub, *, tile_e: int, fused_rounds: int):
+    """Up to ``fused_rounds`` relaxation rounds over a whole-graph slab in
+    one call (one round while ``lb <= 0``; it stops after the first round
+    that improves nothing).
+
+    ``dist`` f32, ``parent`` i32, ``frontier`` bool, ``deg`` i32 span the
+    padded vertex range ``[0, n_out)``; ``src``/``dst`` int32 and ``w``
+    f32 ``[NT * tile_e]`` are the concatenated slabs with global ids
+    (padding slots carry ``w=+inf``), ``tile_first`` bool ``[NT]``;
+    ``lb``/``ub`` 0-d f32 on the device.  Returns ``(dist, parent,
+    frontier, counts)``: the state after the last executed round, in new
+    tensors, and the int32 ``FUSED_COUNTERS`` summed over those rounds.
+    """
+    if fused_rounds < 1:
+        raise ValueError(f"fused_rounds must be >= 1, got {fused_rounds}")
+    if dist.is_cuda:
+        return _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst,
+                                      w, tile_first, lb, ub, tile_e=tile_e,
+                                      fused_rounds=fused_rounds)
+    if dist.device.type != "cpu":
+        raise ValueError(f"edge_relax_fused runs on CUDA or CPU, not "
+                         f"{dist.device}")
+    return edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
+                                tile_first, lb, ub, tile_e=tile_e,
+                                fused_rounds=fused_rounds)

@@ -1,16 +1,22 @@
-"""Plain PyTorch versions of the edge_relax kernel and its prepass.
+"""Plain PyTorch versions of the edge_relax kernels and their prepass.
 
-``edge_relax_ref`` is the kernel's contract written with ``scatter_reduce``;
-``schedule_tiles`` is the reference's frontier-compaction prepass.  The
-wrapper in :mod:`.ops` runs them for CPU tensors, the tests hold them
-against the JAX package, and ``chip_smoke.py`` holds the CUDA kernel
-against them on the card.  Both work on any device.
+``edge_relax_ref`` is the one-round kernel's contract written with
+``scatter_reduce``; ``schedule_tiles`` is the reference's
+frontier-compaction prepass; ``edge_relax_fused_ref`` is the multi-round
+fused kernel's contract.  The wrappers in :mod:`.ops` run them for CPU
+tensors, the tests hold them against the JAX package, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
+work on any device.
 """
 from __future__ import annotations
 
 import torch
 
 INT_MAX = 2 ** 31 - 1
+
+# counter slots of the fused kernel's int32[8] result
+FUSED_COUNTERS = ("n_trav", "n_relax", "n_updates", "n_extended",
+                  "n_rounds", "n_tiles", "n_exec", "n_pruned")
 
 
 def schedule_tiles(frontier_block, src_local, w, tile_first, tile_e: int):
@@ -56,3 +62,59 @@ def edge_relax_ref(dist_block, frontier_block, src_local, dst_local, w,
     winner = torch.full((n_out,), INT_MAX, dtype=torch.int32,
                         device=w.device).scatter_reduce_(0, dst, win, "amin")
     return best, winner
+
+
+def _count(mask):
+    return mask.sum().to(torch.int32)
+
+
+def _slab_counters(pa_src, w, dst, p_src, ok, tile_first, tile_e: int):
+    """The fused kernel's traversal counters, computed slab-wide (exact:
+    tiles outside the compacted schedule contribute zero to each).
+    Returns ``(n_trav, n_relax, n_tiles)``: the in-window edges ``ok``,
+    those not back along the source's parent edge, and the active
+    tiles."""
+    nt = w.shape[0] // tile_e
+    touched = pa_src & torch.isfinite(w)
+    active = touched.reshape(nt, tile_e).any(dim=1) | tile_first
+    return _count(ok), _count(ok & (dst != p_src)), _count(active)
+
+
+def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
+                         tile_first, lb, ub, *, tile_e: int,
+                         fused_rounds: int):
+    """Up to ``fused_rounds`` windowed relaxation rounds (one while
+    ``lb <= 0``), stopping after the first round that improves nothing.
+
+    ``dist`` f32, ``parent`` i32, ``frontier`` bool and ``deg`` i32 span
+    the padded vertex range ``[0, n_out)``; ``src``/``dst``/``w`` are the
+    whole concatenated slab with global ids, ``tile_first`` bool its
+    forced tiles; ``lb``/``ub`` 0-d f32.  Each round leaf-prunes the
+    frontier, relaxes every in-window candidate (min value, then min
+    source id), commits the improvements, which become the next
+    frontier, and adds to the int32 ``FUSED_COUNTERS``.  Returns ``(dist,
+    parent, frontier, counts)`` after the last executed round.
+    """
+    src_l = src.long()
+    max_r = 1 if bool(lb <= 0.0) else fused_rounds
+    cnt = torch.zeros(8, dtype=torch.int32, device=dist.device)
+    zero = torch.zeros((), dtype=torch.int32, device=dist.device)
+    for _ in range(max_r):
+        paths = frontier & ((dist <= 0.0) | (deg > 1))
+        best, winner = edge_relax_ref(dist, paths, src, dst, w, lb, ub,
+                                      n_out=dist.shape[0])
+        pa_src = paths[src_l]
+        cand = dist[src_l] + w
+        ok = pa_src & (cand >= lb) & (cand < ub)
+        trav, rlx, n_tiles = _slab_counters(pa_src, w, dst, parent[src_l],
+                                            ok, tile_first, tile_e)
+        improved = best < dist
+        cnt = cnt + torch.stack([
+            trav, rlx, _count(improved), _count(improved & (deg > 1)),
+            frontier.any().to(torch.int32), n_tiles, zero + 1, zero])
+        dist = torch.where(improved, best, dist)
+        parent = torch.where(improved, winner, parent)
+        frontier = improved
+        if not bool(improved.any()):
+            break
+    return dist, parent, frontier, cnt

@@ -20,10 +20,14 @@ from repro_torch.data.generators import kronecker
 from repro_torch.kernels.edge_relax.ops import LAUNCHES
 g = kronecker(7, 4, seed=1)
 d, p, m = sssp(g, 0, backend="blocked", device="cpu", block_v=64, tile_e=64)
+d4, _, _ = sssp(g, 0, backend="blocked", device="cpu", block_v=64, tile_e=64,
+                fused_rounds=4)
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"loaded": loaded, "launches": LAUNCHES.edge_relax,
-                  "reached": int(d.isfinite().sum())}))
+print(json.dumps({"loaded": loaded,
+                  "launches": LAUNCHES.edge_relax + LAUNCHES.edge_relax_fused,
+                  "reached": int(d.isfinite().sum()),
+                  "fused_same": bool(d4.equal(d))}))
 """
 
 
@@ -35,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert res["launches"] == 0           # CPU tensors: the plain version
-    assert res["reached"] > 1
+    assert res["reached"] > 1 and res["fused_same"]
 
 
 def test_entry_point_needs_a_card_unless_told_cpu():

@@ -13,22 +13,34 @@ Phases, in order; any failure exits non-zero:
    a call that stops after its first round, then 40 seeded cases over
    geometries and round caps; each kernel call made twice; ``dist``,
    ``parent``, ``frontier`` and the eight counters bitwise equal).
-3. Main path: a full shortest-path-tree solve from the max-degree source
-   of ``kronecker(20, 16, seed=1)`` and of ``road_grid(1024, seed=5)``,
-   on the blocked backend (the ``edge_relax`` kernel), on the blocked
+3. Main path, under an NCCL process group of world size 1 (a FileStore
+   in a temporary directory, destroyed at the end): a full
+   shortest-path-tree solve from the max-degree source of
+   ``kronecker(20, 16, seed=1)`` and of ``road_grid(1024, seed=5)``, on
+   the blocked backend (the ``edge_relax`` kernel), on the blocked
    backend with ``fused_rounds=4`` (the ``edge_relax_fused`` kernel) and
    on ``segment_min`` (plain torch).  ``dist``/``parent`` must be bitwise
    equal and the logical counters equal across the three, each kernel
    must have launched in its own solve, the fused solve must not launch
    ``edge_relax`` and, on the road graph, must make at most half the
    unfused solve's invocations, and ``dist`` must match scipy's float64
-   Dijkstra at ``rtol=1e-4, atol=1e-5``.  Scale 20 is a cut: the paper's
-   graphs are scale 26-27 (its road network has 24M vertices), and the
-   numpy generator needs about a minute at scale 20 and about four times
-   that per step of scale, which the run's time limit does not hold.
+   Dijkstra at ``rtol=1e-4, atol=1e-5``.  Then ``edge_relax_partials``
+   against its plain version on every shard of a P = 4 shard layout of
+   the kronecker graph at a mid-solve window of that solve, and on 30
+   seeded random layouts (P from 1 to 4, geometries, windows, ties; each
+   call twice; ``val``, ``win`` and the four counters bitwise equal).
+   Then the sharded v1 engine on each graph (``sssp_distributed``, one
+   rank), on ``blocked`` (the ``edge_relax_partials`` kernel, which
+   must launch, with no launch of the other two) and on ``segment_min``:
+   both bitwise equal to the single-device blocked solve, with equal
+   logical counters, and matching Dijkstra.  Scale 20 is a cut: the
+   paper's graphs are scale 26-27 (its road network has 24M vertices),
+   and the numpy generator needs about a minute at scale 20 and about
+   four times that per step of scale, which the run's time limit does
+   not hold.
 4. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the byte bound at 3.35 TB/s,
-   launches on the main path), and each graph's solve seconds, rounds,
+   launches on the main path), and each solve's seconds, rounds,
    iterations (one host sync each), kernel invocations, and the seconds
    its step transitions and relaxation calls took (CUDA events around
    each call, :class:`PhaseTimes`).
@@ -219,23 +231,35 @@ def scipy_dist(g, source: int) -> np.ndarray:
 
 
 class PhaseTimes:
-    """CUDA events around each step transition and relaxation call of
-    one solve (``core/sssp.py``'s ``_transition``, ``_relax_round`` and
-    ``_fused_relax_rounds``, wrapped while the context is open).  The
-    events are recorded on the stream with no synchronize, so the solve
-    keeps its own host reads; a span runs from the call's first launch to
-    its last, the host's launch gaps included, since the loop's host read
-    leaves the stream idle when the call begins."""
-    NAMES = ("_transition", "_relax_round", "_fused_relax_rounds")
+    """CUDA events around the parts of one solve, wrapped while the
+    context is open: ``core/sssp.py``'s ``_solve_loop`` (the whole loop,
+    so the solve's seconds less it are its set-up), ``_transition``,
+    ``_relax_round`` and ``_fused_relax_rounds``, and
+    ``core/distributed.py``'s ``_v1_relax_round`` and its two
+    collectives, ``_merge_partials`` (the MIN of packed keys) and
+    ``_sum`` (the counters), which run inside the relaxation calls and
+    transitions.  The events are recorded on the stream with no
+    synchronize, so the solve keeps its own host reads; a span runs from
+    the call's first launch to its last, the host's launch gaps
+    included, since the loop's host read leaves the stream idle when the
+    call begins."""
+    TARGETS = (("repro_torch.core.sssp", "_solve_loop"),
+               ("repro_torch.core.sssp", "_transition"),
+               ("repro_torch.core.sssp", "_relax_round"),
+               ("repro_torch.core.sssp", "_fused_relax_rounds"),
+               ("repro_torch.core.distributed", "_v1_relax_round"),
+               ("repro_torch.core.distributed", "_merge_partials"),
+               ("repro_torch.core.distributed", "_sum"))
 
     def __enter__(self):
-        from repro_torch.core import sssp as mod
-        self.mod, self.saved = mod, {}
-        self.spans = {name: [] for name in self.NAMES}
-        for name in self.NAMES:
-            self.saved[name] = getattr(mod, name)
-            setattr(mod, name, self._timed(self.saved[name],
-                                           self.spans[name]))
+        import importlib
+        self.saved = []
+        self.spans = {name: [] for _, name in self.TARGETS}
+        for mod_name, name in self.TARGETS:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn, self.spans[name]))
         return self
 
     @staticmethod
@@ -251,8 +275,8 @@ class PhaseTimes:
         return timed
 
     def __exit__(self, *exc):
-        for name, fn in self.saved.items():
-            setattr(self.mod, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
     def seconds(self) -> dict:
         """Calls and summed seconds per wrapped function (after a
@@ -263,15 +287,21 @@ class PhaseTimes:
             for name, spans in self.spans.items() if spans}
 
 
-def solve(g, source, backend, device, **opts):
+def solve(g, source, backend, device, *, sharded=False, **opts):
     """One timed solve; returns ``(dist, parent, metrics, seconds,
-    phases)`` with ``phases`` from :class:`PhaseTimes`."""
+    phases)`` with ``phases`` from :class:`PhaseTimes`.  ``sharded``
+    solves the :class:`ShardedGraph` ``g`` with the v1 engine over the
+    world process group."""
+    from repro_torch.core.distributed import sssp_distributed
     from repro_torch.core.sssp import sssp
+    entry = sssp_distributed if sharded else sssp
+    if sharded:
+        opts["version"] = "v1"
     with PhaseTimes() as phases:
         sync(device)
         t0 = time.perf_counter()
-        dist, parent, metrics = sssp(g, source, backend=backend,
-                                     device=device, **opts)
+        dist, parent, metrics = entry(g, source, backend=backend,
+                                      device=device, **opts)
         sync(device)
         secs = time.perf_counter() - t0
     return dist, parent, metrics, secs, phases.seconds()
@@ -285,13 +315,17 @@ def check_against_dijkstra(ref, dist):
 
 
 def warm_up(device):
-    """One small solve per backend, so that the timed solves do not carry
-    the process's first use of each CUDA kernel."""
+    """One small solve per backend and engine, so that the timed solves do
+    not carry the process's first use of each CUDA kernel or of NCCL."""
+    from repro_torch.core.distributed import shard_graph
     from repro_torch.data.generators import kronecker
     g = kronecker(10, 8, seed=0)
     for backend, opts in (("blocked", {}), ("blocked", dict(fused_rounds=4)),
                           ("segment_min", {})):
         solve(g, int(np.argmax(g.deg)), backend, device, **opts)
+    for backend in ("blocked", "segment_min"):
+        solve(shard_graph(g, 1), int(np.argmax(g.deg)), backend, device,
+              sharded=True)
 
 
 def main_path(graphs, device):
@@ -361,7 +395,8 @@ def main_path(graphs, device):
                 f"launches={n_launch} "
                 f"tiles_scanned={int(md['n_tiles_scanned'])} "
                 f"reached={reached} {spans}")
-        out[name] = dict(graph=dg, layout=bg, dist=kd, parent=kp,
+        out[name] = dict(host=hg, source=source, dijkstra=ref, graph=dg,
+                         layout=bg, dist=kd, parent=kp,
                          launches=launches, fused_launches=fused_launches,
                          solve_s=ks, fused_solve_s=fs, plain_solve_s=ps,
                          phases=kt, fused_phases=ft, plain_phases=pt,
@@ -413,22 +448,8 @@ def measure(res, device):
         ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
     plain_ms = cuda_ms(plain)
 
-    # the library yardstick: one scatter_reduce_ amin of packed
-    # (value bits, source id) keys over the scheduled tiles' edges
+    library_ms, s_n, n_cand = library_scatter_ms(*args, **kw)
     tile_e = kw["tile_e"]
-    sched, sched_n = ref.schedule_tiles(paths, src, w, tile_first, tile_e)
-    s_n = int(sched_n)
-    slots = (sched[:s_n].long()[:, None] * tile_e
-             + torch.arange(tile_e, device=device)[None, :]).reshape(-1)
-    s_src, s_dst = src[slots].long(), dst[slots].long()
-    cand = dist[s_src] + w[slots]
-    ok = paths[s_src] & (cand >= lb) & (cand < ub)
-    empty = (0x7F800000 << 32) | 0x7FFFFFFF
-    packed = torch.where(ok, (cand.view(torch.int32).long() << 32) | s_src,
-                         empty)
-    keys = torch.full((kw["n_out"],), empty, dtype=torch.int64, device=device)
-    library_ms = cuda_ms(lambda: keys.scatter_reduce_(0, s_dst, packed,
-                                                      "amin"))
 
     # least bytes the function must move for this round's data: src of
     # every slot (to find the active tiles), dst and w of the scheduled
@@ -438,7 +459,30 @@ def measure(res, device):
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
                 sched_tiles=s_n, n_tiles=n_tiles_all, bytes=bytes_,
-                candidates=int(ok.sum()))
+                candidates=n_cand)
+
+
+def library_scatter_ms(dist, paths, src, dst, w, tile_first, lb, ub, *,
+                       tile_e: int, n_out: int):
+    """The library yardstick of the one-round kernels: one
+    ``scatter_reduce_`` amin of packed (value bits, source id) keys over
+    the in-window candidates of the scheduled tiles.  It computes the
+    values and winners, not the schedule or any counter.  Returns
+    ``(ms, scheduled tiles, candidates)``."""
+    from repro_torch.kernels.edge_relax import ref
+    sched, sched_n = ref.schedule_tiles(paths, src, w, tile_first, tile_e)
+    s_n = int(sched_n)
+    slots = (sched[:s_n].long()[:, None] * tile_e
+             + torch.arange(tile_e, device=w.device)[None, :]).reshape(-1)
+    s_src, s_dst = src[slots].long(), dst[slots].long()
+    cand = dist[s_src] + w[slots]
+    ok = paths[s_src] & (cand >= lb) & (cand < ub)
+    empty = (0x7F800000 << 32) | 0x7FFFFFFF
+    packed = torch.where(ok, (cand.view(torch.int32).long() << 32) | s_src,
+                         empty)
+    keys = torch.full((n_out,), empty, dtype=torch.int64, device=w.device)
+    ms = cuda_ms(lambda: keys.scatter_reduce_(0, s_dst, packed, "amin"))
+    return ms, s_n, int(ok.sum())
 
 
 def fused_window_inputs(res, device):
@@ -490,11 +534,232 @@ def measure_fused(res, device):
                                                   float(args[9])])
 
 
+# ---------------------------------------------------------------------------
+# the sharded v1 engine (edge_relax_partials)
+# ---------------------------------------------------------------------------
+
+def init_group(store_dir: str):
+    """An NCCL process group of world size 1 on card 0 (a FileStore in
+    ``store_dir``; no port is opened for the rendezvous)."""
+    import torch.distributed as tdist
+    torch.cuda.set_device(0)
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(Path(store_dir) / "store"), 1),
+        rank=0, world_size=1)
+
+
+def shard_inputs(arrays, q: int, block: int, dist, paths, parent, device):
+    """Shard ``q``'s slabs and its slice of the padded state, on the card,
+    as :func:`relax_partials` takes them."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    lo, hi = q * block, (q + 1) * block
+    return (dist[lo:hi], paths[lo:hi], parent[lo:hi], t(arrays.src[q]),
+            t(arrays.dst[q]), t(arrays.w[q]), t(arrays.tile_first[q]))
+
+
+def partials_pair(args, lb, ub, kw, what):
+    """The kernel (called twice, to catch races) against its plain version
+    on one shard; returns both outputs, raises on a disagreement."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    want = ref.edge_relax_partials_ref(*args, lb, ub, **kw)
+    for _ in range(2):
+        out = ops.relax_partials(*args, lb, ub, **kw)
+        if not (bitwise_equal(out[0], want[0]) and out[1].equal(want[1])
+                and out[2].equal(want[2])):
+            raise AssertionError(
+                f"edge_relax_partials {what}: kernel {out[2].tolist()} and "
+                f"plain version {want[2].tolist()} disagree")
+    return out, want
+
+
+def mid_solve_window(res, n_pad, device):
+    """The main path's mid-solve round padded to ``n_pad``: the window
+    [median dist, median + maxW), the push band below it as frontier, the
+    solved parents; returns ``(dist, paths, parent, lb, ub)``."""
+    from repro_torch.core.relax import leaf_pruned
+    dg, dist, parent = res["graph"], res["dist"], res["parent"]
+    lb = dist[torch.isfinite(dist)].median()
+    ub = lb + dg.max_w
+    band = (dist >= lb - dg.max_w) & (dist < ub)
+    pad = n_pad - dg.n
+    grow = lambda x, v: torch.cat([x, torch.full((pad,), v, dtype=x.dtype,
+                                                 device=device)])
+    deg = grow(dg.deg, 0)
+    dist_p = grow(dist, float("inf"))
+    paths = leaf_pruned(grow(band, False), dist_p, deg)
+    return dist_p, paths, grow(parent, -1), lb.reshape(()), ub.reshape(())
+
+
+def partials_vs_plain(results, device, seed: int = 2,
+                      n_random: int = 30) -> int:
+    """``edge_relax_partials`` against its plain version on every shard of
+    a P = 4 layout of the kronecker graph at a mid-solve window of its
+    solve (the shards' local source ranges differ from the destination
+    range there), then on ``n_random`` seeded random graphs over shard
+    counts, geometries, windows and ties.  Returns the number of shard
+    calls compared, raises on the first disagreement."""
+    from repro_torch.core.distributed import shard_blocked
+    from repro_torch.core.graph import build_csr
+    res = results["kronecker(20,16)"]
+    arrays, meta = shard_blocked(res["host"], 4, device=device)
+    block = meta.n_src_blocks * meta.block_v
+    dist, paths, parent, lb, ub = mid_solve_window(res, 4 * block, device)
+    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
+    checked = 0
+    for q in range(4):
+        args = shard_inputs(arrays, q, block, dist, paths, parent, device)
+        partials_pair(args, lb, ub, kw, f"kronecker(20,16) shard {q}/4")
+        checked += 1
+    log(f"[kernel-vs-plain] edge_relax_partials: kronecker(20,16) P=4 "
+        f"block_v={meta.block_v} tile_e={meta.tile_e} "
+        f"slots/shard={arrays.src.shape[1]} window=[{float(lb)!r}, "
+        f"{float(ub)!r})")
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
+    for i in range(n_random):
+        n = int(rng.integers(64, 20000))
+        m = int(rng.integers(0, 8 * n))
+        ties = bool(rng.random() < 0.5)
+        u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+        keep = u != v
+        w = (rng.integers(1, 4, keep.sum()).astype(np.float64) if ties
+             else rng.random(keep.sum()) + 1e-3)
+        g = build_csr(n, u[keep], v[keep], w)
+        p = int(rng.integers(1, 5))
+        block_v = [64, 1024, None][int(rng.integers(0, 3))]
+        tile_e = int(rng.choice([32, 64, 256, 512]))
+        arrays, meta = shard_blocked(g, p, block_v=block_v, tile_e=tile_e,
+                                     device=device)
+        block = meta.n_src_blocks * meta.block_v
+        n_pad = p * block
+        d = (rng.integers(0, 6, n_pad) if ties
+             else rng.random(n_pad) * 3).astype(np.float32)
+        d[rng.random(n_pad) < 0.2] = np.inf
+        front = (rng.random(n_pad) < 0.3) & np.isfinite(d)
+        par = np.where(np.isfinite(d), rng.integers(0, n_pad, n_pad),
+                       -1).astype(np.int32)
+        t = lambda a: torch.from_numpy(a).to(device)
+        lb0 = bool(rng.random() < 0.3)
+        lb, ub = (f32(0.0), f32(np.inf)) if lb0 else (f32(1.0), f32(4.0))
+        kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
+        for q in range(p):
+            args = shard_inputs(arrays, q, block, t(d), t(front), t(par),
+                                device)
+            partials_pair(args, lb, ub, kw,
+                          f"random case {i} (n={n} m={m} P={p} "
+                          f"block_v={meta.block_v} tile_e={tile_e} "
+                          f"ties={ties} lb0={lb0}) shard {q}")
+            checked += 1
+    return checked
+
+
+def sharded_path(results, device):
+    """The v1 engine on each graph at world size 1 over NCCL: a blocked
+    solve (``edge_relax_partials``, launch counters zeroed just before it
+    and read just after) and a ``segment_min`` solve, each bitwise equal
+    to the single-device blocked solve with equal logical counters, and
+    matching Dijkstra."""
+    from repro_torch.core.distributed import shard_blocked, shard_graph
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    for name, res in results.items():
+        hg, source, n = res["host"], res["source"], res["host"].n
+        t0 = time.perf_counter()
+        sg = shard_graph(hg, 1)
+        layout = shard_blocked(sg, device=device)
+        layout_s = time.perf_counter() - t0
+        log(f"[layout] {name} v1: P=1 block_v={layout[1].block_v} "
+            f"tile_e={layout[1].tile_e} padded slots="
+            f"{layout[0].src.shape[1]} in {layout_s:.2f} s")
+        LAUNCHES.reset()
+        vd, vp, vm, vs, vt = solve(sg, source, "blocked", device,
+                                   sharded=True, blocked=layout)
+        launches = LAUNCHES.edge_relax_partials
+        stray = (LAUNCHES.edge_relax, LAUNCHES.edge_relax_fused)
+        sd, sp, sm, ss, st = solve(sg, source, "segment_min", device,
+                                   sharded=True)
+        want = res["metrics"]
+        vmd, smd = metrics_dict(vm), metrics_dict(sm)
+        for what, d, p, md in (("v1 blocked", vd, vp, vmd),
+                               ("v1 segment_min", sd, sp, smd)):
+            if not (bitwise_equal(d[:n], res["dist"])
+                    and p[:n].equal(res["parent"])):
+                raise AssertionError(f"{name}: {what} and the single-device "
+                                     "blocked solve differ")
+            bad = [f for f in LOGICAL_METRIC_FIELDS if md[f] != want[f]]
+            if bad:
+                raise AssertionError(f"{name}: {what} logical counters "
+                                     f"differ: {bad}")
+            check_against_dijkstra(res["dijkstra"], d[:n])
+        if launches <= 0 or any(stray):
+            raise AssertionError(
+                f"{name}: the v1 blocked solve launched edge_relax_partials "
+                f"{launches} times and edge_relax/edge_relax_fused {stray}")
+        for what, secs, md, n_launch, phases in (
+                ("v1 blocked", vs, vmd, launches, vt),
+                ("v1 segment_min", ss, smd, None, st)):
+            spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
+                             for k, v in phases.items())
+            log(f"[solve] {name} {what}: source={source} {secs!r} s, "
+                f"rounds={md['n_rounds']} steps={md['n_steps']} "
+                f"iterations={int(md['n_host_syncs'])} "
+                f"host_syncs={int(md['n_host_syncs'])} "
+                f"invocations={int(md['n_invocations'])} "
+                f"launches={n_launch} "
+                f"tiles_scanned={int(md['n_tiles_scanned'])} {spans}")
+        res.update(shard_layout=layout, sharded=sg, v1_launches=launches,
+                   v1_solve_s=vs, v1_plain_solve_s=ss, v1_phases=vt,
+                   v1_plain_phases=st, v1_metrics=vmd)
+
+
+def measure_partials(res, device):
+    """``edge_relax_partials`` at the main path's shape (the whole graph
+    as one shard) and its mid-solve window."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    arrays, meta = res["shard_layout"]
+    block = meta.n_src_blocks * meta.block_v
+    dist, paths, parent, lb, ub = mid_solve_window(res, block, device)
+    args = shard_inputs(arrays, 0, block, dist, paths, parent, device)
+    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
+    out, want = partials_pair(args, lb, ub, kw, "main path layout")
+    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
+    kernel_ms = cuda_ms(lambda: ops.relax_partials(*args, lb, ub, **kw))
+    plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args, lb, ub,
+                                                           **kw))
+    d, pa, _, src, dst, w, tile_first = args
+    library_ms, s_n, n_cand = library_scatter_ms(
+        d, pa, src, dst, w, tile_first, lb, ub, **kw)
+    # least bytes for this round's data: src of every slot and tile_first
+    # (the flag pass), dst and w of the scheduled slots, paths of every
+    # source, dist of each source with a path and a real edge, parent of
+    # each source with an in-window candidate, val and win written once,
+    # and the four counters
+    s = src.long()
+    live = pa[s].bool() & torch.isfinite(w)
+    cand = d[s] + w
+    in_window = live & (cand >= lb) & (cand < ub)
+    n_path = int(torch.unique(s[live]).numel())
+    n_par = int(torch.unique(s[in_window]).numel())
+    e, nt, n_src, n_out = src.shape[0], tile_first.shape[0], block, \
+        kw["n_out"]
+    bytes_ = (4 * e + nt + 8 * s_n * meta.tile_e + n_src + 4 * n_path
+              + 4 * n_par + 8 * n_out + 16)
+    cnt = dict(zip(ops.PARTIAL_COUNTERS, out[2].tolist()))
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                bytes=bytes_, counts=cnt, candidates=n_cand,
+                path_sources=n_path, parent_sources=n_par,
+                window=[float(lb), float(ub)])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import tempfile
+
+    import torch.distributed as tdist
     from repro_torch.data.generators import kronecker, road_grid
     from repro_torch.kernels import _build
 
@@ -516,8 +781,21 @@ def main() -> int:
               ("road_grid(1024)", road_grid(**ROAD))]
     log(f"[data] generated in {time.perf_counter() - t0:.2f} s: " + ", ".join(
         f"{n}: n={g.n} m={g.m}" for n, g in graphs))
+    with tempfile.TemporaryDirectory() as store_dir:
+        init_group(store_dir)
+        try:
+            return report(graphs, device, card)
+        finally:
+            tdist.destroy_process_group()
+
+
+def report(graphs, device, card) -> int:
+    """Phases 3 and 4 under the process group."""
     warm_up(device)
     results = main_path(graphs, device)
+    log(f"[kernel-vs-plain] edge_relax_partials: "
+        f"{partials_vs_plain(results, device)} shard calls bitwise equal")
+    sharded_path(results, device)
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -526,7 +804,12 @@ def main() -> int:
              for name, res in results.items()}
     for name, m in fused.items():
         log(f"[edge_relax_fused] {name}: " + json.dumps(m))
+    partials = {name: measure_partials(res, device)
+                for name, res in results.items()}
+    for name, m in partials.items():
+        log(f"[edge_relax_partials] {name}: " + json.dumps(m))
     head, fhead = per_graph["kronecker(20,16)"], fused["kronecker(20,16)"]
+    phead = partials["kronecker(20,16)"]
     kernels = [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -549,17 +832,33 @@ def main() -> int:
         "library_ms": None,
         "launches_per_solve": {n: r["fused_launches"]
                                for n, r in results.items()},
+    }, {
+        "name": "edge_relax_partials", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/"
+                  "edge_relax_partials.cu",
+        "replaces": "src/repro/kernels/edge_relax/edge_relax.py:522",
+        "launches": sum(r["v1_launches"] for r in results.values()),
+        "max_abs_err": max(m["max_abs_err"] for m in partials.values()),
+        "ms": phead["ms"], "plain_ms": phead["plain_ms"],
+        "bound_ms": phead["bound_ms"], "bound_by": "bytes",
+        "library_ms": phead["library_ms"],
+        "launches_per_solve": {n: r["v1_launches"]
+                               for n, r in results.items()},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     log(json.dumps({"solves": {n: dict(
         solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
-        plain_solve_s=r["plain_solve_s"], phases=r["phases"],
+        plain_solve_s=r["plain_solve_s"], v1_solve_s=r["v1_solve_s"],
+        v1_plain_solve_s=r["v1_plain_solve_s"], phases=r["phases"],
         fused_phases=r["fused_phases"], plain_phases=r["plain_phases"],
+        v1_phases=r["v1_phases"], v1_plain_phases=r["v1_plain_phases"],
         rounds=r["metrics"]["n_rounds"],
         host_syncs=int(r["metrics"]["n_host_syncs"]),
         fused_host_syncs=int(r["fused_metrics"]["n_host_syncs"]),
+        v1_host_syncs=int(r["v1_metrics"]["n_host_syncs"]),
         invocations=int(r["metrics"]["n_invocations"]),
-        fused_invocations=int(r["fused_metrics"]["n_invocations"]))
+        fused_invocations=int(r["fused_metrics"]["n_invocations"]),
+        v1_invocations=int(r["v1_metrics"]["n_invocations"]))
         for n, r in results.items()}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

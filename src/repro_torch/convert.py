@@ -12,13 +12,23 @@ nothing of the reference package):
 * ``BlockedGraph``: its static fields ``n, block_v, n_blocks,
   n_dst_blocks, src_base, tile_e, dense_grid_tiles``, ``deg``, and one
   ``slabs/<i>/<field>`` entry per slab field (``src_local, dst, w,
-  tile_dst, tile_first, bucket_nonempty``).
+  tile_dst, tile_first, bucket_nonempty``);
+* ``ShardedGraph``: its fields ``src, dst, w, deg, rtow, n_edges2,
+  n_true``;
+* ``BlockedShards`` with its ``BlockedShardMeta``: the stacked arrays
+  ``src_local, dst, w, tile_dst, tile_first, bucket_nonempty`` and the
+  meta fields ``block_v, tile_e, n_src_blocks, n_dst_blocks,
+  dense_grid_tiles``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .core.distributed import (BlockedShardMeta, BlockedShards,
+                               ShardedGraph)
 from .core.graph import BlockedGraph, DeviceGraph, HostGraph
 
 _SLAB_FIELDS = ("src_local", "dst", "w", "tile_dst", "tile_first",
@@ -72,13 +82,45 @@ def _blocked(a: dict, dev: torch.device) -> BlockedGraph:
         deg=torch.from_numpy(np.array(a["deg"], np.int32)).to(dev))
 
 
+def _sharded(a: dict) -> ShardedGraph:
+    return ShardedGraph(src=np.asarray(a["src"], np.int32),
+                        dst=np.asarray(a["dst"], np.int32),
+                        w=np.asarray(a["w"], np.float32),
+                        deg=np.asarray(a["deg"], np.int32),
+                        rtow=np.asarray(a["rtow"], np.float32),
+                        n_edges2=int(a["n_edges2"]), n_true=int(a["n_true"]))
+
+
+def _blocked_shards(a: dict):
+    """The reference's ``[P, S, NT*tile_e]`` stack with block-local source
+    ids becomes the port's ``[P, S*NT*tile_e]`` one with shard-local
+    ids (each slab's offset added)."""
+    meta = BlockedShardMeta(**{f.name: int(a[f.name]) for f in
+                               dataclasses.fields(BlockedShardMeta)})
+    src = np.asarray(a["src_local"], np.int32)
+    p, n_sb = src.shape[:2]
+    offs = (np.arange(n_sb, dtype=np.int32) * meta.block_v)[None, :, None]
+    flat = lambda f, dtype: np.asarray(a[f], dtype).reshape(p, -1)
+    arrays = BlockedShards(
+        src=(src + offs).reshape(p, -1), dst=flat("dst", np.int32),
+        w=flat("w", np.float32), tile_dst=flat("tile_dst", np.int32),
+        tile_first=flat("tile_first", bool),
+        bucket_nonempty=np.asarray(a["bucket_nonempty"], bool))
+    return arrays, meta
+
+
 def from_reference(arrays: dict, device):
     """The port's container for a flattened reference graph or layout
-    (see the module docstring for the keys).  A ``HostGraph`` stays on
-    the host; the others land on ``device``."""
+    (see the module docstring for the keys).  A ``HostGraph`` and the
+    sharded layouts stay on the host (each rank moves its own shard);
+    the others land on ``device``."""
     dev = torch.device(device)
     if any(k.startswith("slabs/") for k in arrays):
         return _blocked(arrays, dev)
+    if "src_local" in arrays:
+        return _blocked_shards(arrays)
+    if "n_true" in arrays:
+        return _sharded(arrays)
     if "n_edges2" in arrays:
         return _device(arrays, dev)
     return _host(arrays)

@@ -196,7 +196,7 @@ class BlockedGraph:
 
 
 def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
-            src_base=0):
+            src_base=0, n_tiles=0):
     """Bucket edges of many source blocks at once, tile-aligned.
 
     Edges are stably sorted by (source block ``sb``, destination block),
@@ -204,7 +204,10 @@ def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
     keeps the input order.  Every non-empty bucket is padded to a
     multiple of ``tile_e`` with ``w=+inf`` slots whose source is the
     slab's first id (``src_base * block``); a slab with no edges gets one
-    all-padding tile so that every slab has at least one.
+    all-padding tile so that every slab has at least one.  ``n_tiles > 0``
+    pads every slab to exactly that many tiles, the surplus ones repeating
+    the slab's last real destination block (the reference's
+    ``bucket_edges(..., n_tiles=)``).
     Returns numpy ``(src, dst, w, tile_dst, tile_first, nonempty,
     tiles_per, slab_ptr)``.
     """
@@ -218,8 +221,12 @@ def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
     counts = np.bincount(key, minlength=n_src_blocks * n_dst_blocks)
     tiles_per = -(-counts // tile_e)               # 0 for empty buckets
     per_slab = tiles_per.reshape(n_src_blocks, n_dst_blocks).sum(1)
+    need = max(int(per_slab.max(initial=0)), 1)
+    if n_tiles and n_tiles < need:
+        raise ValueError(f"n_tiles={n_tiles} < required {need}")
     slab_ptr = np.zeros(n_src_blocks + 1, np.int64)
-    np.cumsum(np.maximum(per_slab, 1), out=slab_ptr[1:])
+    np.cumsum(np.full(n_src_blocks, n_tiles) if n_tiles
+              else np.maximum(per_slab, 1), out=slab_ptr[1:])
     nt = int(slab_ptr[-1])
     # first tile of each bucket: its slab's base + the tiles before it
     within = (np.cumsum(tiles_per.reshape(n_src_blocks, n_dst_blocks), 1)
@@ -242,6 +249,14 @@ def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
     tile_dst[real] = np.repeat(
         np.tile(np.arange(n_dst_blocks, dtype=np.int32), n_src_blocks),
         tiles_per)
+    if n_tiles:
+        # surplus tiles after a slab's real ones repeat its last dst block
+        has = per_slab > 0
+        first_pad = slab_ptr[:-1][has] + per_slab[has]
+        surplus = n_tiles - per_slab[has]
+        pad = np.repeat(first_pad - np.cumsum(surplus) + surplus, surplus) \
+            + np.arange(int(surplus.sum()))
+        tile_dst[pad] = np.repeat(tile_dst[first_pad - 1], surplus)
     tile_first = np.zeros(nt, bool)
     tile_first[bucket_tile0[counts > 0]] = True
     tile_first[slab_ptr[:-1]] = True          # >= 1 scheduled tile per slab
@@ -326,6 +341,119 @@ def build_blocked(g, *, block_v: int | None = None,
         slab_ptr=tuple(int(x) for x in slab_ptr), src=t(s), dst=t(d),
         w=t(ww), tile_dst=t(td), tile_first=t(tf), bucket_nonempty=t(ne),
         deg=t(deg_pad))
+
+
+def shard_block_v(block: int, block_v: int) -> int:
+    """Largest divisor of the shard block size that is <= ``block_v``.
+
+    Shard slabs must tile the owner block exactly, so the requested
+    ``block_v`` is snapped down to a divisor of ``block``.
+    """
+    if block <= 0:
+        raise ValueError("block must be positive")
+    for d in range(min(block_v, block), 0, -1):
+        if block % d == 0:
+            return d
+    return 1
+
+
+def shard_geometry(block: int, device) -> Tuple[int, int]:
+    """``(block_v, tile_e)`` of a shard layout when the caller gives
+    neither: on the card one source block per shard (the owner block)
+    and 256-slot tiles, as :func:`default_geometry` does for one device;
+    on the CPU the reference's defaults."""
+    if torch.device(device).type == "cuda":
+        return block, CUDA_TILE_E
+    return DEFAULT_BLOCK_V, DEFAULT_TILE_E
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSlice:
+    """Blocked layout of one shard's CSR slice, on the host (numpy).
+
+    Sources are the shard's owner block ``[src_base, src_base + block)``,
+    tiled by ``n_blocks`` source blocks of ``block_v``; destinations span
+    the global padded range of ``n_dst_blocks`` blocks.  The reference
+    keeps one slab per source block; here the slabs are stored
+    concatenated, in source block order, with the slab offsets already
+    added: ``src`` holds shard-local ids in ``[0, block)``, the index
+    space of the shard's ``dist``/``paths``/``parent`` slice.  Slab ``b``
+    covers tiles ``slab_ptr[b]:slab_ptr[b+1]``.
+    """
+    n: int                           # true vertex count (pre-padding)
+    block_v: int
+    n_blocks: int                    # source blocks in the owner block
+    n_dst_blocks: int                # destination blocks (global range)
+    src_base: int                    # global id of the shard's first source
+    tile_e: int
+    dense_grid_tiles: int            # per-round cost of the dense scan
+    slab_ptr: Tuple[int, ...]
+    src: np.ndarray                  # [NT*tile_e] int32 shard-local source
+    dst: np.ndarray                  # [NT*tile_e] int32 global destination
+    w: np.ndarray                    # [NT*tile_e] float32 (+inf padding)
+    tile_dst: np.ndarray             # [NT] int32 dst block per tile
+    tile_first: np.ndarray           # [NT] bool forced first tiles
+    bucket_nonempty: np.ndarray      # [n_blocks, n_dst_blocks] bool
+    deg: np.ndarray                  # [n_blocks * block_v] int32, 0-padded
+
+    @property
+    def n_out(self) -> int:
+        return self.n_dst_blocks * self.block_v
+
+    def slab(self, b: int) -> BlockedEdges:
+        """Source block ``b``'s slab in the reference's per-slab form
+        (numpy arrays, block-local source ids)."""
+        t0, t1 = self.slab_ptr[b], self.slab_ptr[b + 1]
+        lo, hi = t0 * self.tile_e, t1 * self.tile_e
+        return BlockedEdges(
+            src_local=self.src[lo:hi] - b * self.block_v, dst=self.dst[lo:hi],
+            w=self.w[lo:hi], tile_dst=self.tile_dst[t0:t1],
+            tile_first=self.tile_first[t0:t1],
+            bucket_nonempty=self.bucket_nonempty[b])
+
+
+def slice_for_shard(g, shard: int, n_shards: int, *,
+                    block_v: int = DEFAULT_BLOCK_V,
+                    tile_e: int = DEFAULT_TILE_E,
+                    n_tiles: int = 0) -> ShardSlice:
+    """Blocked layout for one shard's CSR slice (sources = owner block).
+
+    Shard ``q`` owns ``[q*B, (q+1)*B)`` with ``B = ceil(n / n_shards)``
+    and every edge whose source it owns; ``block_v`` is snapped to a
+    divisor of ``B`` (:func:`shard_block_v`) and destinations span the
+    padded ``n_shards * B`` range.  ``n_tiles > 0`` pads every slab to
+    that many tiles (uniform shapes across shards).  ``g`` has numpy (or
+    CPU) ``src``/``dst``/``w``/``deg``.  Host side, numpy.
+    """
+    src = np.asarray(g.src).astype(np.int64)
+    dst = np.asarray(g.dst).astype(np.int32)
+    w = np.asarray(g.w).astype(np.float32)
+    deg = np.asarray(g.deg)
+    n = int(deg.shape[0])
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} out of range for {n_shards}")
+    block = -(-n // n_shards)
+    bv = shard_block_v(block, block_v)
+    n_src_blocks = block // bv
+    n_dst_blocks = block * n_shards // bv
+    lo = shard * block
+    mine = (src >= lo) & (src < lo + block)
+    local = (src[mine] - lo).astype(np.int32)
+    s, d, ww, td, tf, ne, _, slab_ptr = _bucket(
+        local // bv, local, dst[mine], w[mine], n_src_blocks=n_src_blocks,
+        n_dst_blocks=n_dst_blocks, block_v=bv, tile_e=tile_e, src_base=bv,
+        n_tiles=n_tiles)
+    per_block = np.bincount(local // bv, minlength=n_src_blocks)
+    dense = n_dst_blocks * int(np.maximum(-(-per_block // tile_e), 1).sum())
+    deg_pad = np.zeros(block, np.int32)
+    hi = min(lo + block, n)
+    if hi > lo:
+        deg_pad[:hi - lo] = deg[lo:hi]
+    return ShardSlice(
+        n=n, block_v=bv, n_blocks=n_src_blocks, n_dst_blocks=n_dst_blocks,
+        src_base=lo, tile_e=tile_e, dense_grid_tiles=dense,
+        slab_ptr=tuple(int(x) for x in slab_ptr), src=s, dst=d, w=ww,
+        tile_dst=td, tile_first=tf, bucket_nonempty=ne, deg=deg_pad)
 
 
 def degree_bucket_np(deg: np.ndarray) -> np.ndarray:

@@ -15,6 +15,8 @@ ub) -> (new_dist, new_parent, RoundMetrics)`` plus a ``prepare(graph,
     (the hand-written CUDA kernel on the card, its plain version on the
     CPU).  :func:`blocked_fused_rounds` runs up to ``fused_rounds`` of
     those rounds in one call of the fused kernel.
+    :func:`blocked_shard_partials_fused` is the sharded engines' call: one
+    round over a shard's slabs through the partials kernel.
 
 Every backend resolves ties toward the smallest source id, so
 ``dist``/``parent`` and the logical counters are bitwise-identical across
@@ -29,7 +31,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .graph import BlockedGraph, DeviceGraph, build_blocked
-from ..kernels.edge_relax.ops import relax_bucket, relax_fused
+from ..kernels.edge_relax.ops import relax_bucket, relax_fused, \
+    relax_partials
 
 INT_MAX = 2 ** 31 - 1
 INF = float("inf")
@@ -278,3 +281,29 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
         _pad(frontier, bg.n_out, False), bg.deg, bg.src, bg.dst, bg.w,
         bg.tile_first, lb, ub, tile_e=bg.tile_e, fused_rounds=fused_rounds)
     return dist2[:n], parent2[:n], front2[:n], cnt
+
+
+# ---------------------------------------------------------------------------
+# the sharded engines' partials kernel (kernels/edge_relax,
+# edge_relax_partials)
+# ---------------------------------------------------------------------------
+
+def blocked_shard_partials_fused(src, dst, w, tile_first, dist_src,
+                                 paths_src, parent_src, src_base: int, lb,
+                                 ub, *, tile_e: int, n_out: int):
+    """One relaxation round over all of a shard's slabs in one kernel call.
+
+    ``src`` (shard-local ids, the slabs' offsets already added), ``dst``,
+    ``w`` and ``tile_first`` are the shard's concatenated slabs;
+    ``dist_src``/``paths_src``/``parent_src`` its slice of the replicated
+    state.  Returns ``(best, winner, n_tiles, n_trav, n_relax,
+    n_pruned)`` over ``n_out`` destinations, with *global* winner ids
+    (``src_base`` added, ``INT_MAX`` kept); the counters are 0-d int32
+    device tensors.
+    """
+    best, win_local, cnt = relax_partials(
+        dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
+        tile_e=tile_e, n_out=n_out)
+    winner = torch.where(win_local == INT_MAX, win_local,
+                         win_local + src_base)
+    return best, winner, cnt[2], cnt[0], cnt[1], cnt[3]

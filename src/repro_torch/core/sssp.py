@@ -142,6 +142,12 @@ def _bootstrap_ub(g: DeviceGraph, st_: SsspState,
     return st_._replace(ub=ub)
 
 
+def _min_pending(g: DeviceGraph, dist, ub):
+    """Smallest candidate path length at or above ``ub`` (inf if none)."""
+    pend = dist[g.src] + g.w
+    return torch.where(pend >= ub, pend, INF).min()
+
+
 def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics):
     """Function 1's pull phase: settled band [st, lb) answers requests from
     unsettled vertices.  Returns the updated state and the metrics."""
@@ -164,15 +170,22 @@ def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics):
     return new_dist, new_parent, metrics
 
 
-def _transition(g: DeviceGraph, st_: SsspState, c: _Consts) -> SsspState:
+def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
+                min_pending=_min_pending,
+                pull_phase=_pull_phase) -> SsspState:
     """Step transition (Algo 2 l.22 + Function 1/2 + fast-forward and
-    termination), tree goal, static policy."""
+    termination), tree goal, static policy.
+
+    ``min_pending(g, dist, ub)`` and ``pull_phase(g, dist, parent, st,
+    lb, ub, metrics)`` are the two places that read edges; the sharded
+    engine passes versions that run over its local slab and merge across
+    ranks.  Everything else reads only ``g.deg``, ``g.rtow``,
+    ``g.n_edges2`` and the state."""
     dist, parent = st_.dist, st_.parent
     lb, ub = st_.lb, st_.ub
 
     # smallest pending candidate path length (>= ub); inf <=> done
-    pend = dist[g.src] + g.w
-    min_pending = torch.where(pend >= ub, pend, INF).min()
+    min_pending = min_pending(g, dist, ub)
     done = ~torch.isfinite(min_pending)
 
     st_next = traversal.compute_st(dist, g.deg, g.rtow, g.n_edges2, lb, ub,
@@ -193,8 +206,8 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts) -> SsspState:
     # the pull phase runs when st < lb; computed always and selected, so
     # that the decision needs no host read
     pull = st_next < lb2
-    p_dist, p_parent, p_m = _pull_phase(g, dist, parent, st_next, lb2, ub2,
-                                        st_.metrics)
+    p_dist, p_parent, p_m = pull_phase(g, dist, parent, st_next, lb2, ub2,
+                                       st_.metrics)
     dist = torch.where(pull, p_dist, dist)
     parent = torch.where(pull, p_parent, parent)
     metrics = SsspMetrics(*[torch.where(pull, a, b)
@@ -209,22 +222,20 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts) -> SsspState:
                         metrics=metrics)
 
 
-def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
-         max_iters: int, alpha: float, beta: float, fused_rounds: int = 0):
-    """One SSSP computation; returns ``(dist, parent, metrics)``.
-    ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
-    kernel, up to that many rounds per call."""
-    n = g.n
-    dev = g.device
-    deg_f0 = torch.zeros(n, dtype=torch.float32, device=dev)
+def _consts(deg: torch.Tensor, alpha: float, beta: float) -> _Consts:
+    dev = deg.device
+    bucket = degree_bucket(deg)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    bucket = degree_bucket(g.deg)
-    c = _Consts(params=stepping.SteppingParams(alpha=alpha, beta=beta),
-                bucket=bucket,
-                unit_grid=traversal.st_grid_points(
-                    torch.ones((), dtype=torch.float32, device=dev)),
-                high_d0=stats.high_d(deg_f0, g.deg, zero, bucket))
+    deg_f0 = torch.zeros(deg.shape[0], dtype=torch.float32, device=dev)
+    return _Consts(params=stepping.SteppingParams(alpha=alpha, beta=beta),
+                   bucket=bucket,
+                   unit_grid=traversal.st_grid_points(
+                       torch.ones((), dtype=torch.float32, device=dev)),
+                   high_d0=stats.high_d(deg_f0, deg, zero, bucket))
 
+
+def _initial_state(n: int, source: int, dev) -> SsspState:
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     dist0 = torch.full((n,), INF, dtype=torch.float32, device=dev)
     dist0[source] = 0.0
     parent0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -234,16 +245,18 @@ def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
     # the source's own pop is the first extended path
     metrics0 = _zero_metrics(dev)
     metrics0 = metrics0._replace(n_extended=metrics0.n_extended + 1)
-    s = SsspState(dist=dist0, parent=parent0, frontier=frontier0,
-                  lb=zero, ub=torch.full((), INF, device=dev), st=zero,
-                  done=torch.zeros((), dtype=torch.bool, device=dev),
-                  metrics=metrics0)
+    return SsspState(dist=dist0, parent=parent0, frontier=frontier0,
+                     lb=zero, ub=torch.full((), INF, device=dev), st=zero,
+                     done=torch.zeros((), dtype=torch.bool, device=dev),
+                     metrics=metrics0)
 
-    if fused_rounds > 0:
-        relax_step = lambda s: _fused_relax_rounds(layout, s, fused_rounds)
-    else:
-        relax_step = lambda s: _relax_round(backend, layout, s)
 
+def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
+                max_iters: int):
+    """The stepping loop: a relaxation call, the bootstrap tightening, one
+    host read of ``(done, any(frontier))``, and the step transition when
+    the frontier is empty.  ``g`` needs ``deg``; returns ``(dist,
+    parent, metrics)``."""
     syncs = 0
     for _ in range(max_iters):
         prev = s
@@ -257,10 +270,25 @@ def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
             s = prev
             break
         if not any_front:
-            s = _transition(g, s, c)
+            s = transition(s)
     metrics = s.metrics._replace(n_host_syncs=torch.full(
-        (), float(syncs), dtype=torch.float32, device=dev))
+        (), float(syncs), dtype=torch.float32, device=g.deg.device))
     return s.dist, s.parent, metrics
+
+
+def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
+         max_iters: int, alpha: float, beta: float, fused_rounds: int = 0):
+    """One SSSP computation; returns ``(dist, parent, metrics)``.
+    ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
+    kernel, up to that many rounds per call."""
+    c = _consts(g.deg, alpha, beta)
+    s = _initial_state(g.n, source, g.device)
+    if fused_rounds > 0:
+        relax_step = lambda s: _fused_relax_rounds(layout, s, fused_rounds)
+    else:
+        relax_step = lambda s: _relax_round(backend, layout, s)
+    return _solve_loop(g, s, c, relax_step,
+                       lambda s: _transition(g, s, c), max_iters)
 
 
 def resolve_device(device) -> torch.device:

@@ -3,8 +3,9 @@
 Every ``kernels/<name>/csrc/*.cu`` file becomes one shared library with a
 plain C interface, compiled for Hopper (``sm_90a``) into
 ``build/repro_torch_kernels/`` at the repository root on first use.  The
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.  :func:`build_all`
+file name carries a hash of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.  :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: a CPU-only installation imports the
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

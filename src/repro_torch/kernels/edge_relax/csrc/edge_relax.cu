@@ -10,11 +10,7 @@
 //
 //   key = (float bits of dist[src] + w) << 32 | global source id
 //
-// Candidates are non-negative (dist >= 0, w > 0), so the float bits order
-// like the value and the minimum key is exactly (min value, min source id
-// on a tie), whatever order the threads run in.  Keys start at
-// (bits(+inf), INT_MAX), which is also the reference's value for a
-// destination block that no tile visits.
+// The packed key, the flag pass and the unpack are in edge_relax_common.cuh.
 //
 // Launch sequence (one call of edge_relax_launch, all on one stream):
 //   1. flag_tiles: prefill the keys; flag each tile that holds an edge with
@@ -31,38 +27,9 @@
 // key written and read back, plus the prepass's 9 B per slot.  No arithmetic
 // to speak of.  The atomics on the hub destinations of Kronecker graphs are
 // the expected contention point; a later version can pre-reduce per warp.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "edge_relax_common.cuh"
 
 namespace {
-
-constexpr unsigned long long kEmptyKey =
-    (0x7F800000ull << 32) | 0x7FFFFFFFull;   // (+inf, INT_MAX)
-
-__global__ void flag_tiles(const uint8_t* __restrict__ paths,
-                           const int32_t* __restrict__ src,
-                           const float* __restrict__ w,
-                           const uint8_t* __restrict__ tile_first,
-                           int64_t n_tiles, int tile_e,
-                           int32_t* __restrict__ sched,
-                           int32_t* __restrict__ sched_n,
-                           unsigned long long* __restrict__ keys,
-                           int64_t n_out) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < n_out;
-       j += stride)
-    keys[j] = kEmptyKey;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t base = t * tile_e;
-    int hit = threadIdx.x == 0 && tile_first[t];
-    for (int i = threadIdx.x; i < tile_e && !hit; i += blockDim.x) {
-      const int64_t e = base + i;
-      hit = paths[src[e]] && isfinite(w[e]);
-    }
-    if (__syncthreads_or(hit) && threadIdx.x == 0)
-      sched[atomicAdd(sched_n, 1)] = (int32_t)t;
-  }
-}
 
 __global__ void relax_tiles(const float* __restrict__ dist,
                             const uint8_t* __restrict__ paths,
@@ -83,20 +50,8 @@ __global__ void relax_tiles(const float* __restrict__ dist,
     if (!paths[s]) continue;
     const float c = __fadd_rn(dist[s], w[e]);
     if (c >= lb && c < ub)
-      atomicMin(&keys[dst[e]],
-                ((unsigned long long)__float_as_uint(c) << 32) |
-                    (unsigned int)s);
+      atomicMin(&keys[dst[e]], pack_key(c, s));
   }
-}
-
-__global__ void unpack(const unsigned long long* __restrict__ keys,
-                       int64_t n_out, float* __restrict__ vals,
-                       int32_t* __restrict__ wins) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_out) return;
-  const unsigned long long k = keys[j];
-  vals[j] = __uint_as_float((unsigned int)(k >> 32));
-  wins[j] = (int32_t)(k & 0xFFFFFFFFull);
 }
 
 }  // namespace
@@ -111,13 +66,10 @@ extern "C" int edge_relax_launch(
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(sched_n, 0, sizeof(int32_t), st);
   if (err != cudaSuccess) return (int)err;
-  const int threads = tile_e >= 256 ? 256 : ((tile_e + 31) / 32) * 32;
-  const int64_t want = n_tiles > (n_out + threads - 1) / threads
-                           ? n_tiles : (n_out + threads - 1) / threads;
-  const int flag_blocks = (int)(want < 132 * 32 ? want : 132 * 32);
-  flag_tiles<<<flag_blocks, threads, 0, st>>>(paths, src, w, tile_first,
-                                              n_tiles, tile_e, sched,
-                                              sched_n, keys, n_out);
+  const int threads = tile_threads(tile_e);
+  flag_tiles<<<flag_blocks(n_tiles, n_out, threads), threads, 0, st>>>(
+      paths, src, w, tile_first, n_tiles, tile_e, sched, sched_n, keys,
+      n_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   relax_tiles<<<(unsigned int)n_tiles, threads, 0, st>>>(
       dist, paths, src, dst, w, lb, ub, sched, sched_n, tile_e, keys);

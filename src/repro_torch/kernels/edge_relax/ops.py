@@ -1,11 +1,13 @@
 """Wrappers of the edge_relax kernels.
 
 :func:`relax_bucket` runs one relaxation round over a slab,
-:func:`relax_fused` up to ``fused_rounds`` rounds in one call.  Both take
-the tensors where they lie.  CPU tensors go to the plain versions in
-:mod:`.ref`; CUDA tensors go to the hand-written kernels in
-``csrc/edge_relax.cu`` and ``csrc/edge_relax_fused.cu`` (built on first
-use), or the call raises.  There is no fallback from one to the other.
+:func:`relax_fused` up to ``fused_rounds`` rounds in one call, and
+:func:`relax_partials` one round over a shard's slabs for the sharded
+engines.  All take the tensors where they lie.  CPU tensors go to the
+plain versions in :mod:`.ref`; CUDA tensors go to the hand-written
+kernels in ``csrc/edge_relax.cu``, ``csrc/edge_relax_fused.cu`` and
+``csrc/edge_relax_partials.cu`` (built on first use), or the call raises.
+There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -13,18 +15,21 @@ import ctypes
 
 import torch
 
-from .ref import (FUSED_COUNTERS, INT_MAX, edge_relax_fused_ref,
+from .ref import (FUSED_COUNTERS, INT_MAX, PARTIAL_COUNTERS,
+                  edge_relax_fused_ref, edge_relax_partials_ref,
                   edge_relax_ref, schedule_tiles)
 
-__all__ = ["relax_bucket", "relax_fused", "edge_relax_ref",
-           "edge_relax_fused_ref", "schedule_tiles", "FUSED_COUNTERS",
-           "INT_MAX", "LAUNCHES"]
+__all__ = ["relax_bucket", "relax_fused", "relax_partials",
+           "edge_relax_ref", "edge_relax_fused_ref",
+           "edge_relax_partials_ref", "schedule_tiles", "FUSED_COUNTERS",
+           "PARTIAL_COUNTERS", "INT_MAX", "LAUNCHES"]
 
 
 class _Counter:
     """Launches of the CUDA kernels: ``edge_relax`` counts one per
     :func:`relax_bucket` call on the card, ``edge_relax_fused`` one per
-    :func:`relax_fused` call; CPU calls never count."""
+    :func:`relax_fused` call, ``edge_relax_partials`` one per
+    :func:`relax_partials` call; CPU calls never count."""
 
     def __init__(self):
         self.reset()
@@ -32,6 +37,7 @@ class _Counter:
     def reset(self):
         self.edge_relax = 0
         self.edge_relax_fused = 0
+        self.edge_relax_partials = 0
 
 
 LAUNCHES = _Counter()
@@ -44,6 +50,10 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
 _FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, _P, _P,
                    _P, _P, _P, _P, _P]
+
+
+_PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                      ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P]
 
 
 def _library(name="edge_relax", argtypes=_ARGTYPES):
@@ -204,3 +214,70 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
     return edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
                                 tile_first, lb, ub, tile_e=tile_e,
                                 fused_rounds=fused_rounds)
+
+
+def _edge_relax_partials_cuda(dist_src, paths_src, parent_src, src, dst, w,
+                              tile_first, lb, ub, *, tile_e: int,
+                              n_out: int):
+    dev = dist_src.device
+    e = src.shape[0]
+    nt = tile_first.shape[0]
+    if e != nt * tile_e or nt == 0:
+        raise ValueError(f"slab of {e} slots is not {nt} tiles of {tile_e}")
+    n_src = dist_src.shape[0]
+    for name, t, dtype, shape in (
+            ("dist_src", dist_src, torch.float32, (n_src,)),
+            ("paths_src", paths_src, torch.bool, (n_src,)),
+            ("parent_src", parent_src, torch.int32, (n_src,)),
+            ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
+            ("w", w, torch.float32, (e,)),
+            ("tile_first", tile_first, torch.bool, (nt,)),
+            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
+        _check(name, t, dtype, shape, dev)
+    fn = _library("edge_relax_partials", _PARTIALS_ARGTYPES)
+    empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
+    sched = empty(nt, torch.int32)
+    keys = empty(n_out, torch.int64)
+    val = empty(n_out, torch.float32)
+    win = empty(n_out, torch.int32)
+    counts = empty(4, torch.int32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dist_src.data_ptr(), paths_src.data_ptr(),
+                 parent_src.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                 w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
+                 ub.data_ptr(), nt, tile_e, n_out, sched.data_ptr(),
+                 keys.data_ptr(), val.data_ptr(), win.data_ptr(),
+                 counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"edge_relax_partials launch failed: cudaError "
+                           f"{err}")
+    LAUNCHES.edge_relax_partials += 1
+    return val, win, counts
+
+
+def relax_partials(dist_src, paths_src, parent_src, src, dst, w, tile_first,
+                   lb, ub, *, tile_e: int, n_out: int):
+    """One relaxation round over all of a shard's slabs (the sharded
+    engines' per-shard partials).
+
+    ``dist_src`` f32, ``paths_src`` bool and ``parent_src`` i32 span the
+    shard's local source range; ``src`` int32 (shard-local ids, indexing
+    that range), ``dst`` int32 (global ids below ``n_out``) and ``w`` f32
+    are the shard's slabs concatenated, ``[NT * tile_e]`` (padding slots
+    carry ``w=+inf``); ``tile_first`` bool ``[NT]``; ``lb``/``ub`` 0-d
+    f32.  Returns ``(val, win, counts)`` over ``n_out`` destinations: the
+    minimum in-window candidate, the smallest shard-local source id
+    achieving it (``(inf, INT_MAX)`` where none), and the int32
+    ``PARTIAL_COUNTERS`` (on the device).
+    """
+    if dist_src.is_cuda:
+        return _edge_relax_partials_cuda(
+            dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
+            tile_e=tile_e, n_out=n_out)
+    if dist_src.device.type != "cpu":
+        raise ValueError(f"edge_relax_partials runs on CUDA or CPU, not "
+                         f"{dist_src.device}")
+    return edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst,
+                                   w, tile_first, lb, ub, tile_e=tile_e,
+                                   n_out=n_out)

@@ -3,7 +3,8 @@
 ``edge_relax_ref`` is the one-round kernel's contract written with
 ``scatter_reduce``; ``schedule_tiles`` is the reference's
 frontier-compaction prepass; ``edge_relax_fused_ref`` is the multi-round
-fused kernel's contract.  The wrappers in :mod:`.ops` run them for CPU
+fused kernel's contract; ``edge_relax_partials_ref`` is the sharded
+engines' one-round partials kernel's contract.  The wrappers in :mod:`.ops` run them for CPU
 tensors, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
 work on any device.
@@ -17,6 +18,8 @@ INT_MAX = 2 ** 31 - 1
 # counter slots of the fused kernel's int32[8] result
 FUSED_COUNTERS = ("n_trav", "n_relax", "n_updates", "n_extended",
                   "n_rounds", "n_tiles", "n_exec", "n_pruned")
+# counter slots of the partials kernel's int32[4] result
+PARTIAL_COUNTERS = ("n_trav", "n_relax", "n_tiles", "n_pruned")
 
 
 def schedule_tiles(frontier_block, src_local, w, tile_first, tile_e: int):
@@ -118,3 +121,30 @@ def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
         if not bool(improved.any()):
             break
     return dist, parent, frontier, cnt
+
+
+def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
+                            tile_first, lb, ub, *, tile_e: int, n_out: int):
+    """One round over all of a shard's slabs against its local source
+    range.
+
+    ``dist_src`` f32, ``paths_src`` bool and ``parent_src`` i32 span the
+    shard's source range, which ``src`` (the slabs concatenated, slab
+    offsets already added) indexes; ``dst`` holds global ids below
+    ``n_out``.  Returns ``(val, win, counts)``: per destination the
+    minimum in-window candidate of a path source and the smallest
+    shard-local source id achieving it (``(inf, INT_MAX)`` where none),
+    and the int32 ``PARTIAL_COUNTERS``: in-window slots, those not back
+    along the source's parent edge, the active tiles, and 0 pruned (no
+    ALT here).
+    """
+    src_l = src.long()
+    pa_src = paths_src[src_l]
+    cand = dist_src[src_l] + w
+    ok = pa_src & (cand >= lb) & (cand < ub)
+    trav, rlx, n_tiles = _slab_counters(pa_src, w, dst, parent_src[src_l],
+                                        ok, tile_first, tile_e)
+    val, win = edge_relax_ref(dist_src, paths_src, src, dst, w, lb, ub,
+                              n_out=n_out)
+    return val, win, torch.stack([trav, rlx, n_tiles, torch.zeros_like(
+        trav)])

@@ -8,8 +8,8 @@ fused slab, of the plain version against the reference's Pallas kernel
 (interpret mode) and its jnp twin (dist, parent, frontier and all eight
 ``FUSED_COUNTERS``), and of the fused solve against the reference's
 fused solve and the port's unfused one.  The CUDA kernel itself is held
-against the plain version by the ``cuda`` test (on the card only) and by
-``chip_smoke.py``.
+against the plain version by ``tests/test_torch_cuda.py`` (on the card
+only; that file imports no jax) and by ``chip_smoke.py``.
 """
 import functools
 
@@ -219,20 +219,3 @@ def test_fused_other_devices_raise():
                         **kw)
     with pytest.raises(ValueError, match=">= 1"):
         ops.relax_fused(*args, fused_rounds=0, **kw)
-
-
-@pytest.mark.cuda
-def test_cuda_fused_kernel_matches_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
-    for ties in (True, False):
-        args, kw = _layout_case("cuda", ties=ties)
-        before = ops.LAUNCHES.edge_relax_fused
-        out = ops.relax_fused(*args, fused_rounds=4, **kw)
-        torch.cuda.synchronize()
-        assert ops.LAUNCHES.edge_relax_fused == before + 1
-        want = ref.edge_relax_fused_ref(*args, fused_rounds=4, **kw)
-        assert torch.equal(out[0].view(torch.int32),
-                           want[0].view(torch.int32))
-        for a, b in zip(out[1:], want[1:]):
-            assert torch.equal(a, b)

@@ -12,7 +12,12 @@ Phases, in order; any failure exits non-zero:
    ``edge_relax_fused`` (ties, ``lb <= 0``, ``fused_rounds`` 1, 4 and 8,
    a call that stops after its first round, then 40 seeded cases over
    geometries and round caps; each kernel call made twice; ``dist``,
-   ``parent``, ``frontier`` and the eight counters bitwise equal).
+   ``parent``, ``frontier`` and the eight counters bitwise equal), and
+   ``flash_attention`` on seeded cases in float32 (at 2e-5) and bfloat16
+   (at 2e-2): S not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64
+   and 128, causal, non-causal and windowed masks, decode calls over a
+   cache slice with keys at 0..T-1, -1 padded or at ring-buffer
+   positions, and qwen3-0.6b's prefill call.
 3. Main path, under an NCCL process group of world size 1 (a FileStore
    in a temporary directory, destroyed at the end): a full
    shortest-path-tree solve from the max-degree source of
@@ -38,12 +43,33 @@ Phases, in order; any failure exits non-zero:
    and the numpy generator needs about a minute at scale 20 and about
    four times that per step of scale, which the run's time limit does
    not hold.
-4. Numbers: one JSON ``kernels`` line (kernel, plain-version and
-   library-call times from CUDA events, the byte bound at 3.35 TB/s,
-   launches on the main path), and each solve's seconds, rounds,
-   iterations (one host sync each), kernel invocations, and the seconds
-   its step transitions and relaxation calls took (CUDA events around
-   each call, :class:`PhaseTimes`).
+4. The language-model serving path (qwen3-0.6b at full width, weights
+   drawn on the card from a ``torch.Generator`` seeded with 0):
+   ``ServeEngine(max_batch=8, s_cache=4096, prompt_pad=256)`` in
+   bfloat16 answers 12 requests of 32 new tokens (prompt lengths drawn
+   by numpy seed 0 in [256, 3072]; 12 requests for 8 slots, so slots
+   are refilled): every request must get 32 tokens, every logit be
+   finite, the kernel launch in prefill and in decode, and no plain
+   attention run (``_sdpa_dense``, ``_sdpa_blockwise``, ``_sdpa_decode``
+   are counted).  Then one 2048-token prefill and one 8-slot decode step
+   timed and profiled (device time by kernel).  Then the whole path in
+   float32 (TF32 off), a
+   2048-token prefill and 16 teacher-forced decode steps, once through
+   the kernel and once through the plain attention: the logits must
+   agree within 1e-4 of their largest magnitude (two f32 evaluations
+   that differ only in the attention's summation order); top-1
+   agreement is printed, and the same comparison in bfloat16 is printed
+   as a measured gap.
+5. Numbers: one JSON ``kernels`` line (kernel, plain-version and
+   library-call times from CUDA events, the bound, launches on the main
+   path), each solve's seconds, rounds, iterations (one host sync each),
+   kernel invocations, and the seconds its step transitions and
+   relaxation calls took (CUDA events around each call,
+   :class:`PhaseTimes`), the serving path's time to first token per
+   request, prefill tokens/s, and decode ms per step and tokens/s, and
+   ``flash_attention``'s times at the qwen3 prefill and decode calls
+   (kernel, plain version, ``scaled_dot_product_attention``) beside its
+   bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside the repository, the script exits non-zero and prints
@@ -51,6 +77,7 @@ no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +88,7 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core rate
 KRON = dict(scale=20, edge_factor=16, seed=1)
 ROAD = dict(side=1024, seed=5)
 FUSED_ROUNDS = 4
@@ -752,6 +780,436 @@ def measure_partials(res, device):
                 window=[float(lb), float(ub)])
 
 
+# ---------------------------------------------------------------------------
+# the language-model serving path (flash_attention)
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE = dict(max_batch=8, s_cache=4096, prompt_pad=256)
+N_REQUESTS, MAX_NEW, PROMPT_LENGTHS = 12, 32, (256, 3072)
+PARITY_PROMPT, PARITY_STEPS = 2048, 16
+# float32 kernel path vs plain path: the same function evaluated twice in
+# f32, differing only in the attention's summation order (about 1e-6
+# relative per call); 1e-4 of the logits' largest magnitude leaves room
+# for its growth through 28 layers
+PARITY_TOL = 1e-4
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+        device, dtype)
+
+
+def flash_check(out, want, dtype, what) -> float:
+    """Max |kernel - plain|; raises beyond the stated tolerance."""
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    tol = FLASH_TOL[dtype]
+    if not torch.allclose(out.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"flash_attention {what} {dtype}: kernel and "
+                             f"plain version differ by {err!r} (tolerance "
+                             f"{tol})")
+    return err
+
+
+def flash_vs_plain(device, seed: int = 3):
+    """``flash_attention`` against its plain version on seeded cases in
+    float32 and bfloat16; returns ``(cases, {dtype: max |err|})``."""
+    from repro_torch.kernels.flash_attn import ops
+    from repro_torch.models.transformer import ring_positions
+    rng = np.random.default_rng(seed)
+    errs, n = {}, 0
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        rand = lambda *shape: _randn(rng, shape, dtype, device)
+        cases = []
+        # the reference kernel's [B, H, S, D] form: S not a multiple of a
+        # tile, GQA groups 1, 2, 8 and 16, D 64 and 128
+        for b, h, hkv, s, d in ((2, 4, 4, 200, 64), (1, 8, 4, 130, 128),
+                                (2, 16, 2, 67, 128), (1, 16, 8, 333, 128),
+                                (3, 16, 1, 77, 64)):
+            q, k, v = rand(b, h, s, d), rand(b, hkv, s, d), rand(b, hkv, s, d)
+            for causal, window in ((True, 0), (False, 0), (True, 50),
+                                   (False, 33)):
+                kw = dict(causal=causal, window=window)
+                cases.append((f"B={b} H={h} Hkv={hkv} S={s} D={d} {kw}",
+                              lambda q=q, k=k, v=v, kw=kw:
+                              ops.flash_attention(q, k, v, **kw),
+                              lambda q=q, k=k, v=v, kw=kw:
+                              ops.flash_attention_ref(q, k, v, **kw)))
+        # decode calls: one query per slot at its position over one layer
+        # of a [L, B, T, KV, D] cache, keys at 0..T-1, -1 padded, or a ring
+        for b, kv, hg, d, t, window in ((8, 8, 2, 128, 4096, 0),
+                                        (5, 2, 1, 64, 700, 0),
+                                        (3, 1, 8, 128, 513, 0),
+                                        (4, 8, 2, 128, 1024, 1024)):
+            cache = rand(2, 2, b, t, kv, d)
+            kc, vc = cache[0, 1], cache[1, 1]
+            q = rand(b, 1, kv, hg, d)
+            pos = torch.from_numpy(rng.integers(0, 2 * t, b).astype(
+                np.int32)).to(device)
+            pad = torch.arange(t, dtype=torch.int32,
+                               device=device).expand(b, t).clone()
+            pad[:, torch.from_numpy(rng.integers(0, t, t // 4)).to(device)] = -1
+            for name, k_pos in (("arange", None), ("padded", pad),
+                                ("ring", ring_positions(pos, t))):
+                args = (q, kc, vc, pos[:, None], k_pos)
+                kw = dict(causal=True, window=window)
+                cases.append((f"decode B={b} T={t} HG={hg} D={d} {name} "
+                              f"{kw}",
+                              lambda args=args, kw=kw:
+                              ops.flash_attention_pos(*args, **kw),
+                              lambda args=args, kw=kw:
+                              ops.flash_attention_pos_ref(*args, **kw)))
+        # qwen3-0.6b's prefill call: S = T = 2048, 8 KV heads of 2
+        q, k, v = rand(1, 2048, 8, 2, 128), rand(1, 2048, 8, 128), \
+            rand(1, 2048, 8, 128)
+        cases.append(("qwen3 prefill S=T=2048",
+                      lambda: ops.flash_attention_pos(q, k, v, causal=True),
+                      lambda: ops.flash_attention_pos_ref(q, k, v,
+                                                          causal=True)))
+        errs[key] = 0.0
+        for what, kernel, plain in cases:
+            errs[key] = max(errs[key], flash_check(kernel(), plain(), dtype,
+                                                   what))
+            n += 1
+    return n, errs
+
+
+class PlainAttentionCalls:
+    """Counts calls of the transformer's plain attention paths
+    (``_sdpa_dense``, ``_sdpa_blockwise``, ``_sdpa_decode``) while open."""
+    NAMES = ("_sdpa_dense", "_sdpa_blockwise", "_sdpa_decode")
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.module = transformer
+        self.saved = {n: getattr(transformer, n) for n in self.NAMES}
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        for name, fn in self.saved.items():
+            setattr(transformer, name, self._counted(name, fn))
+        return self
+
+    def _counted(self, name, fn):
+        def counted(*args, **kw):
+            self.calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def lm_serve(cfg, params, device):
+    """The serving path at full width: ``SERVE`` answers ``N_REQUESTS``
+    requests of ``MAX_NEW`` tokens.  The launch counter is zeroed just
+    before the run and read just after; the engine's prefill and decode
+    calls are timed (host clock, each ending in a synchronize)."""
+    from repro_torch.kernels.flash_attn.ops import LAUNCHES
+    from repro_torch.serve.engine import Request, ServeEngine
+    # warm-up: one short request (cuBLAS handles, first launches)
+    warm = ServeEngine(cfg, params, max_batch=8, s_cache=512,
+                       prompt_pad=256)
+    warm.submit(Request(rid=-1, prompt=np.arange(300, dtype=np.int32) % cfg.vocab,
+                        max_new=2))
+    warm.run()
+    del warm
+    engine = ServeEngine(cfg, params, **SERVE)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
+                           N_REQUESTS)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), max_new=MAX_NEW) for i, n in enumerate(lengths)]
+    st = dict(prefill=[], decode=[], first=[], launches_prefill=0,
+              launches_decode=0, nonfinite=0)
+    prefill, decode = engine._prefill, engine._decode
+
+    def timed_prefill(tokens):
+        before, t = LAUNCHES.flash_attention, time.perf_counter()
+        cache, logits = prefill(tokens)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        st["prefill"].append((int(tokens.shape[1]), now - t))
+        st["first"].append(now - t0)    # its token is the argmax just after
+        st["launches_prefill"] += LAUNCHES.flash_attention - before
+        st["nonfinite"] += int((~torch.isfinite(logits)).sum())
+        return cache, logits
+
+    def timed_decode(cache, tok):
+        active = sum(r is not None for r in engine.slot_req)
+        before, t = LAUNCHES.flash_attention, time.perf_counter()
+        logits, cache = decode(cache, tok)
+        torch.cuda.synchronize()
+        st["decode"].append((active, time.perf_counter() - t))
+        st["launches_decode"] += LAUNCHES.flash_attention - before
+        st["nonfinite"] += int((~torch.isfinite(logits)).sum())
+        return logits, cache
+
+    engine._prefill, engine._decode = timed_prefill, timed_decode
+    torch.cuda.synchronize()
+    LAUNCHES.reset()
+    with PlainAttentionCalls() as plain:
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        steps = engine.run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    launches = LAUNCHES.flash_attention
+    lens = [len(r.out) for r in reqs]
+    if lens != [MAX_NEW] * N_REQUESTS:
+        raise AssertionError(f"served token counts {lens}, expected "
+                             f"{MAX_NEW} each")
+    if st["nonfinite"]:
+        raise AssertionError(f"{st['nonfinite']} logits were NaN or inf")
+    if st["launches_prefill"] <= 0 or st["launches_decode"] <= 0 or \
+            launches != st["launches_prefill"] + st["launches_decode"]:
+        raise AssertionError(
+            f"flash_attention launched {st['launches_prefill']} times in "
+            f"prefill and {st['launches_decode']} in decode ({launches} in "
+            "all): the serving path must run the kernel in both")
+    if any(plain.calls.values()):
+        raise AssertionError(f"the serving path took the plain attention: "
+                             f"{plain.calls}")
+    pre_tok = sum(n for n, _ in st["prefill"])
+    pre_s = sum(t for _, t in st["prefill"])
+    dec_tok = sum(a for a, _ in st["decode"])
+    dec_s = sum(t for _, t in st["decode"])
+    return dict(
+        requests=N_REQUESTS, max_new=MAX_NEW, engine_steps=steps,
+        total_s=total_s, prompt_lengths=[int(n) for n in lengths],
+        padded_prompt_lengths=[n for n, _ in st["prefill"]],
+        ttft_s=st["first"], prefill_s=[t for _, t in st["prefill"]],
+        prefill_tokens_per_s=pre_tok / pre_s,
+        decode_steps=len(st["decode"]),
+        decode_ms_per_step=dec_s / len(st["decode"]) * 1e3,
+        decode_tokens_per_s=dec_tok / dec_s,
+        decode_active_slots=[a for a, _ in st["decode"]],
+        launches=launches, launches_prefill=st["launches_prefill"],
+        launches_decode=st["launches_decode"], plain_calls=plain.calls)
+
+
+def lm_profile(cfg, params, device):
+    """Where a served request's time goes: one 2048-token prefill and one
+    decode step of 8 slots at position 2048 of a 4096-slot cache, each
+    timed on the host clock (mean of 3, ending in a synchronize) and once
+    under ``torch.profiler`` for the device time by kernel (the
+    profiler's own host overhead is left out of the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (1, 2048))).to(device)
+    cache = T.init_cache(cfg, 8, 4096, device)
+    cache["pos"].fill_(2048)
+    tok = torch.zeros(8, dtype=torch.int32, device=device)
+    calls = dict(prefill=lambda: T.prefill(cfg, params, tokens, 4096),
+                 decode=lambda: T.decode_step(cfg, params, cache, tok))
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kern = [e for e in events if e.device_type == DeviceType.CUDA]
+        ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
+        device_ms = ms(kern)
+        flash_ms = ms(e for e in kern if "flash_fwd" in e.key)
+        gemm_ms = ms(e for e in kern if any(
+            w in e.key for w in ("gemm", "nvjet", "xmma", "cutlass")))
+        out[name] = dict(
+            wall_ms=wall_ms, device_ms=device_ms,
+            device_busy_share=device_ms / wall_ms, flash_attention_ms=flash_ms,
+            matmul_ms=gemm_ms, other_device_ms=device_ms - flash_ms - gemm_ms,
+            kernels=sum(e.count for e in kern),
+            host_launch_calls=sum(e.count for e in events if e.key in (
+                "cudaLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchKernelExC")))
+    return out
+
+
+def lm_parity(cfg32, device):
+    """The whole path, float32 then bfloat16: a ``PARITY_PROMPT``-token
+    prefill and ``PARITY_STEPS`` teacher-forced decode steps through the
+    kernel and through the plain attention, on the same weights."""
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = T.init_params(cfg32, torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg32.vocab, (1, PARITY_PROMPT))).to(device)
+    forced = torch.from_numpy(rng.integers(
+        0, cfg32.vocab, (PARITY_STEPS, 1))).to(device)
+    s_cache = PARITY_PROMPT + PARITY_STEPS
+
+    def run(cfg, p, attn):
+        cache, logits = T.prefill(cfg, p, prompt, s_cache, attn=attn)
+        out = [logits.float()]
+        for tok in forced:
+            logits, cache = T.decode_step(cfg, p, cache, tok, attn=attn)
+            out.append(logits.float())
+        return torch.stack(out)            # [1 + steps, 1, V]
+
+    cfg16 = dataclasses.replace(cfg32, dtype=torch.bfloat16)
+    p16 = {k: ({n: w.to(torch.bfloat16) for n, w in v.items()}
+               if k == "layers" else v.to(torch.bfloat16))
+           for k, v in params.items()}
+    res = {}
+    for key, cfg, p in (("f32", cfg32, params), ("bf16", cfg16, p16)):
+        kern, plain = run(cfg, p, "flash"), run(cfg, p, "plain")
+        scale = float(plain.abs().max())
+        gap = float((kern - plain).abs().max())
+        res[key] = dict(max_abs_diff=gap, logit_scale=scale,
+                        rel_to_scale=gap / scale,
+                        top1_agree=float((kern.argmax(-1) == plain.argmax(-1)
+                                          ).float().mean()),
+                        finite=bool(torch.isfinite(kern).all()
+                                    and torch.isfinite(plain).all()))
+    if not (res["f32"]["finite"] and res["bf16"]["finite"]):
+        raise AssertionError(f"non-finite logits in the parity run: {res}")
+    if res["f32"]["rel_to_scale"] > PARITY_TOL:
+        raise AssertionError(
+            f"float32 whole path: kernel and plain attention differ by "
+            f"{res['f32']['max_abs_diff']!r} at logit scale "
+            f"{res['f32']['logit_scale']!r} (tolerance {PARITY_TOL} of it)")
+    res["tolerance_f32"] = PARITY_TOL
+    return res
+
+
+def measure_flash(device):
+    """The kernel at qwen3-0.6b's prefill call (S = T = 2048, causal) and
+    decode call (B = 8 slots at position 4095 of a 4096-slot cache), in
+    bfloat16: its time, its plain version's, the library yardstick's
+    (``scaled_dot_product_attention`` with ``enable_gqa``, timed only),
+    and its bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops
+    bf, h, kv, d = torch.bfloat16, 16, 8, 128
+    rng = np.random.default_rng(4)
+    out = {}
+    s = 2048
+    q = _randn(rng, (1, s, kv, h // kv, d), bf, device)
+    k, v = _randn(rng, (1, s, kv, d), bf, device), _randn(rng, (1, s, kv, d),
+                                                         bf, device)
+    qh = q.reshape(1, s, h, d).transpose(1, 2)
+    calls = dict(
+        kernel=lambda: ops.flash_attention_pos(q, k, v, causal=True),
+        plain=lambda: ops.flash_attention_pos_ref(q, k, v, causal=True),
+        library=lambda: F.scaled_dot_product_attention(
+            qh, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True).transpose(1, 2).reshape(q.shape))
+    pairs = s * (s + 1) // 2                  # visible (query, key) pairs
+    out["prefill"] = _flash_numbers(
+        calls, flops=4 * d * h * pairs,
+        bytes_=2 * (2 * q.numel() + k.numel() + v.numel()),
+        what="prefill S=T=2048")
+    b, t = 8, 4096
+    cache = _randn(rng, (2, b, t, kv, d), bf, device)
+    kc, vc = cache[0], cache[1]
+    q = _randn(rng, (b, 1, kv, h // kv, d), bf, device)
+    pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
+    mask = (torch.arange(t, device=device)[None, :] <= pos)[:, None, None, :]
+    qh = q.reshape(b, 1, h, d).transpose(1, 2)
+    calls = dict(
+        kernel=lambda: ops.flash_attention_pos(q, kc, vc, pos, None,
+                                               causal=True),
+        plain=lambda: ops.flash_attention_pos_ref(q, kc, vc, pos, None,
+                                                  causal=True),
+        library=lambda: F.scaled_dot_product_attention(
+            qh, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True).transpose(1, 2).reshape(q.shape))
+    visible = int(mask.sum())
+    out["decode"] = _flash_numbers(
+        calls, flops=4 * d * h * visible,
+        bytes_=2 * (2 * visible * kv * d + 2 * q.numel()) + 4 * b,
+        what="decode B=8 T=4096")
+    return out
+
+
+def _flash_numbers(calls, *, flops, bytes_, what):
+    """Times of the three calls (CUDA events, mean of 20 after 2 warm-ups)
+    and the bound: the larger of the operations over the bf16 tensor-core
+    rate and the bytes (inputs read once, output written once) over the
+    memory rate."""
+    got = calls["kernel"]()
+    want = calls["plain"]()
+    err = flash_check(got, want, torch.bfloat16, what)
+    lib_err = float((calls["library"]().float() - want.float()).abs().max())
+    op_ms = flops / BF16_FLOPS * 1e3
+    byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    return dict(ms=cuda_ms(calls["kernel"]), plain_ms=cuda_ms(calls["plain"]),
+                library_ms=cuda_ms(calls["library"]),
+                bound_ms=max(op_ms, byte_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                flops=flops, bytes=bytes_, max_abs_err=err,
+                library_max_abs_err=lib_err)
+
+
+def lm_phases(device):
+    """Phase 4 and its numbers; returns the ``flash_attention`` entry of
+    the ``kernels`` line and the serving and parity numbers."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    cfg = get("qwen3-0.6b").make_config()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"[lm] {cfg.name}: {cfg.param_count()} parameters in {cfg.dtype}, "
+        f"drawn on the card in {time.perf_counter() - t0:.2f} s")
+    serving = lm_serve(cfg, params, device)
+    serving["profile"] = lm_profile(cfg, params, device)
+    del params
+    for i, (n, ttft) in enumerate(zip(serving["padded_prompt_lengths"],
+                                      serving["ttft_s"])):
+        log(f"[serve] request {i}: prompt {serving['prompt_lengths'][i]} "
+            f"tokens (padded {n}), time to first token {ttft!r} s")
+    log(f"[serve] {N_REQUESTS} requests x {MAX_NEW} tokens in "
+        f"{serving['total_s']!r} s over {serving['engine_steps']} engine "
+        f"steps: prefill {serving['prefill_tokens_per_s']!r} tokens/s, "
+        f"decode {serving['decode_ms_per_step']!r} ms/step "
+        f"({serving['decode_tokens_per_s']!r} tokens/s), flash_attention "
+        f"launches {serving['launches_prefill']} in prefill + "
+        f"{serving['launches_decode']} in decode, plain attention calls "
+        f"{sum(serving['plain_calls'].values())}")
+    for key, m in serving["profile"].items():
+        log(f"[profile] {key}: " + json.dumps(m))
+    parity = lm_parity(dataclasses.replace(cfg, dtype=torch.float32), device)
+    for key in ("f32", "bf16"):
+        log(f"[parity] {key}: kernel vs plain attention over a "
+            f"{PARITY_PROMPT}-token prefill and {PARITY_STEPS} decode steps: "
+            + json.dumps(parity[key]))
+    numbers = measure_flash(device)
+    for key, m in numbers.items():
+        log(f"[flash_attention] {key}: " + json.dumps(m))
+    pre, dec = numbers["prefill"], numbers["decode"]
+    kernel = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:77",
+        "launches": serving["launches"],
+        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"],
+        "shape": "prefill: S = T = 2048, 16 heads over 8 KV heads, D = 128, "
+                 "causal, bf16",
+        "decode": dict(dec, shape="B = 8, T = 4096, all keys visible, bf16"),
+        "launches_prefill": serving["launches_prefill"],
+        "launches_decode": serving["launches_decode"],
+    }
+    return dict(kernel=kernel, serving=serving, parity=parity)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -775,6 +1233,10 @@ def main() -> int:
         "slab cases bitwise equal")
     log(f"[kernel-vs-plain] edge_relax_fused: {fused_vs_plain(device)} "
         "random slab cases bitwise equal")
+    n_flash, flash_err = flash_vs_plain(device)
+    log(f"[kernel-vs-plain] flash_attention: {n_flash} seeded cases within "
+        f"tolerance (max |err| f32 {flash_err['f32']!r}, bf16 "
+        f"{flash_err['bf16']!r})")
 
     t0 = time.perf_counter()
     graphs = [("kronecker(20,16)", kronecker(**KRON)),
@@ -784,13 +1246,27 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as store_dir:
         init_group(store_dir)
         try:
-            return report(graphs, device, card)
+            kernels, solves = report(graphs, device)
         finally:
             tdist.destroy_process_group()
+    del graphs
+
+    lm = lm_phases(device)
+    kernels.append(lm["kernel"])
+    print(json.dumps({"kernels": kernels}), flush=True)
+    log(json.dumps(solves))
+    log(json.dumps({"serving": lm["serving"], "parity": lm["parity"]}))
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
-def report(graphs, device, card) -> int:
-    """Phases 3 and 4 under the process group."""
+def report(graphs, device):
+    """Phase 3 and the shortest-path numbers, under the process group;
+    returns the three edge-relax ``kernels`` entries and the solves'
+    numbers."""
     warm_up(device)
     results = main_path(graphs, device)
     log(f"[kernel-vs-plain] edge_relax_partials: "
@@ -845,8 +1321,7 @@ def report(graphs, device, card) -> int:
         "launches_per_solve": {n: r["v1_launches"]
                                for n, r in results.items()},
     }]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    log(json.dumps({"solves": {n: dict(
+    solves = {"solves": {n: dict(
         solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
         plain_solve_s=r["plain_solve_s"], v1_solve_s=r["v1_solve_s"],
         v1_plain_solve_s=r["v1_plain_solve_s"], phases=r["phases"],
@@ -859,12 +1334,8 @@ def report(graphs, device, card) -> int:
         invocations=int(r["metrics"]["n_invocations"]),
         fused_invocations=int(r["fused_metrics"]["n_invocations"]),
         v1_invocations=int(r["v1_metrics"]["n_invocations"]))
-        for n, r in results.items()}}))
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+        for n, r in results.items()}}
+    return kernels, solves
 
 
 if __name__ == "__main__":

@@ -1,0 +1,45 @@
+"""Architecture registry of the port: one module per architecture, as in
+``repro.configs``.
+
+Every ported module exposes ``FAMILY``, ``make_config(**kw)`` (the full
+configuration), ``SHAPES`` and ``smoke_config()`` (a reduced config of the
+same family for CPU tests).  Only the dense LMs the serving slice runs are
+ported; :func:`get` raises for the others.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = [
+    # LM family (5)
+    "deepseek-moe-16b",
+    "granite-moe-3b-a800m",
+    "qwen3-0.6b",
+    "phi4-mini-3.8b",
+    "granite-34b",
+    # GNN (4)
+    "dimenet",
+    "gatedgcn",
+    "pna",
+    "gin-tu",
+    # recsys (1)
+    "mind",
+]
+
+BONUS_ARCHS = ["qwen3-0.6b-swa"]  # sub-quadratic variant for long_500k
+
+PORTED = ("qwen3-0.6b", "qwen3-0.6b-swa")
+
+
+def _modname(arch: str) -> str:
+    return __name__ + "." + arch.replace("-", "_").replace(".", "_")
+
+
+def get(arch: str):
+    if arch not in PORTED:
+        known = arch in ARCHS or arch in BONUS_ARCHS
+        raise NotImplementedError(
+            f"architecture {arch!r} is " + (
+                "not ported yet (ROADMAP.md, queue 1 item 16); ported: "
+                if known else "unknown; ported: ") + ", ".join(PORTED))
+    return importlib.import_module(_modname(arch))

@@ -1,7 +1,7 @@
 """Carry the reference's state into the port.
 
-The system has no weights: its state is the graph and its layouts.
-:func:`from_reference` turns the numpy arrays of a reference
+The shortest-path system has no weights: its state is the graph and its
+layouts.  :func:`from_reference` turns the numpy arrays of a reference
 ``HostGraph``, ``DeviceGraph`` or ``BlockedGraph`` into the port's
 containers, so that both packages can run on byte-identical inputs.  The
 caller flattens the reference object into numpy arrays (the port imports
@@ -19,6 +19,11 @@ nothing of the reference package):
   ``src_local, dst, w, tile_dst, tile_first, bucket_nonempty`` and the
   meta fields ``block_v, tile_e, n_src_blocks, n_dst_blocks,
   dense_grid_tiles``.
+
+:func:`lm_params_from_reference` does the same for the language model's
+parameter pytree, flattened by the caller into ``{"embed": ...,
+"ln_f": ..., "layers/wq": ..., ...}`` numpy arrays (bf16 leaves as their
+exact float32 values: the port needs no ``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -124,3 +129,24 @@ def from_reference(arrays: dict, device):
     if "n_edges2" in arrays:
         return _device(arrays, dev)
     return _host(arrays)
+
+
+def lm_params_from_reference(arrays: dict, dtype, device="cpu") -> dict:
+    """The port's parameter dict (:mod:`repro_torch.models.transformer`)
+    from the reference's ``init_params`` pytree flattened with ``/``-joined
+    keys (``layers/<name>`` for the stacked per-layer tensors).  Every
+    leaf is cast to ``dtype``, the model's ``cfg.dtype``, as the
+    reference stores it (a float32 copy of a bf16 leaf casts back
+    exactly)."""
+    dev = torch.device(device)
+    out = {"layers": {}}
+    for key, a in arrays.items():
+        t = torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+        head, _, name = key.partition("/")
+        if head == "layers" and name:
+            out["layers"][name] = t
+        elif not name:
+            out[head] = t
+        else:
+            raise ValueError(f"unexpected parameter key {key!r}")
+    return out

@@ -1,0 +1,163 @@
+"""Wrappers of the flash_attention kernel.
+
+:func:`flash_attention` keeps the reference kernel's ``[B, H, S, D]``
+layout; :func:`flash_attention_pos` is the form the model path calls, on
+its own layouts (q ``[B, S, KV, HG, D]``, one layer of the KV cache
+``[B, T, KV, D]``) with per-query and per-key positions.  Both take the
+tensors where they lie: CPU tensors go to the plain versions in
+:mod:`.ref`; CUDA tensors go to the hand-written kernel in
+``csrc/flash_attn.cu`` (built on first use), which reads them in place
+through their strides, or the call raises.  There is no fallback from one
+to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .ref import flash_attention_pos_ref, flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_pos", "flash_attention_ref",
+           "flash_attention_pos_ref", "LAUNCHES", "HEAD_DIMS"]
+
+HEAD_DIMS = (16, 32, 64, 128)       # the kernel's compiled head widths
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class _Counter:
+    """Launches of the CUDA kernel: one per :func:`flash_attention` or
+    :func:`flash_attention_pos` call on the card; CPU calls never count."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.flash_attention = 0
+
+
+LAUNCHES = _Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+             ctypes.c_float, _P]
+
+
+def _library():
+    from .. import _build
+    lib = _build.load("flash_attn")
+    fn = lib.flash_attn_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.flash_attn_error_name.argtypes = [ctypes.c_int]
+        lib.flash_attn_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rows(name, t, elem):
+    """k and v rows are copied 16 bytes at a time: their start and row
+    stride must be 16-byte aligned, their last dimension contiguous."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}'s last dimension is not contiguous")
+    if t.data_ptr() % 16 or any((st * elem) % 16 for st in t.stride()[:-1]):
+        raise ValueError(f"{name} is not 16-byte aligned in its rows")
+
+
+def _positions(name, pos, shape, device):
+    if pos is None:
+        return None, (0, 0)
+    if pos.device != device or pos.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 on {device}, got {pos.dtype} "
+                        f"on {pos.device}")
+    if tuple(pos.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(pos.shape)}, expected "
+                         f"{tuple(shape)}")
+    return pos, pos.stride()
+
+
+def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window):
+    b, s, kv, hg, d = q.shape
+    t = k.shape[1]
+    dev = q.device
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not "
+                        f"{q.dtype}")
+    for name, x in (("k", k), ("v", v), ("out", out)):
+        if x.device != dev or x.dtype != q.dtype:
+            raise TypeError(f"{name} is {x.dtype} on {x.device}, q is "
+                            f"{q.dtype} on {dev}")
+    if tuple(k.shape) != (b, t, kv, d) or tuple(v.shape) != (b, t, kv, d):
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if q.stride(-1) != 1 or out.stride(-1) != 1:
+        raise ValueError("q's and out's last dimension must be contiguous")
+    elem = q.element_size()
+    _check_rows("k", k, elem)
+    _check_rows("v", v, elem)
+    q_pos, qps = _positions("q_pos", q_pos, (b, s), dev)
+    k_pos, kps = _positions("k_pos", k_pos, (b, t), dev)
+    strides = (ctypes.c_longlong * 18)(
+        *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4],
+        *qps, *kps)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attn_launch(
+            _DTYPES[q.dtype], d, b, s, t, kv, hg, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            None if q_pos is None else q_pos.data_ptr(),
+            None if k_pos is None else k_pos.data_ptr(), strides,
+            int(bool(causal)), int(window), 1.0 / d ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: "
+                           f"{lib.flash_attn_error_name(err).decode()} "
+                           f"({err})")
+    LAUNCHES.flash_attention += 1
+    return out
+
+
+def _cpu_or_raise(q, what):
+    if q.device.type != "cpu":
+        raise ValueError(f"{what} runs on CUDA or CPU, not {q.device}")
+
+
+def flash_attention_pos(q, k, v, q_pos=None, k_pos=None, *,
+                        causal: bool = True, window: int = 0):
+    """Attention of q ``[B, S, KV, HG, D]`` over k/v ``[B, T, KV, D]``
+    with query positions ``q_pos`` ``[B, S]`` and key positions ``k_pos``
+    ``[B, T]`` (int32; ``None`` means ``0..S-1`` / ``0..T-1``, which lets
+    a causal block stop at its last visible key tile).  A key is visible
+    iff its position is >= 0, and with ``causal`` <= the query's, and
+    with ``window`` > the query's minus ``window``; a query with no
+    visible key gives 0.  f32 inside; returns a new contiguous
+    ``[B, S, KV, HG, D]`` tensor in q's dtype."""
+    if q.is_cuda:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window)
+    _cpu_or_raise(q, "flash_attention")
+    return flash_attention_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                   window=window)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q ``[B, H, S, D]``; k, v ``[B, Hkv, T, D]`` -> ``[B, H, S, D]``
+    (the reference kernel's layout; query head ``h`` uses KV head
+    ``h // (H // Hkv)``).  On the card the kernel reads these layouts
+    through their strides: no copy."""
+    if q.is_cuda:
+        b, h, s, d = q.shape
+        h_kv = k.shape[1]
+        if h % h_kv:
+            raise ValueError(f"{h} query heads over {h_kv} KV heads")
+        out = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
+        as5 = lambda x: x.unflatten(1, (h_kv, h // h_kv)).permute(0, 3, 1, 2,
+                                                                  4)
+        _flash_cuda(as5(q), k.transpose(1, 2), v.transpose(1, 2), None, None,
+                    as5(out), causal, window)
+        return out
+    _cpu_or_raise(q, "flash_attention")
+    return flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -7,8 +7,13 @@ Run on a machine with an NVIDIA GPU:
 This file imports neither jax nor the reference package (the machine
 with the card has no jax): its inputs come from the port's own builders
 and numpy.  Every test needs the card and skips without one; the kernels
-build with nvcc on first use.  Every comparison is bitwise.
+build with nvcc on first use.  The edge-relax comparisons are bitwise;
+flash attention is held to its plain version (f32 inside) at 2e-5 in
+float32 and 2e-2 in bfloat16, the tolerances of the reference's own
+kernel tests.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +24,8 @@ from repro_torch.core.graph import build_blocked, build_csr
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from repro_torch.data.generators import kronecker, road_grid
 from repro_torch.kernels.edge_relax import ops, ref
+from repro_torch.kernels.flash_attn import ops as fops
+from repro_torch.models.transformer import ring_positions
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +163,87 @@ def test_cuda_v1_solve_matches_single_device(card, tmp_path):
             assert ops.LAUNCHES.edge_relax_partials > before
     finally:
         tdist.destroy_process_group()
+
+
+_FLASH_TOL = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+
+
+def _normal(rng, shape, dtype, device):
+    return torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32)).to(
+        device, dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
+def test_cuda_flash_attention_matches_plain_version(card, dtype, tol):
+    # S not a multiple of any tile, GQA groups 1, 2 and 8, D 16 to 128
+    rng = np.random.default_rng(11)
+    shapes = [(2, 4, 2, 200, 32), (1, 8, 8, 130, 64), (2, 16, 2, 67, 128),
+              (1, 16, 8, 300, 128), (1, 4, 4, 257, 16), (3, 8, 1, 5, 64)]
+    masks = [(True, 0), (True, 31), (False, 0), (False, 40)]
+    for (b, h, hkv, s, d), (causal, window) in itertools.product(shapes,
+                                                                 masks):
+        q = _normal(rng, (b, h, s, d), dtype, card)
+        k = _normal(rng, (b, hkv, s, d), dtype, card)
+        v = _normal(rng, (b, hkv, s, d), dtype, card)
+        before = fops.LAUNCHES.flash_attention
+        out = fops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert fops.LAUNCHES.flash_attention == before + 1
+        want = fops.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window)
+        assert out.dtype == dtype and out.shape == q.shape
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
+def test_cuda_flash_attention_decode_positions(card, dtype, tol):
+    # the decode step's call: one query per slot at its own position over
+    # one layer of a [L, B, T, KV, D] cache, read in place; keys at -1
+    # (never written) and ring-buffer positions
+    rng = np.random.default_rng(12)
+    for hg, d, t, window in ((2, 128, 4096, 0), (1, 64, 300, 0),
+                             (8, 128, 513, 0), (2, 16, 64, 0),
+                             (2, 128, 256, 256)):
+        b, kv = 5, 2
+        cache = _normal(rng, (2, b, t, kv, d), dtype, card)
+        kc, vc = cache[0], cache[1]
+        q = _normal(rng, (b, 1, kv, hg, d), dtype, card)
+        pos = torch.from_numpy(rng.integers(0, 3 * t, b).astype(np.int32)
+                               ).to(card)
+        pad = torch.arange(t, device=card, dtype=torch.int32).expand(
+            b, t).clone()
+        pad[:, rng.integers(0, t, t // 3)] = -1
+        for k_pos in (None, pad, ring_positions(pos, t)):
+            args = (q, kc, vc, pos[:, None], k_pos)
+            out = fops.flash_attention_pos(*args, causal=True, window=window)
+            torch.cuda.synchronize()
+            want = fops.flash_attention_pos_ref(*args, causal=True,
+                                                window=window)
+            torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
+def test_cuda_flash_attention_query_chunk(card, dtype, tol):
+    # a chunk of queries at positions 300..369 over 400 keys: with keys at
+    # 0..T-1 (null k_pos) the causal and windowed ranges are cut from the
+    # queries' positions; with -1 padded keys every tile is scanned
+    rng = np.random.default_rng(13)
+    b, s, t, kv, hg, d = 3, 70, 400, 2, 4, 64
+    q = _normal(rng, (b, s, kv, hg, d), dtype, card)
+    k = _normal(rng, (b, t, kv, d), dtype, card)
+    v = _normal(rng, (b, t, kv, d), dtype, card)
+    q_pos = (300 + torch.arange(s, device=card, dtype=torch.int32)).expand(
+        b, s)
+    pad = torch.arange(t, device=card, dtype=torch.int32).expand(b, t).clone()
+    pad[:, rng.integers(0, t, t // 3)] = -1
+    for k_pos in (None, pad):
+        for causal, window in ((True, 0), (True, 40), (False, 40)):
+            args = (q, k, v, q_pos, k_pos)
+            kw = dict(causal=causal, window=window)
+            out = fops.flash_attention_pos(*args, **kw)
+            torch.cuda.synchronize()
+            want = fops.flash_attention_pos_ref(*args, **kw)
+            torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                       atol=tol)

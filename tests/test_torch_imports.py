@@ -1,8 +1,8 @@
-"""The port stands alone: ``import repro_torch`` and CPU solves (single
-device, fused, sharded v1) load neither jax nor the reference package,
-``chip_smoke.py`` and the card-side tests import neither, entry points
-need ``cuda`` unless told ``device="cpu"``, and a CPU tensor never counts
-as a kernel launch."""
+"""The port stands alone: ``import repro_torch``, CPU solves (single
+device, fused, sharded v1) and CPU serving of the LM load neither jax nor
+the reference package, ``chip_smoke.py`` and the card-side tests import
+neither, entry points need ``cuda`` unless told ``device="cpu"``, and a
+CPU tensor never counts as a kernel launch."""
 import ast
 import json
 import os
@@ -56,6 +56,58 @@ def test_port_imports_no_jax_and_no_reference():
     assert res["reached"] > 1 and res["fused_same"] and res["v1_same"]
 
 
+_LM_PROBE = """
+import json, sys
+import numpy as np
+import torch
+from repro_torch import configs, convert
+from repro_torch.kernels.flash_attn import ops
+from repro_torch.launch import serve
+from repro_torch.models import layers, transformer as T
+from repro_torch.serve.engine import Request, ServeEngine
+tokens = {}
+for arch in ("qwen3-0.6b", "qwen3-0.6b-swa"):
+    cfg = configs.get(arch).smoke_config()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    for attn in ("flash", "plain"):
+        eng = ServeEngine(cfg, params, max_batch=2, s_cache=32,
+                          prompt_pad=8, attn=attn)
+        reqs = [Request(rid=i, prompt=np.arange(3 + 5 * i, dtype=np.int32),
+                        max_new=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        tokens[arch + "/" + attn] = [r.out for r in reqs]
+serve.main(["--device", "cpu", "--requests", "2", "--max-new", "2"])
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "launches": ops.LAUNCHES.flash_attention,
+                  "tokens": tokens}))
+"""
+
+
+def test_lm_serving_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _LM_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["launches"] == 0           # CPU tensors: the plain version
+    for name, outs in res["tokens"].items():
+        assert [len(o) for o in outs] == [4, 4, 4], name
+
+
+def test_unported_architectures_raise():
+    from repro_torch import configs
+    assert configs.get("qwen3-0.6b").make_config().n_layers == 28
+    for arch in ("deepseek-moe-16b", "granite-34b", "mind"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.get(arch)
+    with pytest.raises(NotImplementedError, match="unknown"):
+        configs.get("llama-7b")
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there
@@ -83,3 +135,12 @@ def test_entry_point_needs_a_card_unless_told_cpu():
             sssp(g, 0)
     dist, _, _ = sssp(g, 0, device="cpu")
     assert dist.tolist() == [0.0, 1.0, 3.0]
+
+
+def test_serve_launcher_needs_a_card_unless_told_cpu(capsys):
+    from repro_torch.launch import serve
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--requests", "1", "--max-new", "2"])
+    serve.main(["--device", "cpu", "--requests", "2", "--max-new", "3"])
+    assert "served 2 requests (6 tokens)" in capsys.readouterr().out

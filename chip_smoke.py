@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero:
    (at 2e-2): S not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64
    and 128, causal, non-causal and windowed masks, decode calls over a
    cache slice with keys at 0..T-1, -1 padded or at ring-buffer
-   positions, and qwen3-0.6b's prefill call.
+   positions, and qwen3-0.6b's prefill call.  Then the ALT branches of
+   ``edge_relax`` and ``edge_relax_fused`` (``alt_lb`` with +inf entries;
+   prune bounds of +inf, below every candidate, at a tie and in between;
+   fused targets reached before and within the call, so that the bound
+   tightens between rounds; then 20 seeded cases of each; each call made
+   twice; ``vals``, ``wins``, ``dist``, ``parent``, ``frontier`` and the
+   counters bitwise equal).
 3. Main path, under an NCCL process group of world size 1 (a FileStore
    in a temporary directory, destroyed at the end): a full
    shortest-path-tree solve from the max-degree source of
@@ -29,20 +35,35 @@ Phases, in order; any failure exits non-zero:
    must have launched in its own solve, the fused solve must not launch
    ``edge_relax`` and, on the road graph, must make at most half the
    unfused solve's invocations, and ``dist`` must match scipy's float64
-   Dijkstra at ``rtol=1e-4, atol=1e-5``.  Then ``edge_relax_partials``
-   against its plain version on every shard of a P = 4 shard layout of
-   the kronecker graph at a mid-solve window of that solve, and on 30
-   seeded random layouts (P from 1 to 4, geometries, windows, ties; each
-   call twice; ``val``, ``win`` and the four counters bitwise equal).
-   Then the sharded v1 engine on each graph (``sssp_distributed``, one
-   rank), on ``blocked`` (the ``edge_relax_partials`` kernel, which
-   must launch, with no launch of the other two) and on ``segment_min``:
-   both bitwise equal to the single-device blocked solve, with equal
-   logical counters, and matching Dijkstra.  Scale 20 is a cut: the
-   paper's graphs are scale 26-27 (its road network has 24M vertices),
-   and the numpy generator needs about a minute at scale 20 and about
-   four times that per step of scale, which the run's time limit does
-   not hold.
+   Dijkstra at ``rtol=1e-4, atol=1e-5``.
+   Then point-to-point queries with ALT landmark pruning:
+   on each graph 8 ``"farthest"`` landmarks are built on the card with
+   the fused blocked path (the build time is printed), and 2 seeded
+   (source, target) pairs, the target reachable from the source, are
+   each solved five ways: p2p without landmarks on ``blocked``; with
+   landmarks on ``blocked`` (``edge_relax``'s ALT branch), on ``blocked``
+   with ``fused_rounds=4`` (``edge_relax_fused``'s ALT branch),
+   bidirectionally on ``blocked``, and on ``segment_min`` (plain).
+   ``dist[t]`` and the reconstructed path must be bitwise equal across
+   the five, ``dist[t]`` must equal the tree solve's (same source) or
+   scipy Dijkstra's at ``rtol=1e-4``, the three unidirectional ALT solves
+   must have equal logical counters, some candidate must be pruned on
+   each graph, each ALT solve must launch its ALT kernel and the unpruned
+   one none.  Then a ``bounded`` and a ``knear`` solve on kronecker,
+   whose settled entries must equal the tree solve's.  Then
+   ``edge_relax_partials`` against its plain version on every shard of a
+   P = 4 shard layout of the kronecker graph at a mid-solve window of
+   that solve, and on 30 seeded random layouts (P from 1 to 4,
+   geometries, windows, ties; each call twice; ``val``, ``win`` and the
+   four counters bitwise equal).  Then the sharded v1 engine on
+   kronecker(20,16) and road_grid(1024) (``sssp_distributed``, one rank),
+   on ``blocked`` (the ``edge_relax_partials`` kernel, which must
+   launch, with no launch of the other two) and on ``segment_min``: both
+   bitwise equal to the single-device blocked solve, with equal logical
+   counters, and matching Dijkstra.  Cuts: scale 20, as the paper's
+   graphs are scale 26-27 (its road network has 24M vertices), and the
+   numpy generator needs about a minute at scale 20 and about four times
+   that per step of scale, which the run's time limit does not hold.
 4. The language-model serving path (qwen3-0.6b at full width, weights
    drawn on the card from a ``torch.Generator`` seeded with 0):
    ``ServeEngine(max_batch=8, s_cache=4096, prompt_pad=256)`` in
@@ -62,10 +83,14 @@ Phases, in order; any failure exits non-zero:
    as a measured gap.
 5. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the bound, launches on the main
-   path), each solve's seconds, rounds, iterations (one host sync each),
-   kernel invocations, and the seconds its step transitions and
-   relaxation calls took (CUDA events around each call,
-   :class:`PhaseTimes`), the serving path's time to first token per
+   path; the ALT rows at the middle kernel call of the first p2p pair's
+   ALT query, unfused and fused, captured by solving that query again,
+   with their launches over the p2p queries), each solve's and query's
+   seconds, rounds, iterations (one host sync each), kernel invocations,
+   and the seconds its step transitions and relaxation calls took (CUDA
+   events around each call, :class:`PhaseTimes`), ``[time]`` lines with
+   the seconds since the start at the end of each phase, the serving
+   path's time to first token per
    request, prefill tokens/s, and decode ms per step and tokens/s, and
    ``flash_attention``'s times at the qwen3 prefill and decode calls
    (kernel, plain version, ``scaled_dot_product_attention``) beside its
@@ -94,8 +119,45 @@ ROAD = dict(side=1024, seed=5)
 FUSED_ROUNDS = 4
 
 
+T0 = time.perf_counter()
+
+
 def log(*a):
     print(*a, flush=True)
+
+
+def mark(phase: str):
+    """A ``[time]`` line: seconds since the script started, at the end of
+    ``phase``."""
+    log(f"[time] {phase}: done at {time.perf_counter() - T0:.1f} s")
+
+
+class HostTimes:
+    """Host-clock seconds of the named functions of ``module`` while the
+    context is open (the landmark build's selection and symmetry check)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.s = dict.fromkeys(names, 0.0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(self.module, n, self._timed(n, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[name] += time.perf_counter() - t
+        return timed
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.module, n, fn)
 
 
 def card_line() -> str:
@@ -238,6 +300,123 @@ def fused_vs_plain(device, seed: int = 1, n_random: int = 40) -> int:
                     f"kernel {out[3].tolist()} and plain version "
                     f"{want[3].tolist()} disagree")
     return len(cases)
+
+
+def _alt_lb(rng, n_out, n, device, *, ties):
+    """A per-vertex ALT bound over ``n_out`` destinations: quarters (so
+    sums of integer weights meet the bound exactly) or uniform values,
+    +inf on 15% of the vertices and on the padding."""
+    lb = (rng.integers(0, 8, n_out) / 4 if ties
+          else rng.random(n_out) * 2).astype(np.float32)
+    lb[(rng.random(n_out) < 0.15) | (np.arange(n_out) >= n)] = np.inf
+    return torch.from_numpy(lb).to(device)
+
+
+ALT_BOUNDS = (("mid", 2.0), ("inf", np.inf), ("below-all", 0.0),
+              ("ties", 3.0))
+
+
+def alt_vs_plain(device, seed: int = 4, n_random: int = 20) -> int:
+    """The ALT branches of ``edge_relax`` and ``edge_relax_fused`` against
+    their plain versions on seeded random slabs, each kernel call made
+    twice: ``alt_lb`` with +inf entries, a prune bound of +inf (nothing
+    cut), one below every candidate (everything cut), ties at exactly the
+    bound (``<=`` keeps them) and, for the fused kernel, a target that is
+    reached within the call so that the bound tightens between rounds;
+    then ``n_random`` seeded cases of each.  ``vals``, ``wins``, ``dist``,
+    ``parent``, ``frontier`` and the counters must be bitwise equal.
+    Returns the number of cases, raises on the first disagreement."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
+    cases = [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=True,
+                  lb0=False, bound=b) for _, b in ALT_BOUNDS]
+    cases += [dict(n=5000, m=40000, block_v=1024, tile_e=256, ties=False,
+                   lb0=False, bound=2.5),
+              dict(n=700, m=3000, block_v=256, tile_e=64, ties=True,
+                   lb0=True, bound=3.0)]
+    for _ in range(n_random):
+        n = int(rng.integers(64, 20000))
+        cases.append(dict(
+            n=n, m=int(rng.integers(0, 8 * n)),
+            block_v=int(rng.choice([64, 1024, -(-n // 256) * 256])),
+            tile_e=int(rng.choice([32, 64, 256, 512])),
+            ties=bool(rng.random() < 0.5), lb0=bool(rng.random() < 0.2),
+            bound=float(rng.choice([0.0, 1.5, 3.0, 4.5, np.inf]))))
+    checked = 0
+    for i, case in enumerate(cases):
+        bound = case.pop("bound")
+        args, kw, bg = _slab_case(rng, device=device, **case)
+        alt = (_alt_lb(rng, bg.n_out, case["n"], device, ties=case["ties"]),
+               f32(bound))
+        want = ref.edge_relax_ref(*args[:5], *args[6:], *alt,
+                                  n_out=kw["n_out"])
+        _, pn = ref.schedule_tiles(args[1], args[2], args[4], args[5],
+                                   kw["tile_e"])
+        for _ in range(2):
+            vals, wins, nt = ops.relax_bucket(*args, *alt, **kw)
+            if not (bitwise_equal(vals, want[0]) and wins.equal(want[1])
+                    and int(nt) == int(pn)):
+                raise AssertionError(f"edge_relax[alt] case {i} {case} "
+                                     f"bound={bound}: kernel and plain "
+                                     "version disagree")
+        checked += 1
+    names = list(ops.FUSED_COUNTERS)
+    cases = [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=True,
+                  lb0=False, rounds=4, ub=b, tgt="reached")
+             for _, b in ALT_BOUNDS]
+    cases += [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=False,
+                   lb0=False, rounds=8, ub=np.inf, tgt="unreached"),
+              dict(n=5000, m=40000, block_v=5120, tile_e=256, ties=True,
+                   lb0=False, rounds=8, ub=np.inf, tgt="unreached")]
+    for _ in range(n_random):
+        n = int(rng.integers(64, 20000))
+        cases.append(dict(
+            n=n, m=int(rng.integers(0, 8 * n)),
+            block_v=int(rng.choice([64, 1024, -(-n // 256) * 256])),
+            tile_e=int(rng.choice([32, 64, 256, 512])),
+            ties=bool(rng.random() < 0.5), lb0=bool(rng.random() < 0.2),
+            rounds=int(rng.choice([1, 2, 4, 8, 16])),
+            ub=float(rng.choice([0.0, 2.0, 4.0, np.inf])),
+            tgt=str(rng.choice(["reached", "unreached"]))))
+    tightened = 0
+    for i, case in enumerate(cases):
+        rounds, prune_ub, tgt_kind = (case.pop(k) for k in
+                                      ("rounds", "ub", "tgt"))
+        (dist, front, *_, lb, ub), _, bg = _slab_case(rng, device=device,
+                                                       **case)
+        n, n_out = case["n"], bg.n_out
+        d_host = dist.cpu().numpy()
+        parent = torch.from_numpy(np.where(
+            np.isfinite(d_host), rng.integers(0, n_out, n_out),
+            -1).astype(np.int32)).to(device)
+        pool = np.where(np.isfinite(d_host[:n]) if tgt_kind == "reached"
+                        else np.isinf(d_host[:n]))[0]
+        tgt = int(rng.choice(pool)) if pool.size else 0
+        alt = (_alt_lb(rng, n_out, n, device, ties=case["ties"]),
+               f32(prune_ub), f32(1.0 + 4.0 * 2.0 ** -24 * 100),
+               torch.tensor(tgt, dtype=torch.int32, device=device))
+        args = (dist, parent, front, bg.deg, bg.src, bg.dst, bg.w,
+                bg.tile_first, lb, ub, *alt)
+        kw = dict(tile_e=bg.tile_e, fused_rounds=rounds)
+        want = ref.edge_relax_fused_ref(*args, **kw)
+        for _ in range(2):
+            out = ops.relax_fused(*args, **kw)
+            if not (bitwise_equal(out[0], want[0])
+                    and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
+                raise AssertionError(
+                    f"edge_relax_fused[alt] case {i} {case} rounds={rounds} "
+                    f"prune_ub={prune_ub} target {tgt_kind}: kernel "
+                    f"{out[3].tolist()} and plain version "
+                    f"{want[3].tolist()} disagree")
+        cnt = dict(zip(names, out[3].tolist()))
+        tightened += (tgt_kind == "unreached" and bool(
+            torch.isfinite(out[0][tgt])) and cnt["n_exec"] > 1)
+        checked += 1
+    if not tightened:
+        raise AssertionError("no fused ALT case reached its target within "
+                             "the call: the bound never tightened")
+    return checked
 
 
 # ---------------------------------------------------------------------------
@@ -433,6 +612,188 @@ def main_path(graphs, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: point-to-point queries with ALT landmark pruning
+# ---------------------------------------------------------------------------
+
+N_LANDMARKS, N_PAIRS = 8, 2
+# name, backend, options, the ALT launch counter the solve must move
+P2P_SOLVES = (("unpruned", "blocked", {}, None),
+              ("alt", "blocked", {}, "edge_relax_alt"),
+              ("alt fused", "blocked", dict(fused_rounds=FUSED_ROUNDS),
+               "edge_relax_fused_alt"),
+              ("alt bidirectional", "blocked",
+               dict(p2p_mode="bidirectional"), "edge_relax_alt"),
+              ("alt segment_min", "segment_min", {}, None))
+ALT_SOLVES = ("alt", "alt fused", "alt segment_min")
+
+
+def pick_pairs(hg, n_pairs: int, seed: int):
+    """``n_pairs`` (source, target) pairs from a numpy generator seeded
+    with ``seed``: both endpoints non-isolated, the target reachable from
+    the source (hop BFS), as ``tests/test_alt_p2p.py::pick_pair`` picks
+    them."""
+    from repro_torch.core.landmarks import hop_bfs
+    rng = np.random.default_rng(seed)
+    nz = np.where(hg.deg > 0)[0]
+    row_ptr, dst = hg.row_ptr.astype(np.int64), hg.dst.astype(np.int64)
+    pairs = []
+    while len(pairs) < n_pairs:
+        s = int(rng.choice(nz))
+        reach = np.where(hop_bfs(row_ptr, dst, hg.n, s) > 0)[0]
+        if reach.size:
+            pairs.append((s, int(rng.choice(reach))))
+    return pairs
+
+
+def p2p_path(results, device):
+    """Landmarks built on the card for each graph (the fused blocked path),
+    then ``N_PAIRS`` seeded pairs each solved five ways (``P2P_SOLVES``),
+    the launch counters zeroed just before each solve and read just after;
+    then one ``bounded`` and one ``knear`` solve on kronecker.  Returns
+    per-graph numbers."""
+    from repro_torch.core import landmarks
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.serve.queries import reconstruct_path
+    out = {}
+    for gi, (name, res) in enumerate(results.items()):
+        hg, dg, bg = res["host"], res["graph"], res["layout"]
+        sync(device)
+        t0 = time.perf_counter()
+        with HostTimes(landmarks, ("select_landmarks", "_check_symmetric")
+                       ) as host:
+            lm = landmarks.build_landmarks(
+                dg, N_LANDMARKS, "farthest", device=device, layout=bg,
+                fused_rounds=FUSED_ROUNDS)
+        sync(device)
+        build_s = time.perf_counter() - t0
+        log(f"[landmarks] {name}: {N_LANDMARKS} farthest landmarks "
+            f"{lm.landmarks.tolist()} (hop bound {lm.max_hops}, symmetric "
+            f"{lm.sym}) built on the card with fused_rounds={FUSED_ROUNDS} "
+            f"in {build_s!r} s: host selection (hop BFS) "
+            f"{host.s['select_landmarks']!r} s, symmetry check (sorts on "
+            f"the card) {host.s['_check_symmetric']!r} s, the rest (copies, "
+            "8 tree solves)")
+        pairs = pick_pairs(hg, N_PAIRS, seed=10 + gi)
+        queries, pruned = [], 0
+        for s, t in pairs:
+            solves = {}
+            for what, backend, opts, counter in P2P_SOLVES:
+                kw = dict(opts, goal="p2p", goal_param=t)
+                if what != "unpruned":
+                    kw["landmarks"] = lm
+                if backend == "blocked":
+                    kw["layout"] = bg
+                LAUNCHES.reset()
+                d, p, m, secs, phases = solve(dg, s, backend, device, **kw)
+                alt_launches = (LAUNCHES.edge_relax_alt,
+                                LAUNCHES.edge_relax_fused_alt)
+                if counter is None and any(alt_launches) or (
+                        counter and getattr(LAUNCHES, counter) <= 0):
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) {what}: ALT kernel launches "
+                        f"(edge_relax, edge_relax_fused) {alt_launches}, "
+                        f"expected {counter or 'none'}")
+                solves[what] = dict(
+                    dist_t=d[t:t + 1].clone(),
+                    path=reconstruct_path(p.cpu().numpy(), s, t),
+                    metrics=metrics_dict(m), seconds=secs, phases=phases,
+                    launches=getattr(LAUNCHES, counter) if counter else 0)
+            base = solves["unpruned"]
+            for what, r in solves.items():
+                if not (bitwise_equal(r["dist_t"], base["dist_t"])
+                        and r["path"] == base["path"]):
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) {what}: d(s,t) "
+                        f"{float(r['dist_t'])!r} or its path differs from "
+                        f"the unpruned solve's {float(base['dist_t'])!r}")
+            for what in ALT_SOLVES[1:]:
+                bad = [f for f in LOGICAL_METRIC_FIELDS
+                       if solves[what]["metrics"][f]
+                       != solves["alt"]["metrics"][f]]
+                if bad:
+                    raise AssertionError(f"{name} ({s}, {t}) {what}: logical "
+                                         f"counters differ from alt: {bad}")
+            d_t = float(base["dist_t"])
+            if s == res["source"]:
+                if not bitwise_equal(base["dist_t"], res["dist"][t:t + 1]):
+                    raise AssertionError(f"{name} ({s}, {t}): d(s,t) differs "
+                                         "from the tree solve's")
+            else:
+                want = float(scipy_dist(hg, s)[t])
+                if not np.isclose(d_t, want, rtol=1e-4, atol=1e-5):
+                    raise AssertionError(f"{name} ({s}, {t}): d(s,t) {d_t!r} "
+                                         f"against Dijkstra's {want!r}")
+            pruned += sum(solves[w]["metrics"]["n_pruned"]
+                          for w in ALT_SOLVES + ("alt bidirectional",))
+            relax0 = base["metrics"]["n_relax"]
+            for what, r in solves.items():
+                md = r["metrics"]
+                r["relax_ratio"] = md["n_relax"] / max(relax0, 1)
+                log(f"[p2p] {name} ({s} -> {t}) {what}: {r['seconds']!r} s, "
+                    f"d={d_t!r}, path of {len(base['path'])} vertices, "
+                    f"rounds={md['n_rounds']} steps={md['n_steps']} "
+                    f"iterations={int(md['n_host_syncs'])} "
+                    f"n_relax={md['n_relax']} n_pruned={md['n_pruned']} "
+                    f"relax ratio={r['relax_ratio']!r} "
+                    f"ALT launches={r['launches']} " + " ".join(
+                        f"{k}={v['calls']}x/{v['s']!r}s"
+                        for k, v in r["phases"].items()))
+            queries.append(dict(
+                source=s, target=t, d=d_t, hops=len(base["path"]) - 1,
+                solves={w: dict(seconds=r["seconds"], launches=r["launches"],
+                                relax_ratio=r["relax_ratio"],
+                                phases=r["phases"],
+                                **{k: r["metrics"][k] for k in (
+                                    "n_rounds", "n_steps", "n_relax",
+                                    "n_pruned", "n_host_syncs")})
+                        for w, r in solves.items()}))
+        if pruned <= 0:
+            raise AssertionError(f"{name}: no ALT solve pruned a candidate")
+        out[name] = dict(landmarks=lm, build_s=build_s,
+                         select_s=host.s["select_landmarks"],
+                         symmetry_s=host.s["_check_symmetric"],
+                         queries=queries, pruned=pruned)
+        mark(f"p2p {name}")
+    out["goals"] = goal_solves(results["kronecker(20,16)"], device)
+    return out
+
+
+def goal_solves(res, device):
+    """One ``bounded`` (the 40th percentile of the tree's distances) and
+    one ``knear`` (k = 1000) solve from the tree solve's source on
+    ``blocked``: their settled entries must equal the tree solve's."""
+    from repro_torch.core.sssp import metrics_dict
+    dist, parent = res["dist"], res["parent"]
+    finite = dist[torch.isfinite(dist)]
+    bound = float(np.float32(torch.quantile(finite.double(), 0.4).item()))
+    k = 1000
+    out = {}
+    for goal, gp in (("bounded", bound), ("knear", k)):
+        d, p, m, secs, _ = solve(res["graph"], res["source"], "blocked",
+                                 device, layout=res["layout"], goal=goal,
+                                 goal_param=gp)
+        if goal == "bounded":
+            keep = dist <= bound
+            ok = bitwise_equal(d[keep], dist[keep]) and p[keep].equal(
+                parent[keep])
+        else:
+            near = lambda x: torch.sort(x).values[:k + 1]
+            ok = bitwise_equal(near(d), near(dist))
+        md = metrics_dict(m)
+        log(f"[goal] kronecker(20,16) {goal}={gp!r}: {secs!r} s, "
+            f"rounds={md['n_rounds']} steps={md['n_steps']} "
+            f"iterations={int(md['n_host_syncs'])} "
+            f"settled={int((d < float('inf')).sum())}")
+        if not ok:
+            raise AssertionError(f"kronecker(20,16) {goal}={gp!r}: settled "
+                                 "entries differ from the tree solve's")
+        out[goal] = dict(param=gp, seconds=secs, n_rounds=md["n_rounds"],
+                         n_steps=md["n_steps"])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: numbers
 # ---------------------------------------------------------------------------
 
@@ -476,7 +837,7 @@ def measure(res, device):
         ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
     plain_ms = cuda_ms(plain)
 
-    library_ms, s_n, n_cand = library_scatter_ms(*args, **kw)
+    library_ms, s_n, n_cand, _ = library_scatter_ms(*args, **kw)
     tile_e = kw["tile_e"]
 
     # least bytes the function must move for this round's data: src of
@@ -490,13 +851,15 @@ def measure(res, device):
                 candidates=n_cand)
 
 
-def library_scatter_ms(dist, paths, src, dst, w, tile_first, lb, ub, *,
-                       tile_e: int, n_out: int):
+def library_scatter_ms(dist, paths, src, dst, w, tile_first, lb, ub,
+                       alt_lb=None, prune_bound=None, *, tile_e: int,
+                       n_out: int):
     """The library yardstick of the one-round kernels: one
     ``scatter_reduce_`` amin of packed (value bits, source id) keys over
-    the in-window candidates of the scheduled tiles.  It computes the
-    values and winners, not the schedule or any counter.  Returns
-    ``(ms, scheduled tiles, candidates)``."""
+    the in-window candidates of the scheduled tiles (with ALT, those that
+    survive the cut).  It computes the values and winners, not the
+    schedule or any counter.  Returns ``(ms, scheduled tiles, candidates
+    in the window, candidates kept)``."""
     from repro_torch.kernels.edge_relax import ref
     sched, sched_n = ref.schedule_tiles(paths, src, w, tile_first, tile_e)
     s_n = int(sched_n)
@@ -505,12 +868,15 @@ def library_scatter_ms(dist, paths, src, dst, w, tile_first, lb, ub, *,
     s_src, s_dst = src[slots].long(), dst[slots].long()
     cand = dist[s_src] + w[slots]
     ok = paths[s_src] & (cand >= lb) & (cand < ub)
+    n_window = int(ok.sum())
+    if alt_lb is not None:
+        ok = ok & (cand + alt_lb[s_dst] <= prune_bound)
     empty = (0x7F800000 << 32) | 0x7FFFFFFF
     packed = torch.where(ok, (cand.view(torch.int32).long() << 32) | s_src,
                          empty)
     keys = torch.full((n_out,), empty, dtype=torch.int64, device=w.device)
     ms = cuda_ms(lambda: keys.scatter_reduce_(0, s_dst, packed, "amin"))
-    return ms, s_n, int(ok.sum())
+    return ms, s_n, n_window, int(ok.sum())
 
 
 def fused_window_inputs(res, device):
@@ -560,6 +926,140 @@ def measure_fused(res, device):
                 bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
                 bytes=bytes_, counts=cnt, window=[float(args[8]),
                                                   float(args[9])])
+
+
+def window_destinations(dist, paths, src, dst, w, lb, ub) -> int:
+    """Distinct destinations among a round's in-window candidates (path
+    sources only): the ``alt_lb`` entries an ALT round must read."""
+    s = src.long()
+    cand = dist[s] + w
+    ok = paths[s].bool() & (cand >= lb) & (cand < ub)
+    return int(torch.unique(dst[ok]).numel())
+
+
+def mid_query_call(res, query, lm, fused: bool, device):
+    """The arguments of the middle ALT kernel call of one of the p2p
+    phase's ALT queries, solved again here on the main path's layout:
+    ``relax_bucket`` calls (``edge_relax[alt]``) of the unfused query, or
+    ``relax_fused`` calls (``edge_relax_fused[alt]``) of the fused one.
+    Returns ``(args, kwargs, index, calls)``; the query must make as many
+    calls as in the p2p phase."""
+    from repro_torch.core import relax
+    from repro_torch.core.sssp import sssp
+    name = "relax_fused" if fused else "relax_bucket"
+    calls = query["solves"]["alt fused" if fused else "alt"]["launches"]
+    k, seen, got = calls // 2, [0], {}
+    orig = getattr(relax, name)
+
+    def recorded(*args, **kw):
+        if seen[0] == k:
+            got.update(args=tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args), kw=kw)
+        seen[0] += 1
+        return orig(*args, **kw)
+    setattr(relax, name, recorded)
+    try:
+        sssp(res["graph"], query["source"], backend="blocked",
+             layout=res["layout"], device=device, goal="p2p",
+             goal_param=query["target"], landmarks=lm,
+             fused_rounds=FUSED_ROUNDS if fused else 0)
+    finally:
+        setattr(relax, name, orig)
+    if seen[0] != calls:
+        raise AssertionError(f"the ALT query ({query['source']}, "
+                             f"{query['target']}) made {seen[0]} {name} "
+                             f"calls, {calls} in the p2p phase")
+    return got["args"], got["kw"], k, calls
+
+
+def measure_alt(res, lm, query, device):
+    """``edge_relax``'s ALT branch at the middle call of an ALT query of
+    the p2p phase, against its plain version there; ``ms_without_alt`` is
+    the kernel on the same state without the cut."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    args, kw, k, calls = mid_query_call(res, query, lm, False, device)
+    dist, paths, src, dst, w, tile_first, lb, ub, alt_lb, bound = args
+    vals, wins, nt = ops.relax_bucket(*args, **kw)
+    pv, pw = ref.edge_relax_ref(dist, paths, src, dst, w, lb, ub, alt_lb,
+                                bound, n_out=kw["n_out"])
+    _, pn = ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
+    if not (bitwise_equal(vals, pv) and wins.equal(pw)
+            and int(nt) == int(pn)):
+        raise AssertionError("edge_relax[alt] disagrees with its plain "
+                             "version at the query's middle call")
+    err = float((vals - pv).abs().nan_to_num(0.0).max())
+    kernel_ms = cuda_ms(lambda: ops.relax_bucket(*args, **kw))
+    no_alt_ms = cuda_ms(lambda: ops.relax_bucket(*args[:8], **kw))
+
+    def plain():
+        ref.edge_relax_ref(dist, paths, src, dst, w, lb, ub, alt_lb, bound,
+                           n_out=kw["n_out"])
+        ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
+    plain_ms = cuda_ms(plain)
+    library_ms, s_n, n_window, n_kept = library_scatter_ms(*args, **kw)
+    # row 1's least bytes, plus 4 B of alt_lb per distinct destination of
+    # the in-window candidates
+    n_dst = window_destinations(dist, paths, src, dst, w, lb, ub)
+    e, n_tiles_all, n_out = src.shape[0], tile_first.shape[0], kw["n_out"]
+    bytes_ = (4 * e + 8 * s_n * kw["tile_e"] + n_tiles_all + 5 * n_out
+              + 8 * n_out + 4 * n_dst)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                ms_without_alt=no_alt_ms, sched_tiles=s_n, bytes=bytes_,
+                candidates=n_window, destinations=n_dst, kept=n_kept,
+                query=[query["source"], query["target"]], call=[k, calls],
+                window=[float(lb), float(ub)], prune_bound=float(bound))
+
+
+def fused_round_destinations(args, tile_e: int, n_exec: int, want):
+    """Distinct in-window destinations summed over the ``n_exec`` rounds
+    a fused call ran, found by stepping the plain version one round at a
+    time from its inputs; the stepped state must end at ``want``'s."""
+    from repro_torch.kernels.edge_relax import ref
+    dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt = args
+    total = 0
+    for _ in range(n_exec):
+        paths = front & ((dist <= 0.0) | (deg > 1))
+        total += window_destinations(dist, paths, src, dst, w, lb, ub)
+        dist, parent, front, _ = ref.edge_relax_fused_ref(
+            dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt,
+            tile_e=tile_e, fused_rounds=1)
+    if not (bitwise_equal(dist, want[0]) and parent.equal(want[1])
+            and front.equal(want[2])):
+        raise AssertionError("the fused call's rounds stepped one at a time "
+                             "end elsewhere than the call")
+    return total
+
+
+def measure_fused_alt(res, lm, query, device):
+    """``edge_relax_fused``'s ALT branch at the middle call of the fused
+    ALT query of the p2p phase, against its plain version there;
+    ``ms_without_alt`` is the kernel on the same state without the cut."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    bg = res["layout"]
+    args, kw, k, calls = mid_query_call(res, query, lm, True, device)
+    out = ops.relax_fused(*args, **kw)
+    want = ref.edge_relax_fused_ref(*args, **kw)
+    if not (bitwise_equal(out[0], want[0])
+            and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
+        raise AssertionError("edge_relax_fused[alt] disagrees with its "
+                             "plain version at the query's middle call")
+    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
+    kernel_ms = cuda_ms(lambda: ops.relax_fused(*args, **kw))
+    no_alt_ms = cuda_ms(lambda: ops.relax_fused(*args[:10], **kw))
+    plain_ms = cuda_ms(lambda: ref.edge_relax_fused_ref(*args, **kw))
+    # row 2's least bytes, plus 4 B of alt_lb per distinct destination of
+    # each executed round's in-window candidates
+    cnt = dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
+    n_dst = fused_round_destinations(args, kw["tile_e"], cnt["n_exec"], want)
+    e, nt, n_out = bg.src.shape[0], bg.tile_first.shape[0], bg.n_out
+    bytes_ = (cnt["n_exec"] * (4 * e + nt + 26 * n_out) + 12 * n_out
+              + 8 * cnt["n_tiles"] * bg.tile_e + 4 * n_dst)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                ms_without_alt=no_alt_ms, bytes=bytes_, counts=cnt,
+                destinations=n_dst, query=[query["source"], query["target"]],
+                call=[k, calls], window=[float(args[8]), float(args[9])])
 
 
 # ---------------------------------------------------------------------------
@@ -755,7 +1255,7 @@ def measure_partials(res, device):
     plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args, lb, ub,
                                                            **kw))
     d, pa, _, src, dst, w, tile_first = args
-    library_ms, s_n, n_cand = library_scatter_ms(
+    library_ms, s_n, n_cand, _ = library_scatter_ms(
         d, pa, src, dst, w, tile_first, lb, ub, **kw)
     # least bytes for this round's data: src of every slot and tile_first
     # (the flag pass), dst and w of the scheduled slots, paths of every
@@ -1233,10 +1733,13 @@ def main() -> int:
         "slab cases bitwise equal")
     log(f"[kernel-vs-plain] edge_relax_fused: {fused_vs_plain(device)} "
         "random slab cases bitwise equal")
+    log(f"[kernel-vs-plain] edge_relax[alt] and edge_relax_fused[alt]: "
+        f"{alt_vs_plain(device)} random slab cases bitwise equal")
     n_flash, flash_err = flash_vs_plain(device)
     log(f"[kernel-vs-plain] flash_attention: {n_flash} seeded cases within "
         f"tolerance (max |err| f32 {flash_err['f32']!r}, bf16 "
         f"{flash_err['bf16']!r})")
+    mark("phase 2")
 
     t0 = time.perf_counter()
     graphs = [("kronecker(20,16)", kronecker(**KRON)),
@@ -1252,6 +1755,7 @@ def main() -> int:
     del graphs
 
     lm = lm_phases(device)
+    mark("phase 4 (language model)")
     kernels.append(lm["kernel"])
     print(json.dumps({"kernels": kernels}), flush=True)
     log(json.dumps(solves))
@@ -1265,13 +1769,15 @@ def main() -> int:
 
 def report(graphs, device):
     """Phase 3 and the shortest-path numbers, under the process group;
-    returns the three edge-relax ``kernels`` entries and the solves'
-    numbers."""
+    returns the edge-relax ``kernels`` entries and the solves' numbers."""
     warm_up(device)
     results = main_path(graphs, device)
+    mark("tree solves")
+    p2p = p2p_path(results, device)
     log(f"[kernel-vs-plain] edge_relax_partials: "
         f"{partials_vs_plain(results, device)} shard calls bitwise equal")
     sharded_path(results, device)
+    mark("v1 engine")
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -1284,8 +1790,31 @@ def report(graphs, device):
                 for name, res in results.items()}
     for name, m in partials.items():
         log(f"[edge_relax_partials] {name}: " + json.dumps(m))
+    alt = {name: measure_alt(res, p2p[name]["landmarks"],
+                             p2p[name]["queries"][0], device)
+           for name, res in results.items()}
+    for name, m in alt.items():
+        log(f"[edge_relax[alt]] {name}: " + json.dumps(m))
+    fused_alt = {name: measure_fused_alt(res, p2p[name]["landmarks"],
+                                         p2p[name]["queries"][0], device)
+                 for name, res in results.items()}
+    for name, m in fused_alt.items():
+        log(f"[edge_relax_fused[alt]] {name}: " + json.dumps(m))
+    mark("kernel numbers")
     head, fhead = per_graph["kronecker(20,16)"], fused["kronecker(20,16)"]
     phead = partials["kronecker(20,16)"]
+    ahead, fahead = alt["kronecker(20,16)"], fused_alt["kronecker(20,16)"]
+
+    def alt_launches(kinds):
+        """Launches of an ALT kernel over the p2p phase's solves of
+        ``kinds``, per graph."""
+        return {n: sum(q["solves"][k]["launches"] for q in p2p[n]["queries"]
+                       for k in kinds) for n in results}
+    alt_per_graph = alt_launches(("alt", "alt bidirectional"))
+    fused_alt_per_graph = alt_launches(("alt fused",))
+    per_query = lambda kind: {n: [q["solves"][kind]["launches"]
+                                  for q in p2p[n]["queries"]]
+                              for n in results}
     kernels = [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -1296,6 +1825,18 @@ def report(graphs, device):
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
         "library_ms": head["library_ms"],
         "launches_per_solve": {n: r["launches"] for n, r in results.items()},
+    }, {
+        "name": "edge_relax[alt]", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
+        "replaces": "src/repro/kernels/edge_relax/edge_relax.py:158",
+        "launches": sum(alt_per_graph.values()),
+        "max_abs_err": max(m["max_abs_err"] for m in alt.values()),
+        "ms": ahead["ms"], "plain_ms": ahead["plain_ms"],
+        "bound_ms": ahead["bound_ms"], "bound_by": "bytes",
+        "library_ms": ahead["library_ms"],
+        "launches_per_graph": alt_per_graph,
+        "launches_per_query": per_query("alt"),
+        "launches_per_bidirectional_query": per_query("alt bidirectional"),
     }, {
         "name": "edge_relax_fused", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/"
@@ -1308,6 +1849,18 @@ def report(graphs, device):
         "library_ms": None,
         "launches_per_solve": {n: r["fused_launches"]
                                for n, r in results.items()},
+    }, {
+        "name": "edge_relax_fused[alt]", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/"
+                  "edge_relax_fused.cu",
+        "replaces": "src/repro/kernels/edge_relax/edge_relax.py:360",
+        "launches": sum(fused_alt_per_graph.values()),
+        "max_abs_err": max(m["max_abs_err"] for m in fused_alt.values()),
+        "ms": fahead["ms"], "plain_ms": fahead["plain_ms"],
+        "bound_ms": fahead["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_per_graph": fused_alt_per_graph,
+        "launches_per_query": per_query("alt fused"),
     }, {
         "name": "edge_relax_partials", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/"
@@ -1323,18 +1876,28 @@ def report(graphs, device):
     }]
     solves = {"solves": {n: dict(
         solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
-        plain_solve_s=r["plain_solve_s"], v1_solve_s=r["v1_solve_s"],
-        v1_plain_solve_s=r["v1_plain_solve_s"], phases=r["phases"],
+        plain_solve_s=r["plain_solve_s"], phases=r["phases"],
         fused_phases=r["fused_phases"], plain_phases=r["plain_phases"],
-        v1_phases=r["v1_phases"], v1_plain_phases=r["v1_plain_phases"],
         rounds=r["metrics"]["n_rounds"],
         host_syncs=int(r["metrics"]["n_host_syncs"]),
         fused_host_syncs=int(r["fused_metrics"]["n_host_syncs"]),
-        v1_host_syncs=int(r["v1_metrics"]["n_host_syncs"]),
         invocations=int(r["metrics"]["n_invocations"]),
-        fused_invocations=int(r["fused_metrics"]["n_invocations"]),
-        v1_invocations=int(r["v1_metrics"]["n_invocations"]))
-        for n, r in results.items()}}
+        fused_invocations=int(r["fused_metrics"]["n_invocations"]))
+        for n, r in results.items()},
+        "v1": {n: dict(
+            v1_solve_s=r["v1_solve_s"], v1_plain_solve_s=r["v1_plain_solve_s"],
+            v1_phases=r["v1_phases"], v1_plain_phases=r["v1_plain_phases"],
+            v1_host_syncs=int(r["v1_metrics"]["n_host_syncs"]),
+            v1_invocations=int(r["v1_metrics"]["n_invocations"]))
+            for n, r in results.items()},
+        "p2p": {n: dict(landmark_build_s=p2p[n]["build_s"],
+                        landmark_select_s=p2p[n]["select_s"],
+                        landmark_symmetry_s=p2p[n]["symmetry_s"],
+                        landmarks=p2p[n]["landmarks"].landmarks.tolist(),
+                        max_hops=p2p[n]["landmarks"].max_hops,
+                        queries=p2p[n]["queries"], pruned=p2p[n]["pruned"])
+                for n in results},
+        "goals": p2p["goals"]}
     return kernels, solves
 
 

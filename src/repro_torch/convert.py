@@ -20,6 +20,10 @@ nothing of the reference package):
   meta fields ``block_v, tile_e, n_src_blocks, n_dst_blocks,
   dense_grid_tiles``.
 
+:func:`landmarks_from_reference` carries a reference ``LandmarkSet``
+across, flattened into its ``.npz`` fields ``landmarks, D, strategy, sym,
+max_hops``, so that both packages prune with the same matrix.
+
 :func:`lm_params_from_reference` does the same for the language model's
 parameter pytree, flattened by the caller into ``{"embed": ...,
 "ln_f": ..., "layers/wq": ..., ...}`` numpy arrays (bf16 leaves as their
@@ -35,6 +39,7 @@ import torch
 from .core.distributed import (BlockedShardMeta, BlockedShards,
                                ShardedGraph)
 from .core.graph import BlockedGraph, DeviceGraph, HostGraph
+from .core.landmarks import LandmarkSet
 
 _SLAB_FIELDS = ("src_local", "dst", "w", "tile_dst", "tile_first",
                 "bucket_nonempty")
@@ -129,6 +134,18 @@ def from_reference(arrays: dict, device):
     if "n_edges2" in arrays:
         return _device(arrays, dev)
     return _host(arrays)
+
+
+def landmarks_from_reference(arrays: dict, device) -> LandmarkSet:
+    """The port's :class:`LandmarkSet` for a flattened reference one
+    (``landmarks``, ``D``, ``strategy``, ``sym``, ``max_hops``), with
+    ``D`` on ``device``."""
+    return LandmarkSet(
+        landmarks=np.asarray(arrays["landmarks"], np.int64),
+        D=torch.from_numpy(np.array(arrays["D"], np.float32)).to(
+            torch.device(device)),
+        strategy=str(arrays["strategy"]), sym=bool(arrays["sym"]),
+        max_hops=int(arrays["max_hops"]))
 
 
 def lm_params_from_reference(arrays: dict, dtype, device="cpu") -> dict:

@@ -9,7 +9,7 @@ CPU lowering, which expands these functions into fixed Cephes-style
 polynomials, and its x86 backend contracts most multiply-add pairs of
 those polynomials into fused multiply-adds.  The functions below
 evaluate the same polynomials in the same order and fuse the same
-pairs.  Each fused multiply-add is emulated by :func:`_fma` as an exact
+pairs.  Each fused multiply-add is emulated by :func:`fma` as an exact
 float64 product plus a sum rounded to float64 and then to float32; the
 remaining multiplies and adds are plain float32 ops.  The results are
 the same bits on any device, except where that double rounding of a
@@ -54,7 +54,7 @@ _LOG1P_SMALL = _c(0x3FDA8279A0000000)     # sqrt(2) - 1
 LOG2_SCALE = _c(0x3FF7154760000000)       # log2(x) = log(x) * this
 
 
-def _fma(a, b, c):
+def fma(a, b, c):
     """Fused ``a * b + c`` with one rounding: the float64 product of two
     float32 values is exact, so only the final sum rounds (twice, to
     float64 then float32; a tie at both roundings is the only way this
@@ -67,13 +67,13 @@ def _fma(a, b, c):
 def exp(x: torch.Tensor) -> torch.Tensor:
     """float32 ``exp`` (finite inputs)."""
     x = torch.clamp(x, _EXP_LO, _EXP_HI)
-    fx = torch.floor(_fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
-    r = _fma(fx, -_LN2_LO, _fma(fx, -_LN2_HI, x))
-    p = _fma(r, _EXP_P[0], _EXP_P[1])
+    fx = torch.floor(fma(x, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma(fx, -_LN2_LO, fma(fx, -_LN2_HI, x))
+    p = fma(r, _EXP_P[0], _EXP_P[1])
     for c in _EXP_P[2:]:
-        p = _fma(p, r, c)
-    p = _fma(p, r, 0.5)
-    p = 1.0 + _fma(p, r * r, r)
+        p = fma(p, r, c)
+    p = fma(p, r, 0.5)
+    p = 1.0 + fma(p, r * r, r)
     pow2 = ((fx.to(torch.int32) + 127) << 23).view(torch.float32)
     return p * pow2
 
@@ -89,22 +89,22 @@ def log(y: torch.Tensor) -> torch.Tensor:
     x = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
     z = x * x
     x3 = z * x
-    t1 = _fma(_fma(x, _LOG_P[0], _LOG_P[1]), x, _LOG_P[6])
-    t2 = _fma(_fma(x, _LOG_P[2], _LOG_P[3]), x, _LOG_P[7])
-    t3 = _fma(_fma(x, _LOG_P[4], _LOG_P[5]), x, _LOG_P[8])
-    u = _fma(_fma(t1, x3, t2), x3, t3)
-    u = _fma(u, x3, e * _LN2_LO)
-    return _fma(e, _LN2_HI, _fma(z, -0.5, x) + u)
+    t1 = fma(fma(x, _LOG_P[0], _LOG_P[1]), x, _LOG_P[6])
+    t2 = fma(fma(x, _LOG_P[2], _LOG_P[3]), x, _LOG_P[7])
+    t3 = fma(fma(x, _LOG_P[4], _LOG_P[5]), x, _LOG_P[8])
+    u = fma(fma(t1, x3, t2), x3, t3)
+    u = fma(u, x3, e * _LN2_LO)
+    return fma(e, _LN2_HI, fma(z, -0.5, x) + u)
 
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """float32 ``log1p`` (inputs > -1)."""
     x2 = x * x
-    q = _fma(_fma(x, 0.0, 1.0), x, _LOG1P_Q[0])
+    q = fma(fma(x, 0.0, 1.0), x, _LOG1P_Q[0])
     for c in _LOG1P_Q[1:]:
-        q = _fma(q, x, c)
-    p = _fma(x, 0.0, _LOG1P_P[0])
+        q = fma(q, x, c)
+    p = fma(x, 0.0, _LOG1P_P[0])
     for c in _LOG1P_P[1:]:
-        p = _fma(p, x, c)
-    small = x + _fma(x2, -0.5, (x * x2) * (p / q))
+        p = fma(p, x, c)
+    small = x + fma(x2, -0.5, (x * x2) * (p / q))
     return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))

@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from .f32math import fma
 from .graph import BlockedGraph, DeviceGraph, build_blocked
 from ..kernels.edge_relax.ops import relax_bucket, relax_fused, \
     relax_partials
@@ -47,7 +48,7 @@ class RoundMetrics(NamedTuple):
     n_relax: torch.Tensor          # relaxations attempted
     n_updates: torch.Tensor        # successful dist improvements
     n_extended: torch.Tensor       # non-leaf dist improvements
-    n_pruned: torch.Tensor         # ALT cuts (always 0 here)
+    n_pruned: torch.Tensor         # candidates cut by the ALT bound
     n_tiles_scanned: torch.Tensor  # edge tiles actually run
     n_tiles_dense: torch.Tensor    # dense-grid tile cost
     n_invocations: torch.Tensor    # kernel launches
@@ -132,6 +133,77 @@ def settled_mask(dist, lb):
     return dist < lb
 
 
+def at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[i]`` as a 0-d tensor for a 0-d index tensor ``i``, with no host
+    read (indexing with a 0-d tensor may read it back to the host)."""
+    return x.index_select(0, i.reshape(1).long()).reshape(())
+
+
+# ---------------------------------------------------------------------------
+# ALT (A*, landmarks, triangle inequality) goal-directed pruning primitives
+# ---------------------------------------------------------------------------
+#
+# With landmark distances D[l, v] = d(L_l, v), d(L,t) - d(L,v) <= d(v,t)
+# bounds the remaining distance from below (and, on a symmetric graph,
+# d(L,v) - d(L,t) too).  A p2p candidate whose length plus that bound
+# exceeds the best known s->t length cannot improve d(s,t) and is dropped.
+# The engine's distances, the landmark distances and the prune bound are
+# each rounded f32 path sums, so the bounds are deflated by
+# delta * (D[l,t] + D[l,v]) and the prune bound inflated by 1 + 4 delta
+# (delta from the landmark set's hop bound): every candidate on the
+# engine's own shortest path then survives, and d(s,t) and its parent
+# chain stay bitwise equal to the unpruned solve.
+
+def alt_lower_bounds(D, t, delta, sym):
+    """Admissible per-vertex lower bounds ``lb[v] <~ d(v, t)``.
+
+    ``D`` is the ``[L, N]`` f32 landmark distance matrix, ``t`` the target
+    id (0-d tensor), ``delta`` the 0-d f32 slack factor and ``sym`` a 0-d
+    f32 0/1 flag (1: the graph is symmetric and the reverse difference is
+    admissible too).  Both distances infinite (inf - inf) gives 0; one of
+    them infinite keeps the bound infinite (v and t in different parts of
+    the landmark's reach).  The deflation ``diff - delta * (D + Dt)`` is
+    one fused multiply-add, as the reference's compiled program forms it
+    on the CPU: ``D + Dt`` rounds to f32, the product does not.
+    """
+    Dt = D.index_select(1, t.reshape(1).long())          # [L, 1]
+    fwd = Dt - D
+    rev = torch.where(sym > 0, D - Dt, -INF)
+    diff = torch.maximum(fwd, rev)
+    slack = fma(-delta, D + Dt, diff)
+    adj = torch.where(torch.isinf(diff), diff, slack)
+    adj = torch.where(torch.isnan(adj), 0.0, adj)
+    return torch.clamp(adj, min=0.0).max(dim=0).values
+
+
+def alt_seed_ub(D, source, t, infl, sym):
+    """Landmark-seeded upper bound on d(source, t) on a symmetric graph:
+    ``min_l D[l,s] + D[l,t]``, inflated by ``infl``; +inf when the graph
+    is not symmetric or no landmark reaches both endpoints."""
+    pick = lambda v: D.index_select(1, v.reshape(1).long())[:, 0]
+    seed = (pick(source) + pick(t)).min() * infl
+    return torch.where(sym > 0, seed, INF)
+
+
+def alt_prune(cand, active, lb_dst, prune_bound):
+    """Split ``active`` candidates by the ALT test: ``(kept, pruned)``,
+    pruned where ``cand + lb[dst] > prune_bound`` (``cand`` is +inf
+    outside ``active``, so inactive lanes land in neither)."""
+    pruned = active & (cand + lb_dst > prune_bound)
+    return active & ~pruned, pruned
+
+
+class AltData(NamedTuple):
+    """The ALT operands a p2p solve carries: ``D`` the ``[L, N]`` f32
+    landmark distances, ``delta`` the 0-d f32 slack factor
+    (``2^-24 * (2 H + 64)`` for hop bound ``H``) and ``sym`` a 0-d f32
+    0/1 flag (1: symmetric graph, enabling the reverse difference and the
+    seeded upper bound), all on the solve's device."""
+    D: torch.Tensor
+    delta: torch.Tensor
+    sym: torch.Tensor
+
+
 # ---------------------------------------------------------------------------
 # backend registry
 # ---------------------------------------------------------------------------
@@ -178,10 +250,16 @@ def _segment_min_prepare(g: DeviceGraph, **_opts) -> DeviceGraph:
     return g            # the flat edge list is its own layout
 
 
-def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub):
+def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub,
+                       alt_lb=None, prune_bound=None):
     paths = leaf_pruned(frontier, dist, g.deg)
     cand, in_window, active = edge_candidates(
         dist[g.src], paths[g.src], parent[g.src], g.dst, g.w, lb, ub)
+    n_pruned = torch.zeros((), dtype=torch.int32, device=dist.device)
+    if alt_lb is not None:
+        active, pruned = alt_prune(cand, active, alt_lb[g.dst], prune_bound)
+        cand = torch.where(active, cand, INF)
+        n_pruned = count(pruned)
     best, winner = segment_min_with_winner(cand, active, g.src, g.dst, g.n)
     new_dist, new_parent, improved = apply_updates(dist, parent, best,
                                                    winner)
@@ -189,8 +267,8 @@ def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub):
     rm = RoundMetrics(
         improved=improved, n_trav=count(in_window), n_relax=count(active),
         n_updates=count(improved), n_extended=count(improved & (g.deg > 1)),
-        n_pruned=torch.zeros((), dtype=torch.int32, device=dist.device),
-        n_tiles_scanned=zero, n_tiles_dense=zero, n_invocations=zero)
+        n_pruned=n_pruned, n_tiles_scanned=zero, n_tiles_dense=zero,
+        n_invocations=zero)
     return new_dist, new_parent, rm
 
 
@@ -213,25 +291,31 @@ def _pad(x, n_out, value):
                                     device=x.device)]) if pad else x
 
 
-def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub):
+def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub,
+                   alt_lb=None, prune_bound=None):
     dist_p = _pad(dist, bg.n_out, INF)
     parent_p = _pad(parent, bg.n_out, -1)
     frontier_p = _pad(frontier, bg.n_out, False)
     paths = leaf_pruned(frontier_p, dist_p, bg.deg)
+    alt_p = None if alt_lb is None else _pad(alt_lb, bg.n_out, INF)
 
     # one call over all source blocks' slabs (global source ids): the
     # per-block (min, min-id) partials of the reference combine by the
     # same rule, so the result is the same
     best, winner, n_tiles = relax_bucket(
         dist_p, paths, bg.src, bg.dst, bg.w, bg.tile_first, lb, ub,
-        tile_e=bg.tile_e, n_out=bg.n_out)
+        alt_p, prune_bound, tile_e=bg.tile_e, n_out=bg.n_out)
 
     # the traversal counters are torch reductions over the slab (the
     # kernel owns only the scatter-min); padding slots carry w=+inf and
     # are never in the window
     src = bg.src
-    _, in_window, active = edge_candidates(
+    cand, in_window, active = edge_candidates(
         dist_p[src], paths[src], parent_p[src], bg.dst, bg.w, lb, ub)
+    n_pruned = torch.zeros((), dtype=torch.int32, device=dist.device)
+    if alt_p is not None:
+        active, pruned = alt_prune(cand, active, alt_p[bg.dst], prune_bound)
+        n_pruned = count(pruned)
 
     new_dist, new_parent, improved = apply_updates(dist_p, parent_p, best,
                                                    winner)
@@ -240,8 +324,7 @@ def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub):
     rm = RoundMetrics(
         improved=improved, n_trav=count(in_window), n_relax=count(active),
         n_updates=count(improved),
-        n_extended=count(improved & (bg.deg[:n] > 1)),
-        n_pruned=torch.zeros((), dtype=torch.int32, device=dist.device),
+        n_extended=count(improved & (bg.deg[:n] > 1)), n_pruned=n_pruned,
         n_tiles_scanned=n_tiles.to(torch.float32),
         n_tiles_dense=torch.full((), float(bg.dense_grid_tiles),
                                  dtype=torch.float32, device=dist.device),
@@ -260,7 +343,8 @@ BLOCKED_PALLAS = register_backend(RelaxBackend(
 # ---------------------------------------------------------------------------
 
 def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
-                         *, fused_rounds: int):
+                         *, fused_rounds: int, alt_lb=None, prune_ub=None,
+                         prune_infl=None, prune_tgt=None):
     """Up to ``fused_rounds`` relaxation rounds in one kernel call.
 
     The fused twin of calling :func:`_blocked_relax` once per round until
@@ -269,6 +353,11 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
     counters folded into the kernel.  Returns ``(dist, parent, frontier,
     counts)`` over the unpadded vertex range; ``counts`` is the kernel's
     int32 ``FUSED_COUNTERS`` vector.
+
+    With ``alt_lb`` (ALT p2p) the kernel recomputes the prune bound at
+    the start of every round as ``min(prune_ub, dist[prune_tgt] *
+    prune_infl)`` from its resident dist, the bound the unfused path
+    computes between calls, so the pruning and ``n_pruned`` stay equal.
     """
     if bg.n_pad != bg.n_out:
         raise ValueError(
@@ -279,7 +368,9 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
     dist2, parent2, front2, cnt = relax_fused(
         _pad(dist, bg.n_out, INF), _pad(parent, bg.n_out, -1),
         _pad(frontier, bg.n_out, False), bg.deg, bg.src, bg.dst, bg.w,
-        bg.tile_first, lb, ub, tile_e=bg.tile_e, fused_rounds=fused_rounds)
+        bg.tile_first, lb, ub,
+        None if alt_lb is None else _pad(alt_lb, bg.n_out, INF), prune_ub,
+        prune_infl, prune_tgt, tile_e=bg.tile_e, fused_rounds=fused_rounds)
     return dist2[:n], parent2[:n], front2[:n], cnt
 
 

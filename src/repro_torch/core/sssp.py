@@ -1,5 +1,7 @@
 """The heuristic SSSP algorithm (paper §3.3, Algorithm 2 + Function 1/2),
-single device, tree goal, static policy (port of ``repro.core.sssp``).
+single device, static policy (port of ``repro.core.sssp``): the full tree,
+the early-exit goals (p2p, bounded, knear) and ALT-pruned p2p queries,
+unidirectional or bidirectional.
 
 The reference flattens the solve into one ``lax.while_loop`` on the
 device.  Here the loop is Python and the state stays in device tensors
@@ -17,7 +19,9 @@ this iteration's round.  The round that follows the final transition
 therefore runs on an empty frontier and is discarded (it changes no
 logical state).  Conditional device work (the bootstrap tightening, the
 pull phase) is computed and selected with ``torch.where``, never
-branched on.  ``n_host_syncs`` counts the reads.
+branched on.  The goal test runs on the device and is ORed into ``done``
+at each transition, so a query reads nothing more than a tree solve.
+``n_host_syncs`` counts the reads.
 """
 from __future__ import annotations
 
@@ -33,7 +37,59 @@ from .relax import INF, INT_MAX, count
 
 __all__ = ["sssp", "prepare_layout", "SsspMetrics", "LOGICAL_METRIC_FIELDS",
            "PHYSICAL_METRIC_FIELDS", "metrics_dict", "normalized_metrics",
-           "INF", "INT_MAX"]
+           "GOALS", "P2P_MODES", "goal_param_array", "INF", "INT_MAX"]
+
+# Early-exit query goals.  Each stops once its answer is settled (every
+# vertex with dist < lb is final, relax.settled_mask):
+#   "tree"    no goal: run until every reachable vertex settles;
+#   "p2p"     stop once the target (the goal parameter) settles; its dist
+#             and parent chain then equal the tree solve's bit for bit;
+#   "bounded" stop once lb > D: every vertex with dist <= D is settled;
+#   "knear"   stop once k + 1 vertices (the source and its k nearest) are.
+GOALS = ("tree", "p2p", "bounded", "knear")
+P2P_MODES = ("unidirectional", "bidirectional")
+
+
+def goal_param_array(goal: str, params) -> torch.Tensor:
+    """The goal parameter(s) as a CPU tensor in the dtype the engine
+    takes: int32 (p2p target, knear k), float32 (bounded D), int32 zeros
+    for the tree."""
+    if goal not in GOALS:
+        raise ValueError(f"unknown goal {goal!r}; expected one of {GOALS}")
+    if goal == "tree":
+        shape = () if params is None or np.ndim(params) == 0 \
+            else (len(params),)
+        return torch.zeros(shape, dtype=torch.int32)
+    if params is None:
+        raise ValueError(f"goal {goal!r} requires a parameter "
+                         "(target / bound / k)")
+    dtype = np.float32 if goal == "bounded" else np.int32
+    return torch.from_numpy(np.array(params, dtype))
+
+
+def _check_goal_bounds(goal: str, gp: torch.Tensor, n: int) -> None:
+    """Reject p2p targets outside ``[0, n)`` (a gather would clamp or
+    fault where the reference clamps)."""
+    if goal != "p2p":
+        return
+    t = gp.cpu().numpy()
+    if t.size and (int(t.min()) < 0 or int(t.max()) >= n):
+        raise ValueError(f"p2p target(s) {t} out of range for graph "
+                         f"with n={n}")
+
+
+def _goal_reached(goal: str, goal_param, dist, lb) -> torch.Tensor:
+    """Whether the query goal is settled at window lower bound ``lb`` (a
+    0-d bool on the device)."""
+    if goal == "tree":
+        return torch.zeros((), dtype=torch.bool, device=dist.device)
+    if goal == "p2p":
+        return relax.at(dist, goal_param) < lb
+    if goal == "bounded":
+        return lb > goal_param
+    if goal == "knear":
+        return count(relax.settled_mask(dist, lb)) >= goal_param + 1
+    raise ValueError(f"unknown goal {goal!r}; expected one of {GOALS}")
 
 
 class SsspMetrics(NamedTuple):
@@ -44,7 +100,7 @@ class SsspMetrics(NamedTuple):
     n_pull_trav: torch.Tensor   # edge traversals, pull model (requests)
     n_relax: torch.Tensor       # relaxation attempts (created paths)
     n_updates: torch.Tensor     # successful relaxations (dist improvements)
-    n_pruned: torch.Tensor      # ALT cuts (no ALT in this port yet: 0)
+    n_pruned: torch.Tensor      # candidates cut by the ALT bound
     n_tiles_scanned: torch.Tensor  # blocked layouts: tiles actually run
     n_tiles_dense: torch.Tensor    # blocked layouts: dense-grid cost
     n_invocations: torch.Tensor    # kernel launches
@@ -87,11 +143,14 @@ class _Consts(NamedTuple):
     high_d0: torch.Tensor     # highD(0) of the bootstrap step
 
 
-def _relax_round(backend: relax.RelaxBackend, layout,
-                 st_: SsspState) -> SsspState:
-    """One synchronized round of push-model edge relaxations."""
+def _relax_round(backend: relax.RelaxBackend, layout, st_: SsspState,
+                 alt_lb=None, prune_bound=None) -> SsspState:
+    """One synchronized round of push-model edge relaxations; with
+    ``alt_lb``/``prune_bound`` (ALT p2p) the backend cuts candidates that
+    cannot improve the target (:func:`relax.alt_prune`)."""
+    extra = () if alt_lb is None else (alt_lb, prune_bound)
     new_dist, new_parent, rm = backend.relax_window(
-        layout, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub)
+        layout, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub, *extra)
     m = st_.metrics
     metrics = m._replace(
         n_rounds=m.n_rounds + st_.frontier.any().to(torch.int32),
@@ -107,14 +166,18 @@ def _relax_round(backend: relax.RelaxBackend, layout,
                         frontier=rm.improved, metrics=metrics)
 
 
-def _fused_relax_rounds(bg, st_: SsspState, fused_rounds: int) -> SsspState:
+def _fused_relax_rounds(bg, st_: SsspState, fused_rounds: int, alt_lb=None,
+                        prune_ub=None, prune_infl=None,
+                        prune_tgt=None) -> SsspState:
     """Up to ``fused_rounds`` synchronized rounds in one call of the fused
     kernel: the twin of calling :func:`_relax_round` once per round until
     the window settles, with the same dist/parent/frontier and logical
-    counters."""
+    counters.  With ALT the kernel takes the prune bound ``min(prune_ub,
+    dist[prune_tgt] * prune_infl)`` afresh each round."""
     new_dist, new_parent, new_front, cnt = relax.blocked_fused_rounds(
         bg, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub,
-        fused_rounds=fused_rounds)
+        fused_rounds=fused_rounds, alt_lb=alt_lb, prune_ub=prune_ub,
+        prune_infl=prune_infl, prune_tgt=prune_tgt)
     m = st_.metrics
     n_exec = cnt[6].to(torch.float32)
     metrics = m._replace(
@@ -142,21 +205,35 @@ def _bootstrap_ub(g: DeviceGraph, st_: SsspState,
     return st_._replace(ub=ub)
 
 
-def _min_pending(g: DeviceGraph, dist, ub):
-    """Smallest candidate path length at or above ``ub`` (inf if none)."""
+def _min_pending(g: DeviceGraph, dist, ub, alt_lb=None, bound=None):
+    """Smallest candidate path length at or above ``ub`` (inf if none).
+    With ALT a candidate the bound would cut cannot improve the target,
+    so it neither keeps the solve going nor anchors the fast-forward."""
     pend = dist[g.src] + g.w
-    return torch.where(pend >= ub, pend, INF).min()
+    pend = torch.where(pend >= ub, pend, INF)
+    if alt_lb is not None:
+        pend = torch.where(pend + alt_lb[g.dst] > bound, INF, pend)
+    return pend.min()
 
 
-def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics):
+def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics,
+                alt_lb=None, prune_bound=None):
     """Function 1's pull phase: settled band [st, lb) answers requests from
-    unsettled vertices.  Returns the updated state and the metrics."""
+    unsettled vertices.  Returns the updated state and the metrics.  With
+    ALT the requester (``g.src``) receives the update, so requests with
+    ``cand + alt_lb[src] > prune_bound`` are cut."""
     dv = dist[g.dst]
     # edges a pull scan touches: requester unsettled, weight short enough
     scan = (dist[g.src] > lb) & (g.w < ub - st)
     # requests created (responder side; w < ub - st is implied)
     mask = (dv >= st) & (dv < lb) & (dv + g.w < ub)
     cand = torch.where(mask, dv + g.w, INF)
+    n_pruned = torch.zeros((), dtype=torch.int32, device=dist.device)
+    if alt_lb is not None:
+        mask, pruned = relax.alt_prune(cand, mask, alt_lb[g.src],
+                                       prune_bound)
+        cand = torch.where(mask, cand, INF)
+        n_pruned = count(pruned)
     best, winner = relax.segment_min_with_winner(cand, mask, g.dst, g.src,
                                                  g.n)
     new_dist, new_parent, improved = relax.apply_updates(
@@ -166,26 +243,32 @@ def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics):
         n_extended=metrics.n_extended + count(improved & (g.deg > 1)),
         n_relax=metrics.n_relax + count(mask),
         n_updates=metrics.n_updates + count(improved),
+        n_pruned=metrics.n_pruned + n_pruned,
         n_rounds=metrics.n_rounds + 1)      # the pull phase is a round/sync
     return new_dist, new_parent, metrics
 
 
 def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
-                min_pending=_min_pending,
-                pull_phase=_pull_phase) -> SsspState:
+                min_pending=_min_pending, pull_phase=_pull_phase,
+                goal: str = "tree", goal_param=None, alt_lb=None,
+                bound_of=None) -> SsspState:
     """Step transition (Algo 2 l.22 + Function 1/2 + fast-forward and
-    termination), tree goal, static policy.
+    termination), static policy.
 
     ``min_pending(g, dist, ub)`` and ``pull_phase(g, dist, parent, st,
     lb, ub, metrics)`` are the two places that read edges; the sharded
     engine passes versions that run over its local slab and merge across
     ranks.  Everything else reads only ``g.deg``, ``g.rtow``,
-    ``g.n_edges2`` and the state."""
+    ``g.n_edges2`` and the state.  ``goal``/``goal_param`` end the solve
+    once the goal settles; ``alt_lb`` with ``bound_of(dist)`` (the prune
+    bound at this dist) cuts pending candidates and pull requests that
+    cannot improve the p2p target."""
     dist, parent = st_.dist, st_.parent
     lb, ub = st_.lb, st_.ub
+    alt = () if alt_lb is None else (alt_lb, bound_of(dist))
 
     # smallest pending candidate path length (>= ub); inf <=> done
-    min_pending = min_pending(g, dist, ub)
+    min_pending = min_pending(g, dist, ub, *alt)
     done = ~torch.isfinite(min_pending)
 
     st_next = traversal.compute_st(dist, g.deg, g.rtow, g.n_edges2, lb, ub,
@@ -207,12 +290,14 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
     # that the decision needs no host read
     pull = st_next < lb2
     p_dist, p_parent, p_m = pull_phase(g, dist, parent, st_next, lb2, ub2,
-                                       st_.metrics)
+                                       st_.metrics, *alt)
     dist = torch.where(pull, p_dist, dist)
     parent = torch.where(pull, p_parent, parent)
     metrics = SsspMetrics(*[torch.where(pull, a, b)
                             for a, b in zip(p_m, st_.metrics)])
 
+    # the settled set grows only here, so the goal test is exact here
+    done = done | _goal_reached(goal, goal_param, dist, lb2)
     frontier = relax.window_frontier(dist, st_next, lb2, ub2, g.rtow[-1])
     frontier = frontier & ~done
     metrics = metrics._replace(
@@ -277,18 +362,119 @@ def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
 
 
 def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
-         max_iters: int, alpha: float, beta: float, fused_rounds: int = 0):
+         max_iters: int, alpha: float, beta: float, fused_rounds: int = 0,
+         goal: str = "tree", goal_param=None, alt=None):
     """One SSSP computation; returns ``(dist, parent, metrics)``.
     ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
-    kernel, up to that many rounds per call."""
+    kernel, up to that many rounds per call.  ``goal_param`` is a 0-d
+    device tensor; ``alt`` (an :class:`relax.AltData`, p2p only) prunes
+    with the landmark bounds toward the target."""
     c = _consts(g.deg, alpha, beta)
     s = _initial_state(g.n, source, g.device)
+    alt_lb = bound_of = None
+    fused_alt = ()
+    if alt is not None:
+        tgt = goal_param
+        alt_lb = relax.alt_lower_bounds(alt.D, tgt, alt.delta, alt.sym)
+        infl = 1.0 + 4.0 * alt.delta
+        src_t = torch.tensor(source, dtype=torch.int32, device=g.device)
+        prune_ub = relax.alt_seed_ub(alt.D, src_t, tgt, infl, alt.sym)
+        # the best known s->t length, inflated so that the engine's own f32
+        # path sums always survive the cut; a 0-d device tensor, no read
+        bound_of = lambda dist: torch.minimum(
+            prune_ub, relax.at(dist, tgt) * infl)
+        fused_alt = (alt_lb, prune_ub, infl, tgt)
     if fused_rounds > 0:
-        relax_step = lambda s: _fused_relax_rounds(layout, s, fused_rounds)
-    else:
+        relax_step = lambda s: _fused_relax_rounds(layout, s, fused_rounds,
+                                                   *fused_alt)
+    elif alt is None:
         relax_step = lambda s: _relax_round(backend, layout, s)
+    else:
+        relax_step = lambda s: _relax_round(backend, layout, s, alt_lb,
+                                            bound_of(s.dist))
     return _solve_loop(g, s, c, relax_step,
-                       lambda s: _transition(g, s, c), max_iters)
+                       lambda s: _transition(g, s, c, goal=goal,
+                                             goal_param=goal_param,
+                                             alt_lb=alt_lb,
+                                             bound_of=bound_of), max_iters)
+
+
+def _pick(fwd: torch.Tensor, a: SsspState, b: SsspState) -> SsspState:
+    """``a`` where the 0-d bool ``fwd`` holds, else ``b``, field by field
+    on the device."""
+    def sel(x, y):
+        return SsspMetrics(*map(sel, x, y)) if isinstance(x, SsspMetrics) \
+            else torch.where(fwd, x, y)
+    return SsspState(*map(sel, a, b))
+
+
+def _run_bidi(g: DeviceGraph, layout, source: int, target: int, backend,
+              max_iters: int, alpha: float, beta: float, fused_rounds: int,
+              alt: relax.AltData):
+    """Bidirectional meet-in-the-middle p2p (port of the reference's
+    ``_run_bidi``).
+
+    A forward solve from ``source`` and a backward one from ``target``
+    (the graph is symmetric) alternate iterations: the side whose window
+    lower bound trails advances, and the backward side freezes once it is
+    done or once ``lb_f + lb_b >= mu``, where ``mu = min_v dist_f[v] +
+    dist_b[v]`` is the shortest meeting path seen so far.  ``mu`` tightens
+    both sides' prune bounds through ``min(seed_ub, mu * infl)``.  The
+    forward side is authoritative: it stops when the target settles, and
+    its dist[target] and parent chain equal the unidirectional solve's.
+    Metrics are summed over both sides.
+
+    The side is chosen on the device: the advancing side's state is
+    selected from the two with ``torch.where``, relaxed (and stepped when
+    its frontier empties) and written back.  The choice depends on the
+    previous iteration's transition, so a host-side choice would need a
+    second read per iteration; here the loop keeps the one read of
+    ``(forward done, any frontier)`` of the tree solve.
+    """
+    dev = g.device
+    c = _consts(g.deg, alpha, beta)
+    infl = 1.0 + 4.0 * alt.delta
+    src_t, tgt_t = (torch.tensor(v, dtype=torch.int32, device=dev)
+                    for v in (source, target))
+    lb_f = relax.alt_lower_bounds(alt.D, tgt_t, alt.delta, alt.sym)
+    lb_b = relax.alt_lower_bounds(alt.D, src_t, alt.delta, alt.sym)
+    seed = relax.alt_seed_ub(alt.D, src_t, tgt_t, infl, alt.sym)
+    sf = _initial_state(g.n, source, dev)
+    sb = _initial_state(g.n, target, dev)
+    mu = torch.full((), INF, dtype=torch.float32, device=dev)
+    syncs = 0
+    for _ in range(2 * max_iters):
+        prev = sf, sb, mu
+        frozen = sb.done | (sf.lb + sb.lb >= mu)
+        fwd = frozen | (sf.lb <= sb.lb)
+        s = _pick(fwd, sf, sb)
+        alt_lb = torch.where(fwd, lb_f, lb_b)
+        goal_v = torch.where(fwd, tgt_t, src_t)
+        ub_eff = torch.minimum(seed, mu * infl)
+        bound_of = lambda dist: torch.minimum(
+            ub_eff, relax.at(dist, goal_v) * infl)
+        if fused_rounds > 0:
+            s = _fused_relax_rounds(layout, s, fused_rounds, alt_lb, ub_eff,
+                                    infl, goal_v)
+        else:
+            s = _relax_round(backend, layout, s, alt_lb, bound_of(s.dist))
+        s = _bootstrap_ub(g, s, c.high_d0)
+        done, any_front = torch.stack([sf.done, s.frontier.any()]).tolist()
+        syncs += 1
+        if done:
+            # the forward side finished at the previous transition: this
+            # iteration is dropped, as in the single-side loop
+            sf, sb, mu = prev
+            break
+        if not any_front:
+            s = _transition(g, s, c, goal="p2p", goal_param=goal_v,
+                            alt_lb=alt_lb, bound_of=bound_of)
+        sf, sb = _pick(fwd, s, sf), _pick(fwd, sb, s)
+        mu = torch.minimum(mu, (sf.dist + sb.dist).min())
+    metrics = SsspMetrics(*[a + b for a, b in zip(sf.metrics, sb.metrics)])
+    metrics = metrics._replace(n_host_syncs=torch.full(
+        (), float(syncs), dtype=torch.float32, device=dev))
+    return sf.dist, sf.parent, metrics
 
 
 def resolve_device(device) -> torch.device:
@@ -310,41 +496,63 @@ def _on_device(g, dev: torch.device) -> DeviceGraph:
     return g
 
 
+_LAYOUT_OPTS = ("block_v", "tile_e")
+
+
+def _check_layout_opts(opts: dict) -> None:
+    """Reject options other than the blocked layout's, as the reference
+    rejects unknown engine options."""
+    unknown = sorted(set(opts) - set(_LAYOUT_OPTS))
+    if unknown:
+        raise TypeError(f"unknown engine options {unknown}; the layout "
+                        f"takes {list(_LAYOUT_OPTS)}")
+
+
 def prepare_layout(g, backend="segment_min", *, device=None,
                    **backend_opts):
-    """Build a backend's graph layout once (host-side preprocessing)."""
+    """Build a backend's graph layout once (host-side preprocessing);
+    ``backend_opts`` are ``block_v``/``tile_e``."""
+    _check_layout_opts(backend_opts)
     g = _on_device(g, resolve_device(device))
     return relax.get_backend(backend).prepare(g, **backend_opts)
 
 
 _LATER = {
-    "goal": "the query-goal slice (p2p, bounded, knear)",
     "policy": "the adaptive-policy slice",
     "trace": "the observability slice",
-    "landmarks": "the ALT slice",
+    "config": "the config slice (core/config.py)",
 }
 
 
 def sssp(g, source, *, backend="segment_min", layout=None,
          max_iters=1_000_000, alpha=DEFAULT_ALPHA, beta=DEFAULT_BETA,
-         device=None, goal="tree", fused_rounds=0, policy="static",
-         trace=False, landmarks=None, **layout_opts):
-    """Run the heuristic SSSP algorithm from ``source`` (full tree).
+         device=None, goal="tree", goal_param=None, fused_rounds=0,
+         policy="static", trace=False, landmarks=None,
+         p2p_mode="unidirectional", config=None, **layout_opts):
+    """Run the heuristic SSSP algorithm from ``source``.
 
     ``g`` is a :class:`HostGraph` (moved to ``device``) or a
     :class:`DeviceGraph` already there.  ``device`` defaults to ``cuda``
     and must be given as ``"cpu"`` to run without a card.  ``backend``
     is ``"segment_min"`` or ``"blocked"``; ``layout_opts`` (``block_v``,
-    ``tile_e``) shape the blocked layout, or pass a prebuilt ``layout``.
-    ``fused_rounds > 0`` (blocked backend only) runs up to that many
-    rounds per call of the fused kernel, with the same result.
-    Returns ``(dist, parent, metrics)`` as device tensors.
+    ``tile_e``; any other keyword raises ``TypeError``) shape the blocked
+    layout, or pass a prebuilt ``layout``.  ``fused_rounds > 0`` (blocked
+    backend only) runs up to that many rounds per call of the fused
+    kernel, with the same result.  ``goal``/``goal_param`` select an
+    early-exit query (:data:`GOALS`).  ``landmarks`` (a
+    :class:`~repro_torch.core.landmarks.LandmarkSet` or a raw
+    :class:`~repro_torch.core.relax.AltData`) prunes p2p queries exactly
+    and is ignored by the other goals; ``p2p_mode="bidirectional"`` (which
+    needs landmarks) runs the meet-in-the-middle p2p solve, standing in
+    for the reference's ``EngineConfig.p2p_mode``.  Returns ``(dist,
+    parent, metrics)`` as device tensors.
 
-    The other query goals, the adaptive policy, tracing and ALT landmarks
-    belong to later slices of the port and raise ``NotImplementedError``.
+    The adaptive policy, tracing and ``config=`` belong to later slices of
+    the port and raise ``NotImplementedError``.
     """
-    asked = {"goal": goal != "tree", "policy": policy != "static",
-             "trace": bool(trace), "landmarks": landmarks is not None}
+    _check_layout_opts(layout_opts)
+    asked = {"policy": policy != "static", "trace": bool(trace),
+             "config": config is not None}
     for name, on in asked.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet; it comes "
@@ -357,16 +565,33 @@ def sssp(g, source, *, backend="segment_min", layout=None,
         raise ValueError(f"fused_rounds needs the blocked backend, not "
                          f"{be.name!r} (set backend='blocked', or drop "
                          "fused_rounds)")
+    if p2p_mode not in P2P_MODES:
+        raise ValueError(f"unknown p2p_mode {p2p_mode!r}; expected one of "
+                         f"{P2P_MODES}")
+    gp_host = goal_param_array(goal, goal_param)
+    alt = getattr(landmarks, "alt_data", landmarks) if goal == "p2p" \
+        else None
+    bidi = goal == "p2p" and p2p_mode == "bidirectional"
+    if bidi and alt is None:
+        raise ValueError("p2p_mode='bidirectional' needs a landmark set "
+                         "(landmarks=...)")
     dev = resolve_device(device)
     g = _on_device(g, dev)
     if not 0 <= int(source) < g.n:
         raise ValueError(f"source {source} out of range for n={g.n}")
+    _check_goal_bounds(goal, gp_host, g.n)
+    if alt is not None:
+        alt = relax.AltData(*(t.to(dev) for t in alt))
     if layout is None:
         layout = be.prepare(g, **layout_opts)
     elif layout_opts:
         raise ValueError("pass either layout= or layout options, not both")
+    if bidi:
+        return _run_bidi(g, layout, int(source), int(gp_host), be,
+                         max_iters, float(alpha), float(beta), fused_rounds,
+                         alt)
     return _run(g, layout, int(source), be, max_iters, float(alpha),
-                float(beta), fused_rounds)
+                float(beta), fused_rounds, goal, gp_host.to(dev), alt)
 
 
 def metrics_dict(metrics: SsspMetrics) -> dict:

@@ -39,6 +39,20 @@
 // max_r = (lb <= 0) ? 1 : fused_rounds is taken from the device scalar
 // lb, so the call needs no host read.
 //
+// The ALT branch (edge_relax.py:360-406, operands :456-476) is the
+// template flag kAlt, chosen by the launcher from a non-null `alt_lb`.  At
+// the top of every round, after the barrier that ended the previous one,
+// every block recomputes the prune bound
+//   bound = fminf(prune_ub, __fmul_rn(__ldcg(&dist[tgt]), infl))
+// from the resident dist, the bound the unfused path takes between calls
+// (torch.minimum of the same f32 product), so a target that improves in
+// round r tightens the cut in round r + 1 exactly as there.  In phase 2 an
+// in-window candidate c to d is kept only if __fadd_rn(c, alt_lb[d]) <=
+// bound; a cut candidate with d != parent[src] counts into
+// counts[kPruned] (block-reduced like n_trav and n_relax) and n_relax
+// counts only the kept ones, so n_relax without ALT equals n_relax +
+// n_pruned with it, round by round, as on the unfused path.
+//
 // Hazards and what the code does about them:
 // - dist/parent/front are written inside the kernel, so they are neither
 //   const __restrict__ nor read through __ldg; every read of them, of the
@@ -58,8 +72,10 @@
 // Bound on this card: bytes.  Per executed round: 4 B of src per slot of
 // the slab and 1 B of tile_first per tile (the flag pass), 8 B of dst and
 // w per scheduled slot, and 26 B per vertex: the key written and read
-// back (16), dist read (4), front read and written (2), deg (4).  Once
-// per call, 12 B per vertex: dist written, parent read and written.
+// back (16), dist read (4), front read and written (2), deg (4); with ALT
+// 4 B of alt_lb per distinct destination of the round's in-window
+// candidates.  Once per call, 12 B per vertex:
+// dist written, parent read and written.
 // Summed over the rounds the call executes, at 3.35 TB/s.  Arithmetic is
 // a few operations per slot.  The hub atomics of Kronecker graphs, the
 // writes of improved vertices and the three grid barriers per round are
@@ -108,12 +124,15 @@ __device__ __forceinline__ int block_sum(int v, int* smem) {
   return total;
 }
 
+template <bool kAlt>
 __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
     const float* dist_in, const int32_t* parent_in, const uint8_t* front_in,
     const int32_t* __restrict__ deg, const int32_t* __restrict__ src,
     const int32_t* __restrict__ dst, const float* __restrict__ w,
     const uint8_t* __restrict__ tile_first, const float* __restrict__ lb_p,
-    const float* __restrict__ ub_p, int64_t n_tiles, int tile_e,
+    const float* __restrict__ ub_p, const float* __restrict__ alt_lb,
+    const float* __restrict__ prune_ub_p, const float* __restrict__ infl_p,
+    const int32_t* __restrict__ tgt_p, int64_t n_tiles, int tile_e,
     int64_t n_out, int fused_rounds, float* dist_out, int32_t* parent_out,
     uint8_t* front_out, int32_t* counts, unsigned long long* keys,
     int32_t* sched, int32_t* scal) {
@@ -121,6 +140,9 @@ __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
   __shared__ int smem[kThreads / 32];
   const float lb = *lb_p, ub = *ub_p;
   const int max_r = lb <= 0.0f ? 1 : fused_rounds;
+  const float prune_ub = kAlt ? *prune_ub_p : 0.0f;
+  const float infl = kAlt ? *infl_p : 0.0f;
+  const int32_t tgt = kAlt ? *tgt_p : 0;
   const int64_t gtid = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t gstride = (int64_t)gridDim.x * kThreads;
   const bool leader = blockIdx.x == 0 && threadIdx.x == 0;
@@ -129,6 +151,8 @@ __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
     const float* dist = r == 0 ? dist_in : dist_out;
     const int32_t* parent = r == 0 ? parent_in : parent_out;
     const uint8_t* front = r == 0 ? front_in : front_out;
+    const float bound =
+        kAlt ? fminf(prune_ub, __fmul_rn(__ldcg(dist + tgt), infl)) : 0.0f;
 
     // 1. prefill, any(front), schedule
     int any_front = 0;
@@ -159,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
       scal[kAnyFront] = 0;
       scal[kAnyImproved] = 0;
     }
-    int trav = 0, rlx = 0;
+    int trav = 0, rlx = 0, prn = 0;
     for (int64_t k = blockIdx.x; k < n_sched; k += gridDim.x) {
       const int64_t base = (int64_t)__ldcg(sched + k) * tile_e;
       for (int i = threadIdx.x; i < tile_e; i += kThreads) {
@@ -169,8 +193,13 @@ __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
         const float c = __fadd_rn(__ldcg(dist + s), w[e]);
         if (c >= lb && c < ub) {
           const int32_t d = dst[e];
+          const bool notpar = d != __ldcg(parent + s);
           ++trav;
-          rlx += d != __ldcg(parent + s);
+          if (kAlt && !(__fadd_rn(c, alt_lb[d]) <= bound)) {
+            prn += notpar;
+            continue;
+          }
+          rlx += notpar;
           atomicMin(&keys[d], ((unsigned long long)__float_as_uint(c) << 32) |
                                   (unsigned int)s);
         }
@@ -178,9 +207,11 @@ __global__ void __launch_bounds__(kThreads) fused_rounds_kernel(
     }
     trav = block_sum(trav, smem);
     rlx = block_sum(rlx, smem);
+    if (kAlt) prn = block_sum(prn, smem);
     if (threadIdx.x == 0 && trav) {
       atomicAdd(&counts[kTrav], trav);
       atomicAdd(&counts[kRelax], rlx);
+      if (kAlt) atomicAdd(&counts[kPruned], prn);
     }
     grid.sync();
 
@@ -226,16 +257,21 @@ extern "C" const char* edge_relax_fused_error_name(int code) {
 }
 
 // Returns 0, -1 when the device has no cooperative launch, else the
-// cudaError_t of the step that failed.
+// cudaError_t of the step that failed.  `alt_lb` [n_out], `prune_ub`,
+// `infl` and `tgt` (device scalars) are all null without ALT.
 extern "C" int edge_relax_fused_launch(
     const float* dist_in, const int32_t* parent_in, const uint8_t* front_in,
     const int32_t* deg, const int32_t* src, const int32_t* dst,
     const float* w, const uint8_t* tile_first, const float* lb_p,
-    const float* ub_p, int64_t n_tiles, int tile_e, int64_t n_out,
-    int fused_rounds, float* dist_out, int32_t* parent_out,
+    const float* ub_p, const float* alt_lb, const float* prune_ub_p,
+    const float* infl_p, const int32_t* tgt_p, int64_t n_tiles, int tile_e,
+    int64_t n_out, int fused_rounds, float* dist_out, int32_t* parent_out,
     uint8_t* front_out, int32_t* counts, unsigned long long* keys,
     int32_t* sched, int32_t* scal, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const void* kernel = alt_lb != nullptr
+                           ? (const void*)fused_rounds_kernel<true>
+                           : (const void*)fused_rounds_kernel<false>;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
@@ -247,7 +283,7 @@ extern "C" int edge_relax_fused_launch(
                                     dev)) != cudaSuccess)
     return (int)err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, fused_rounds_kernel, kThreads, 0)) != cudaSuccess)
+           &per_sm, kernel, kThreads, 0)) != cudaSuccess)
     return (int)err;
   // co-resident maximum, no more blocks than there is work for
   const int64_t resident = (int64_t)per_sm * sms;
@@ -261,14 +297,15 @@ extern "C" int edge_relax_fused_launch(
   if ((err = cudaMemsetAsync(scal, 0, 3 * sizeof(int32_t), st)) !=
       cudaSuccess)
     return (int)err;
-  void* args[] = {&dist_in, &parent_in, &front_in,   &deg,     &src,
-                  &dst,     &w,         &tile_first, &lb_p,    &ub_p,
-                  &n_tiles, &tile_e,    &n_out,      &fused_rounds,
-                  &dist_out, &parent_out, &front_out, &counts, &keys,
-                  &sched,   &scal};
-  err = cudaLaunchCooperativeKernel((const void*)fused_rounds_kernel,
-                                    dim3(blocks), dim3(kThreads), args, 0,
-                                    st);
+  void* args[] = {&dist_in,  &parent_in,  &front_in,  &deg,
+                  &src,      &dst,        &w,         &tile_first,
+                  &lb_p,     &ub_p,       &alt_lb,    &prune_ub_p,
+                  &infl_p,   &tgt_p,      &n_tiles,   &tile_e,
+                  &n_out,    &fused_rounds, &dist_out, &parent_out,
+                  &front_out, &counts,    &keys,      &sched,
+                  &scal};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
+                                    args, 0, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -27,29 +27,33 @@ __all__ = ["relax_bucket", "relax_fused", "relax_partials",
 
 class _Counter:
     """Launches of the CUDA kernels: ``edge_relax`` counts one per
-    :func:`relax_bucket` call on the card, ``edge_relax_fused`` one per
-    :func:`relax_fused` call, ``edge_relax_partials`` one per
-    :func:`relax_partials` call; CPU calls never count."""
+    :func:`relax_bucket` call on the card without ALT and
+    ``edge_relax_alt`` one per call with it, ``edge_relax_fused`` and
+    ``edge_relax_fused_alt`` the same for :func:`relax_fused`, and
+    ``edge_relax_partials`` one per :func:`relax_partials` call; CPU calls
+    never count."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.edge_relax = 0
+        self.edge_relax_alt = 0
         self.edge_relax_fused = 0
+        self.edge_relax_fused_alt = 0
         self.edge_relax_partials = 0
 
 
 LAUNCHES = _Counter()
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int64, _P, _P, _P, _P, _P, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
+             ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P]
 
 
-_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P, _P, _P,
-                   _P, _P, _P, _P, _P]
+_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                   _P, _P, _P, _P, _P, _P, _P, _P]
 
 
 _PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
@@ -78,8 +82,24 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb, ub, *,
-                     tile_e: int, n_out: int):
+def _ptr(t) -> int | None:
+    """A tensor's device pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def _check_alt(names, tensors, shapes, dtypes, device):
+    """Check optional ALT operands: all given, or none."""
+    given = [t is not None for t in tensors]
+    if any(given) and not all(given):
+        raise ValueError(f"pass all of {', '.join(names)} or none")
+    if all(given):
+        for name, t, shape, dtype in zip(names, tensors, shapes, dtypes):
+            _check(name, t, dtype, shape, device)
+    return all(given)
+
+
+def _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb, ub,
+                     alt_lb, prune_bound, *, tile_e: int, n_out: int):
     dev = dist.device
     e = src.shape[0]
     nt = tile_first.shape[0]
@@ -94,6 +114,8 @@ def _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb, ub, *,
             ("tile_first", tile_first, torch.bool, (nt,)),
             ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
         _check(name, t, dtype, shape, dev)
+    alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
+                     ((n_out,), ()), (torch.float32,) * 2, dev)
     fn = _library()
     sched = torch.empty(nt, dtype=torch.int32, device=dev)
     sched_n = torch.empty((), dtype=torch.int32, device=dev)
@@ -104,41 +126,48 @@ def _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb, ub, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dist.data_ptr(), frontier.data_ptr(), src.data_ptr(),
                  dst.data_ptr(), w.data_ptr(), tile_first.data_ptr(),
-                 lb.data_ptr(), ub.data_ptr(), nt, tile_e, n_out,
-                 sched.data_ptr(), sched_n.data_ptr(), keys.data_ptr(),
-                 vals.data_ptr(), wins.data_ptr(), stream)
+                 lb.data_ptr(), ub.data_ptr(), _ptr(alt_lb),
+                 _ptr(prune_bound), nt, tile_e, n_out, sched.data_ptr(),
+                 sched_n.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+                 wins.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"edge_relax launch failed: cudaError {err}")
-    LAUNCHES.edge_relax += 1
+    if alt:
+        LAUNCHES.edge_relax_alt += 1
+    else:
+        LAUNCHES.edge_relax += 1
     return vals, wins, sched_n
 
 
-def relax_bucket(dist, frontier, src, dst, w, tile_first, lb, ub, *,
-                 tile_e: int, n_out: int):
+def relax_bucket(dist, frontier, src, dst, w, tile_first, lb, ub,
+                 alt_lb=None, prune_bound=None, *, tile_e: int, n_out: int):
     """Relax a tile-aligned slab (or a concatenation of slabs) once.
 
     ``dist`` f32 / ``frontier`` bool ``[n_src]`` are indexed by ``src``;
     ``src``/``dst`` int32 and ``w`` f32 ``[NT * tile_e]`` (padding slots
     carry ``w=+inf``); ``tile_first`` bool ``[NT]``; ``lb``/``ub`` 0-d f32.
-    Returns ``(vals, winners, n_tiles)`` over ``n_out`` destinations:
-    the minimum in-window candidate, the smallest source id achieving it
-    (``(inf, INT_MAX)`` where none), and the number of tiles the
+    With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d f32), the
+    ALT cut: a candidate enters only if ``cand + alt_lb[dst] <=
+    prune_bound``.  Returns ``(vals, winners, n_tiles)`` over ``n_out``
+    destinations: the minimum candidate, the smallest source id achieving
+    it (``(inf, INT_MAX)`` where none), and the number of tiles the
     frontier-compacted schedule keeps (0-d int32, on the device).
     """
     if dist.is_cuda:
         return _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb,
-                                ub, tile_e=tile_e, n_out=n_out)
+                                ub, alt_lb, prune_bound, tile_e=tile_e,
+                                n_out=n_out)
     if dist.device.type != "cpu":
         raise ValueError(f"edge_relax runs on CUDA or CPU, not {dist.device}")
-    vals, wins = edge_relax_ref(dist, frontier, src, dst, w, lb, ub,
-                                n_out=n_out)
+    vals, wins = edge_relax_ref(dist, frontier, src, dst, w, lb, ub, alt_lb,
+                                prune_bound, n_out=n_out)
     _, n_tiles = schedule_tiles(frontier, src, w, tile_first, tile_e)
     return vals, wins, n_tiles
 
 
 def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
-                           tile_first, lb, ub, *, tile_e: int,
-                           fused_rounds: int):
+                           tile_first, lb, ub, alt_lb, prune_ub, prune_infl,
+                           prune_tgt, *, tile_e: int, fused_rounds: int):
     dev = dist.device
     e = src.shape[0]
     nt = tile_first.shape[0]
@@ -155,6 +184,10 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
             ("tile_first", tile_first, torch.bool, (nt,)),
             ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
         _check(name, t, dtype, shape, dev)
+    alt = _check_alt(("alt_lb", "prune_ub", "prune_infl", "prune_tgt"),
+                     (alt_lb, prune_ub, prune_infl, prune_tgt),
+                     ((n_out,), (), (), ()),
+                     (torch.float32,) * 3 + (torch.int32,), dev)
     fn = _library("edge_relax_fused", _FUSED_ARGTYPES)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     dist_out = empty(n_out, torch.float32)
@@ -169,13 +202,18 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
         err = fn(dist.data_ptr(), parent.data_ptr(), frontier.data_ptr(),
                  deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
                  w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
-                 ub.data_ptr(), nt, tile_e, n_out, fused_rounds,
+                 ub.data_ptr(), _ptr(alt_lb), _ptr(prune_ub),
+                 _ptr(prune_infl), _ptr(prune_tgt), nt, tile_e, n_out,
+                 fused_rounds,
                  dist_out.data_ptr(), parent_out.data_ptr(),
                  front_out.data_ptr(), counts.data_ptr(), keys.data_ptr(),
                  sched.data_ptr(), scalars.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"edge_relax_fused launch failed: {_error(err)}")
-    LAUNCHES.edge_relax_fused += 1
+    if alt:
+        LAUNCHES.edge_relax_fused_alt += 1
+    else:
+        LAUNCHES.edge_relax_fused += 1
     return dist_out, parent_out, front_out, counts
 
 
@@ -189,7 +227,8 @@ def _error(code: int) -> str:
 
 
 def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
-                ub, *, tile_e: int, fused_rounds: int):
+                ub, alt_lb=None, prune_ub=None, prune_infl=None,
+                prune_tgt=None, *, tile_e: int, fused_rounds: int):
     """Up to ``fused_rounds`` relaxation rounds over a whole-graph slab in
     one call (one round while ``lb <= 0``; it stops after the first round
     that improves nothing).
@@ -198,21 +237,28 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
     padded vertex range ``[0, n_out)``; ``src``/``dst`` int32 and ``w``
     f32 ``[NT * tile_e]`` are the concatenated slabs with global ids
     (padding slots carry ``w=+inf``), ``tile_first`` bool ``[NT]``;
-    ``lb``/``ub`` 0-d f32 on the device.  Returns ``(dist, parent,
-    frontier, counts)``: the state after the last executed round, in new
-    tensors, and the int32 ``FUSED_COUNTERS`` summed over those rounds.
+    ``lb``/``ub`` 0-d f32 on the device.  With ``alt_lb`` (f32
+    ``[n_out]``), ``prune_ub``/``prune_infl`` (0-d f32) and ``prune_tgt``
+    (0-d int32), the ALT cut with the bound ``min(prune_ub,
+    dist[prune_tgt] * prune_infl)`` taken afresh each round.  Returns
+    ``(dist, parent, frontier, counts)``: the state after the last
+    executed round, in new tensors, and the int32 ``FUSED_COUNTERS``
+    summed over those rounds.
     """
     if fused_rounds < 1:
         raise ValueError(f"fused_rounds must be >= 1, got {fused_rounds}")
     if dist.is_cuda:
         return _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst,
-                                      w, tile_first, lb, ub, tile_e=tile_e,
+                                      w, tile_first, lb, ub, alt_lb,
+                                      prune_ub, prune_infl, prune_tgt,
+                                      tile_e=tile_e,
                                       fused_rounds=fused_rounds)
     if dist.device.type != "cpu":
         raise ValueError(f"edge_relax_fused runs on CUDA or CPU, not "
                          f"{dist.device}")
     return edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
-                                tile_first, lb, ub, tile_e=tile_e,
+                                tile_first, lb, ub, alt_lb, prune_ub,
+                                prune_infl, prune_tgt, tile_e=tile_e,
                                 fused_rounds=fused_rounds)
 
 

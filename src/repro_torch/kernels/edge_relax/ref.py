@@ -4,8 +4,9 @@
 ``scatter_reduce``; ``schedule_tiles`` is the reference's
 frontier-compaction prepass; ``edge_relax_fused_ref`` is the multi-round
 fused kernel's contract; ``edge_relax_partials_ref`` is the sharded
-engines' one-round partials kernel's contract.  The wrappers in :mod:`.ops` run them for CPU
-tensors, the tests hold them against the JAX package, and
+engines' one-round partials kernel's contract.  The first two kernels
+take the ALT cut as an option.  The wrappers in :mod:`.ops` run them for
+CPU tensors, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
 work on any device.
 """
@@ -47,16 +48,20 @@ def schedule_tiles(frontier_block, src_local, w, tile_first, tile_e: int):
 
 
 def edge_relax_ref(dist_block, frontier_block, src_local, dst_local, w,
-                   lb, ub, *, n_out: int):
+                   lb, ub, alt_lb=None, prune_bound=None, *, n_out: int):
     """Returns ``(vals, winners)``: per destination over ``n_out``, the
     minimum in-window candidate ``dist[src] + w`` of a frontier source,
     and the smallest source id achieving it (``(inf, INT_MAX)`` where no
     candidate exists).  Source ids index ``dist_block``: block-local for
-    one slab, global for a concatenated slab set."""
+    one slab, global for a concatenated slab set.  With ``alt_lb`` (f32
+    ``[n_out]``) and ``prune_bound`` (0-d f32), the ALT cut: a candidate
+    enters only if ``cand + alt_lb[dst] <= prune_bound``."""
     src = src_local.long()
     dst = dst_local.long()
     cand = dist_block[src] + w
     ok = (frontier_block[src] > 0) & (cand >= lb) & (cand < ub)
+    if alt_lb is not None:
+        ok = ok & (cand + alt_lb[dst] <= prune_bound)
     cand = torch.where(ok, cand, torch.inf)
     best = torch.full((n_out,), torch.inf, dtype=torch.float32,
                       device=w.device).scatter_reduce_(0, dst, cand, "amin")
@@ -71,20 +76,27 @@ def _count(mask):
     return mask.sum().to(torch.int32)
 
 
-def _slab_counters(pa_src, w, dst, p_src, ok, tile_first, tile_e: int):
-    """The fused kernel's traversal counters, computed slab-wide (exact:
+def _slab_counters(pa_src, w, dst, p_src, ok, tile_first, tile_e: int,
+                   fail=None):
+    """The fused kernels' traversal counters, computed slab-wide (exact:
     tiles outside the compacted schedule contribute zero to each).
-    Returns ``(n_trav, n_relax, n_tiles)``: the in-window edges ``ok``,
-    those not back along the source's parent edge, and the active
-    tiles."""
+    Returns ``(n_trav, n_relax, n_tiles, n_pruned)``: the in-window edges
+    ``ok``, those not back along the source's parent edge and not cut by
+    the ALT test ``fail`` (None: no ALT), the active tiles, and the
+    parent-excluded edges that ``fail`` cut, so that ``n_relax`` without
+    ALT is ``n_relax + n_pruned`` with it."""
     nt = w.shape[0] // tile_e
     touched = pa_src & torch.isfinite(w)
     active = touched.reshape(nt, tile_e).any(dim=1) | tile_first
-    return _count(ok), _count(ok & (dst != p_src)), _count(active)
+    kept = ok & (dst != p_src)
+    pruned = torch.zeros_like(kept) if fail is None else kept & fail
+    return (_count(ok), _count(kept & ~pruned), _count(active),
+            _count(pruned))
 
 
 def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
-                         tile_first, lb, ub, *, tile_e: int,
+                         tile_first, lb, ub, alt_lb=None, prune_ub=None,
+                         prune_infl=None, prune_tgt=None, *, tile_e: int,
                          fused_rounds: int):
     """Up to ``fused_rounds`` windowed relaxation rounds (one while
     ``lb <= 0``), stopping after the first round that improves nothing.
@@ -95,7 +107,12 @@ def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
     forced tiles; ``lb``/``ub`` 0-d f32.  Each round leaf-prunes the
     frontier, relaxes every in-window candidate (min value, then min
     source id), commits the improvements, which become the next
-    frontier, and adds to the int32 ``FUSED_COUNTERS``.  Returns ``(dist,
+    frontier, and adds to the int32 ``FUSED_COUNTERS``.  With ``alt_lb``
+    (f32 ``[n_out]``), ``prune_ub``/``prune_infl`` (0-d f32) and
+    ``prune_tgt`` (0-d i32), each round first computes the prune bound
+    ``min(prune_ub, dist[prune_tgt] * prune_infl)`` from the current dist
+    and drops the candidates with ``cand + alt_lb[dst]`` above it,
+    counting the parent-excluded ones in ``n_pruned``.  Returns ``(dist,
     parent, frontier, counts)`` after the last executed round.
     """
     src_l = src.long()
@@ -104,17 +121,22 @@ def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
     zero = torch.zeros((), dtype=torch.int32, device=dist.device)
     for _ in range(max_r):
         paths = frontier & ((dist <= 0.0) | (deg > 1))
-        best, winner = edge_relax_ref(dist, paths, src, dst, w, lb, ub,
-                                      n_out=dist.shape[0])
         pa_src = paths[src_l]
         cand = dist[src_l] + w
         ok = pa_src & (cand >= lb) & (cand < ub)
-        trav, rlx, n_tiles = _slab_counters(pa_src, w, dst, parent[src_l],
-                                            ok, tile_first, tile_e)
+        bound = fail = None
+        if alt_lb is not None:
+            bound = torch.minimum(prune_ub, dist.index_select(
+                0, prune_tgt.reshape(1).long()).reshape(()) * prune_infl)
+            fail = cand + alt_lb[dst.long()] > bound
+        best, winner = edge_relax_ref(dist, paths, src, dst, w, lb, ub,
+                                      alt_lb, bound, n_out=dist.shape[0])
+        trav, rlx, n_tiles, prn = _slab_counters(
+            pa_src, w, dst, parent[src_l], ok, tile_first, tile_e, fail)
         improved = best < dist
         cnt = cnt + torch.stack([
             trav, rlx, _count(improved), _count(improved & (deg > 1)),
-            frontier.any().to(torch.int32), n_tiles, zero + 1, zero])
+            frontier.any().to(torch.int32), n_tiles, zero + 1, prn])
         dist = torch.where(improved, best, dist)
         parent = torch.where(improved, winner, parent)
         frontier = improved
@@ -142,9 +164,7 @@ def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
     pa_src = paths_src[src_l]
     cand = dist_src[src_l] + w
     ok = pa_src & (cand >= lb) & (cand < ub)
-    trav, rlx, n_tiles = _slab_counters(pa_src, w, dst, parent_src[src_l],
-                                        ok, tile_first, tile_e)
     val, win = edge_relax_ref(dist_src, paths_src, src, dst, w, lb, ub,
                               n_out=n_out)
-    return val, win, torch.stack([trav, rlx, n_tiles, torch.zeros_like(
-        trav)])
+    return val, win, torch.stack(_slab_counters(
+        pa_src, w, dst, parent_src[src_l], ok, tile_first, tile_e))

@@ -21,11 +21,13 @@ import torch
 from repro_torch.core.distributed import (shard_blocked, shard_graph,
                                           sssp_distributed)
 from repro_torch.core.graph import build_blocked, build_csr
+from repro_torch.core.landmarks import build_landmarks
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from repro_torch.data.generators import kronecker, road_grid
 from repro_torch.kernels.edge_relax import ops, ref
 from repro_torch.kernels.flash_attn import ops as fops
 from repro_torch.models.transformer import ring_positions
+from repro_torch.serve.queries import reconstruct_path
 
 pytestmark = pytest.mark.cuda
 
@@ -139,6 +141,109 @@ def test_cuda_partials_kernel_matches_plain_version(card, ties, window):
         assert int(cnt[3]) == 0
         trav += int(cnt[0])
     assert trav > 0
+
+
+def _alt_lb(rng, n_out, n, card):
+    lb = (rng.integers(0, 8, n_out) / 4).astype(np.float32)
+    lb[(rng.random(n_out) < 0.15) | (np.arange(n_out) >= n)] = np.inf
+    return torch.from_numpy(lb).to(card)
+
+
+@pytest.mark.parametrize("bound", [2.0, np.inf, 0.0, 3.0],
+                         ids=["mid", "inf", "below-all", "ties"])
+def test_cuda_alt_kernel_matches_plain_version(card, bound):
+    # integer weights, dists and bounds: many candidates land exactly on
+    # the bound, which `<=` keeps
+    rng = np.random.default_rng(8)
+    bg = build_blocked(_graph(rng, ties=True), block_v=256, tile_e=64,
+                       device=card)
+    dist = rng.integers(0, 5, bg.n_out).astype(np.float32)
+    dist[rng.random(bg.n_out) < 0.2] = np.inf
+    front = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    t = lambda a: torch.from_numpy(a).to(card)
+    args = (t(dist), t(front), bg.src, bg.dst, bg.w, bg.tile_first,
+            _f32(0.0, card), _f32(6.0, card), _alt_lb(rng, bg.n_out, 900,
+                                                      card),
+            _f32(bound, card))
+    kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
+    before = (ops.LAUNCHES.edge_relax, ops.LAUNCHES.edge_relax_alt)
+    vals, wins, n = ops.relax_bucket(*args, **kw)
+    torch.cuda.synchronize()
+    assert (ops.LAUNCHES.edge_relax,
+            ops.LAUNCHES.edge_relax_alt) == (before[0], before[1] + 1)
+    pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
+    assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(wins, pw)
+    if bound == 0.0:
+        assert not torch.isfinite(vals).any()
+    else:
+        assert torch.isfinite(vals).any()
+
+
+@pytest.mark.parametrize("case", ["mid", "inf", "below-all", "tightens"])
+def test_cuda_fused_alt_kernel_matches_plain_version(card, case):
+    rng = np.random.default_rng(9)
+    bg = build_blocked(_graph(rng, ties=case != "tightens"), block_v=256,
+                       tile_e=64, device=card)
+    n = 900
+    dist = rng.integers(0, 5, bg.n_out).astype(np.float32)
+    dist[rng.random(bg.n_out) < 0.5] = np.inf
+    dist[n:] = np.inf
+    parent = np.where(np.isfinite(dist), rng.integers(0, n, bg.n_out),
+                      -1).astype(np.int32)
+    front = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    # the tightening target is unreached at the start of the call
+    tgt = int(np.where(np.isinf(dist[:n]) if case == "tightens"
+                       else np.isfinite(dist[:n]))[0][3])
+    prune_ub = {"mid": 4.0, "inf": np.inf, "below-all": 0.0,
+                "tightens": np.inf}[case]
+    t = lambda a: torch.from_numpy(a).to(card)
+    args = (t(dist), t(parent), t(front), bg.deg, bg.src, bg.dst, bg.w,
+            bg.tile_first, _f32(1.0, card), _f32(12.0, card),
+            _alt_lb(rng, bg.n_out, n, card), _f32(prune_ub, card),
+            _f32(1.0 + 4.0 * 2.0 ** -24 * 100, card),
+            torch.tensor(tgt, dtype=torch.int32, device=card))
+    kw = dict(tile_e=bg.tile_e, fused_rounds=6)
+    want = ref.edge_relax_fused_ref(*args, **kw)
+    for _ in range(2):
+        before = ops.LAUNCHES.edge_relax_fused_alt
+        out = ops.relax_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES.edge_relax_fused_alt == before + 1
+        assert torch.equal(out[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        for a, b in zip(out[1:], want[1:]):
+            assert torch.equal(a, b)
+    cnt = dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
+    if case == "below-all":
+        assert cnt["n_relax"] == 0 and cnt["n_pruned"] > 0
+    if case == "tightens":
+        assert torch.isfinite(out[0][tgt]) and cnt["n_exec"] > 1
+
+
+def test_cuda_alt_p2p_matches_segment_min(card):
+    for g, seed in ((kronecker(10, 8, seed=1), 3), (road_grid(24, seed=2),
+                                                     4)):
+        lm = build_landmarks(g, 4, device=card)
+        rng = np.random.default_rng(seed)
+        s, t = (int(v) for v in rng.choice(g.n, 2, replace=False))
+        kw = dict(goal="p2p", goal_param=t, device=card)
+        plain = sssp(g, s, backend="segment_min", **kw)
+        want = sssp(g, s, backend="segment_min", landmarks=lm, **kw)
+        path = reconstruct_path(plain[1].cpu().numpy(), s, t)
+        for opts, counter in ((dict(), "edge_relax_alt"),
+                              (dict(fused_rounds=4), "edge_relax_fused_alt")):
+            before = getattr(ops.LAUNCHES, counter)
+            d, p, m = sssp(g, s, backend="blocked", landmarks=lm, **kw,
+                           **opts)
+            assert getattr(ops.LAUNCHES, counter) > before, counter
+            assert torch.equal(d.view(torch.int32),
+                               want[0].view(torch.int32)), opts
+            assert torch.equal(p, want[1]), opts
+            md, wd = metrics_dict(m), metrics_dict(want[2])
+            assert all(md[f] == wd[f] for f in LOGICAL_METRIC_FIELDS), opts
+            assert d[t].item() == plain[0][t].item()
+            assert reconstruct_path(p.cpu().numpy(), s, t) == path
 
 
 def test_cuda_v1_solve_matches_single_device(card, tmp_path):

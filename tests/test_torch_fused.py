@@ -157,7 +157,7 @@ def test_fused_rounds_needs_the_blocked_backend():
         sssp(hg, 0, backend="segment_min", fused_rounds=4, device="cpu")
     with pytest.raises(ValueError, match=">= 0"):
         sssp(hg, 0, backend="blocked", fused_rounds=-1, device="cpu")
-    for later in (dict(goal="p2p"), dict(policy="adaptive"),
+    for later in (dict(config={}), dict(policy="adaptive"),
                   dict(trace=True)):
         with pytest.raises(NotImplementedError):
             sssp(hg, 0, backend="blocked", fused_rounds=4, device="cpu",

@@ -1,8 +1,9 @@
 """The port stands alone: ``import repro_torch``, CPU solves (single
-device, fused, sharded v1) and CPU serving of the LM load neither jax nor
-the reference package, ``chip_smoke.py`` and the card-side tests import
-neither, entry points need ``cuda`` unless told ``device="cpu"``, and a
-CPU tensor never counts as a kernel launch."""
+device, fused, sharded v1, ALT p2p with a landmark build, bidirectional)
+and CPU serving of the LM load neither jax nor the reference package,
+``chip_smoke.py`` and the card-side tests import neither, entry points
+need ``cuda`` unless told ``device="cpu"``, and a CPU tensor never counts
+as a kernel launch."""
 import ast
 import json
 import os
@@ -19,14 +20,24 @@ _PROBE = """
 import json, os, sys, tempfile
 import torch.distributed as tdist
 import repro_torch
+from repro_torch import convert
 from repro_torch.core.distributed import shard_graph, sssp_distributed
+from repro_torch.core.landmarks import build_landmarks
 from repro_torch.core.sssp import sssp
 from repro_torch.data.generators import kronecker
 from repro_torch.kernels.edge_relax.ops import LAUNCHES
+from repro_torch.serve.queries import reconstruct_path
 g = kronecker(7, 4, seed=1)
 d, p, m = sssp(g, 0, backend="blocked", device="cpu", block_v=64, tile_e=64)
 d4, _, _ = sssp(g, 0, backend="blocked", device="cpu", block_v=64, tile_e=64,
                 fused_rounds=4)
+lm = build_landmarks(g, 4, device="cpu")
+t = int(d.argmax())
+paths = []
+for kw in (dict(), dict(fused_rounds=4), dict(p2p_mode="bidirectional")):
+    da, pa, _ = sssp(g, 0, backend="blocked", device="cpu", block_v=64,
+                     tile_e=64, goal="p2p", goal_param=t, landmarks=lm, **kw)
+    paths.append((float(da[t]), reconstruct_path(pa.numpy(), 0, t)))
 with tempfile.TemporaryDirectory() as tmp:
     tdist.init_process_group("gloo", rank=0, world_size=1,
                              store=tdist.FileStore(os.path.join(tmp, "s"), 1))
@@ -38,7 +49,10 @@ loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loaded": loaded,
                   "launches": LAUNCHES.edge_relax + LAUNCHES.edge_relax_fused
-                  + LAUNCHES.edge_relax_partials,
+                  + LAUNCHES.edge_relax_partials + LAUNCHES.edge_relax_alt
+                  + LAUNCHES.edge_relax_fused_alt,
+                  "p2p_same": all(x == (float(d[t]), reconstruct_path(
+                      p.numpy(), 0, t)) for x in paths),
                   "reached": int(d.isfinite().sum()),
                   "fused_same": bool(d4.equal(d)),
                   "v1_same": bool(dv[:g.n].equal(d))}))
@@ -54,6 +68,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert res["loaded"] == []
     assert res["launches"] == 0           # CPU tensors: the plain version
     assert res["reached"] > 1 and res["fused_same"] and res["v1_same"]
+    assert res["p2p_same"]
 
 
 _LM_PROBE = """

@@ -206,19 +206,57 @@ def test_prepared_layout_and_metrics():
              **BLOCKED)
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    (dict(goal="p2p"), "query-goal"), (dict(fused_rounds=4), "fused"),
-    (dict(policy="adaptive"), "adaptive"), (dict(trace=True), "observab"),
-    (dict(landmarks=object()), "ALT")])
-def test_later_slices_raise(kw, slice_):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(config={}), NotImplementedError, "config slice"),
+    (dict(fused_rounds=4), ValueError, "fused"),
+    (dict(policy="adaptive"), NotImplementedError, "adaptive"),
+    (dict(trace=True), NotImplementedError, "observab"),
+    (dict(bogus_opt=1), TypeError, "bogus_opt"),
+    (dict(goal_params=[1]), TypeError, "goal_params"),
+    (dict(goal="p2p", goal_param=3, p2p_mode="bidirectional"), ValueError,
+     "needs a landmark set")])
+def test_later_slices_raise(kw, exc, match):
     """Each option of a later slice raises ``NotImplementedError`` naming
-    it.  Fused rounds are ported: on the default ``segment_min`` backend,
-    which has no fused kernel, they raise ``ValueError``."""
+    it, an unknown keyword raises ``TypeError`` naming it, and the
+    bidirectional p2p mode without landmarks raises ``ValueError``.  Fused
+    rounds are ported: on the default ``segment_min`` backend, which has
+    no fused kernel, they raise ``ValueError``."""
     hg = convert.from_reference(ref_arrays(rgen.road_grid(4, seed=1)),
                                 "cpu")
-    exc = ValueError if slice_ == "fused" else NotImplementedError
-    with pytest.raises(exc, match=slice_):
+    with pytest.raises(exc, match=match):
         sssp(hg, 0, device="cpu", **kw)
+
+
+def test_unknown_options_are_refused_not_dropped():
+    """The reproduction of the fault that dropped options silently
+    (kronecker(10, 8), seed 1, source 0): ``config=`` raises, unknown
+    keywords raise with the reference's ``TypeError``, and
+    ``goal_param`` is honoured."""
+    from repro.core.config import EngineConfig
+    rg = rgen.kronecker(10, 8, seed=1)
+    hg = convert.from_reference(ref_arrays(rg), "cpu")
+    with pytest.raises(NotImplementedError, match="config"):
+        sssp(hg, 0, device="cpu", config={"alpha": 1.5, "beta": 0.5},
+             goal_param=3)
+    with pytest.raises(TypeError, match="unknown engine options"):
+        ref_sssp(rg.to_device(), 0, bogus_opt=1)
+    # use_kernel is the reference's Pallas switch: the port has none
+    for bad in (dict(bogus_opt=1), dict(use_kernel=False)):
+        with pytest.raises(TypeError, match="unknown engine options"):
+            sssp(hg, 0, device="cpu", **bad)
+        with pytest.raises(TypeError, match="unknown engine options"):
+            prepare_layout(hg, "blocked", device="cpu", **bad)
+    # the options that change the schedule are honoured as the
+    # reference's are
+    ref = _np(ref_sssp(rg.to_device(), 0,
+                       config=EngineConfig(alpha=1.5, beta=0.5)))
+    assert_same(ref, _port(sssp(hg, 0, device="cpu", alpha=1.5, beta=0.5)),
+                "alpha=1.5 beta=0.5")
+    tree = _port(sssp(hg, 0, device="cpu"))
+    assert ref[2]["n_rounds"] != tree[2]["n_rounds"]
+    p2p = _port(sssp(hg, 0, device="cpu", goal="p2p", goal_param=3))
+    assert p2p[2]["n_steps"] <= tree[2]["n_steps"]
+    assert p2p[0][3] == tree[0][3]
 
 
 def test_source_out_of_range_raises():

@@ -81,7 +81,26 @@ Phases, in order; any failure exits non-zero:
    that differ only in the attention's summation order); top-1
    agreement is printed, and the same comparison in bfloat16 is printed
    as a measured gap.
-5. Numbers: one JSON ``kernels`` line (kernel, plain-version and
+5. The recsys serving path (MIND at its published size: a 10^7 x 64
+   float32 item table drawn on the card from a ``torch.Generator`` seeded
+   with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
+   the ``serve_p99`` (512 users) and ``serve_bulk`` (262,144) shapes).
+   First ``embedding_bag`` against its plain version, bitwise, each
+   kernel call made twice: the reference kernel test's 12 shapes x modes
+   x weights, L = 1, a bag of zero weights under mean, ids -1, -V, V and
+   2V (wrapped or clamped), a bfloat16 table, and both serve batches over
+   the full table.  Then the embedding layer: ``embedding_bag_batched``
+   over the full table at both shapes, sum and mean, and a serve_p99
+   batch with ids injected outside ``[-V, V)``; each call must launch
+   the kernel once and never the plain version (counted), equal the
+   plain version on the card bit for bit, and give NaN bags exactly where
+   the reference's ``jnp.take`` would.  Then MIND: ``serve_interests`` at
+   both shapes and ``retrieval_scores`` of user 0 over 10^6 candidate
+   ids (numpy seed 1); every output finite, every interest's norm below
+   1, and the first 64 users' interests and first 65,536 scores within
+   1e-5 (relative, and of the largest magnitude) of the same functions
+   on the CPU, in float32 with TF32 off.
+6. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the bound, launches on the main
    path; the ALT rows at the middle kernel call of the first p2p pair's
    ALT query, unfused and fused, captured by solving that query again,
@@ -94,7 +113,11 @@ Phases, in order; any failure exits non-zero:
    request, prefill tokens/s, and decode ms per step and tokens/s, and
    ``flash_attention``'s times at the qwen3 prefill and decode calls
    (kernel, plain version, ``scaled_dot_product_attention``) beside its
-   bound.
+   bound; ``embedding_bag``'s at both serve shapes in sum and mean
+   (kernel, plain version, ``torch.nn.functional.embedding_bag``) beside
+   its byte bound, which charges each distinct row once, and MIND's
+   ``serve_interests`` and ``retrieval_scores`` milliseconds, users/s and
+   candidates/s (``[recsys]`` lines).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside the repository, the script exits non-zero and prints
@@ -103,6 +126,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -1710,6 +1734,368 @@ def lm_phases(device):
     return dict(kernel=kernel, serving=serving, parity=parity)
 
 
+# ---------------------------------------------------------------------------
+# the recsys serving path (embedding_bag)
+# ---------------------------------------------------------------------------
+
+RECSYS_SHAPES = ("serve_p99", "serve_bulk")
+N_CANDIDATES = 1_000_000
+CPU_USERS, CPU_CANDIDATES = 64, 65_536
+# card vs CPU for MIND in f32 with TF32 off: the same functions, the
+# einsums summed in another order (about 1e-7 of the scale measured on
+# the CPU between torch and XLA); rtol, and atol as a share of the
+# largest magnitude
+MIND_TOL = 1e-5
+F32_FLOPS = 67e12                  # H100 SXM f32 rate outside the tensor cores
+
+
+def same_bits(out, want) -> bool:
+    """Bitwise equal, with NaN at the same places."""
+    nan = torch.isnan(want)
+    return bool(torch.isnan(out).equal(nan)) and bitwise_equal(
+        out.masked_fill(nan, 0), want.masked_fill(nan, 0))
+
+
+class PlainBagCalls:
+    """Counts calls of ``embedding_bag``'s plain version through the
+    wrapper (``ops.embedding_bag_ref``) while open."""
+
+    def __enter__(self):
+        from repro_torch.kernels.embedding_bag import ops
+        self.ops, self.saved, self.calls = ops, ops.embedding_bag_ref, 0
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self.saved(*args, **kw)
+        ops.embedding_bag_ref = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.embedding_bag_ref = self.saved
+
+
+def bag_vs_plain(table, batches, device, seed: int = 5) -> int:
+    """``embedding_bag`` against its plain version, bitwise, each kernel
+    call made twice; returns the number of cases."""
+    from repro_torch.kernels.embedding_bag import ops, ref
+    rng = np.random.default_rng(seed)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    cases = []
+    # the reference kernel test's 12 shapes x modes x weights
+    for (v, d, b, l), mode, weighted in itertools.product(
+            ((64, 16, 4, 3), (300, 32, 8, 7), (1000, 64, 2, 20)),
+            ("sum", "mean"), (False, True)):
+        t = f32(rng.normal(0, 1, (v, d)))
+        w = f32(rng.random((b, l))) if weighted else None
+        cases.append((f"V={v} D={d} B={b} L={l} {mode} w={weighted}", t,
+                      i32(rng.integers(0, v, (b, l))), w, mode))
+    t = f32(rng.normal(0, 1, (300, 64)))
+    w0 = rng.random((6, 9))
+    w0[2] = 0.0
+    cases += [("L=1", t, i32(rng.integers(0, 300, (40, 1))), None, "sum"),
+              ("L=1 mean", t, i32(rng.integers(0, 300, (40, 1))),
+               f32(rng.random((40, 1))), "mean"),
+              ("zero-weight bag, mean", t,
+               i32(rng.integers(0, 300, (6, 9))), f32(w0), "mean"),
+              ("ids -1, -V, V, 2V", t,
+               i32([[-1, -300, 300, 600], [5, -1, 600, -301]]),
+               f32(rng.random((2, 4))), "mean")]
+    tb = t.to(torch.bfloat16)
+    for mode in ("sum", "mean"):
+        cases.append((f"bf16 table {mode}", tb,
+                      i32(rng.integers(0, 300, (33, 17))), None, mode))
+    for name in RECSYS_SHAPES:
+        hist, mask = batches[name]
+        for mode in ("sum", "mean"):
+            cases.append((f"MIND {name} {mode}", table, hist, mask.float(),
+                          mode))
+    for what, t, ids, w, mode in cases:
+        first = ops.embedding_bag(t, ids, w, mode=mode)
+        again = ops.embedding_bag(t, ids, w, mode=mode)
+        want = ref.embedding_bag_ref(t, ids, w, mode=mode)
+        torch.cuda.synchronize()
+        if not (same_bits(first, want) and same_bits(again, want)):
+            err = float((first - want).abs().max())
+            raise AssertionError(f"embedding_bag {what}: kernel and plain "
+                                 f"version differ (max |err| {err!r})")
+    return len(cases)
+
+
+def recsys_layer(table, batches, device):
+    """The embedding layer's main path: ``embedding_bag_batched`` over the
+    full table at both serve shapes, sum and mean, then a batch with ids
+    outside ``[-V, V)``; one kernel launch a call and no plain-version
+    call, each output bitwise equal to the plain version on the card, NaN
+    bags exactly where the reference has them.  Returns the launches."""
+    from repro_torch.kernels.embedding_bag import ref
+    from repro_torch.kernels.embedding_bag.ops import LAUNCHES
+    from repro_torch.models.recsys.embedding import (bag_inputs,
+                                                     embedding_bag_batched)
+    v = table.shape[0]
+    hist, mask = batches["serve_p99"]
+    bad_h, bad_m = hist.clone(), mask.clone()
+    for (row, col, bad, live) in ((0, 0, v, True), (1, 3, 2 * v, True),
+                                  (2, 5, -v - 1, True), (3, 1, -1, True),
+                                  (4, 0, 2 * v, False), (5, 2, -v, True)):
+        bad_h[row, col], bad_m[row, col] = bad, live
+    runs = [(f"{n} {mode}", *batches[n], mode)
+            for n in RECSYS_SHAPES for mode in ("sum", "mean")]
+    runs += [(f"serve_p99 with ids outside [-V, V) {mode}", bad_h, bad_m,
+              mode) for mode in ("sum", "mean")]
+    outs = []
+    LAUNCHES.reset()
+    with PlainBagCalls() as plain:
+        for what, h, m, mode in runs:
+            before = LAUNCHES.embedding_bag
+            outs.append(embedding_bag_batched(table, h, m, mode=mode))
+            if LAUNCHES.embedding_bag != before + 1:
+                raise AssertionError(f"embedding layer {what}: "
+                                     f"{LAUNCHES.embedding_bag - before} "
+                                     f"kernel launches, expected 1")
+        torch.cuda.synchronize()
+    launches = LAUNCHES.embedding_bag
+    if plain.calls:
+        raise AssertionError(f"the embedding layer ran the plain version "
+                             f"{plain.calls} times on the card")
+    for (what, h, m, mode), out in zip(runs, outs):
+        want = ref.embedding_bag_ref(table, *bag_inputs(v, h, m), mode=mode)
+        if not same_bits(out, want):
+            raise AssertionError(f"embedding layer {what}: differs from the "
+                                 f"plain version on the card")
+    # the reference: a bag is NaN iff a masked-in id lies outside [-V, V)
+    hn, mn = bad_h.cpu().numpy().astype(np.int64), bad_m.cpu().numpy()
+    want_nan = (mn & ((hn < -v) | (hn >= v))).any(1)
+    for out in outs[-2:]:
+        got_nan = torch.isnan(out).any(1).cpu().numpy()
+        if not (np.array_equal(got_nan, want_nan) and bool(
+                torch.isnan(out[torch.from_numpy(want_nan).to(device)]).all())):
+            raise AssertionError(f"embedding layer: NaN bags at "
+                                 f"{np.flatnonzero(got_nan)}, the reference "
+                                 f"has them at {np.flatnonzero(want_nan)}")
+        if not bool(out[torch.from_numpy(~want_nan).to(device)].isfinite().all()):
+            raise AssertionError("embedding layer: a non-finite bag where "
+                                 "the reference has none")
+    return dict(launches=launches, plain_calls=plain.calls, calls=len(runs),
+                nan_bags=np.flatnonzero(want_nan).tolist())
+
+
+def mind_serving(cfg, params, batches, device):
+    """MIND's serving path on the card: interests at both serve shapes and
+    user 0's scores over ``N_CANDIDATES`` ids (numpy seed 1); finite,
+    interest norms below 1, and the first ``CPU_USERS`` users' interests
+    and first ``CPU_CANDIDATES`` scores within ``MIND_TOL`` of the same
+    functions on the CPU.  Returns their times and gaps."""
+    from repro_torch.models.recsys.mind import (retrieval_scores,
+                                                serve_interests)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cand = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.n_items, N_CANDIDATES).astype(np.int32)).to(device)
+    cpu = {k: p.cpu() for k, p in params.items()}
+    out, interests = {}, {}
+
+    def check(what, got, want):
+        scale = float(want.abs().max())
+        gap = float((got.cpu() - want).abs().max())
+        if not torch.allclose(got.cpu(), want, rtol=MIND_TOL,
+                              atol=MIND_TOL * scale):
+            raise AssertionError(f"MIND {what}: card and CPU differ by "
+                                 f"{gap!r} at scale {scale!r}")
+        return dict(max_abs_diff=gap, scale=scale)
+
+    for name in RECSYS_SHAPES:
+        hist, mask = batches[name]
+        batch = {"hist": hist, "hist_mask": mask}
+        u = serve_interests(cfg, params, batch)
+        torch.cuda.synchronize()
+        norms = u.norm(dim=-1)
+        if not (bool(u.isfinite().all()) and bool((norms < 1).all())):
+            raise AssertionError(f"MIND {name}: interests not finite or a "
+                                 f"norm >= 1 (max {float(norms.max())!r})")
+        small = {k: x[:CPU_USERS].cpu() for k, x in batch.items()}
+        interests[name] = u
+        b = hist.shape[0]
+        ms = cuda_ms(lambda: serve_interests(cfg, params, batch), reps=5)
+        out[name] = dict(users=b, serve_interests_ms=ms,
+                         users_per_s=b / ms * 1e3,
+                         max_interest_norm=float(norms.max()),
+                         vs_cpu=check(f"{name} interests",
+                                      u[:CPU_USERS],
+                                      serve_interests(cfg, cpu, small)))
+    u0 = interests["serve_p99"][0]
+    scores = retrieval_scores(cfg, params, u0, cand)
+    torch.cuda.synchronize()
+    if not (scores.shape == (N_CANDIDATES,) and bool(scores.isfinite().all())):
+        raise AssertionError("MIND retrieval: scores not finite")
+    ms = cuda_ms(lambda: retrieval_scores(cfg, params, u0, cand), reps=5)
+    out["retrieval_cand"] = dict(
+        candidates=N_CANDIDATES, retrieval_scores_ms=ms,
+        candidates_per_s=N_CANDIDATES / ms * 1e3,
+        vs_cpu=check("retrieval scores", scores[:CPU_CANDIDATES],
+                     retrieval_scores(cfg, cpu, u0.cpu(),
+                                      cand[:CPU_CANDIDATES].cpu())))
+    out["tolerance"] = MIND_TOL
+    return out
+
+
+def measure_bag(table, hist, mask):
+    """The kernel at a serve shape, as the embedding layer calls it (its
+    ids and 0/1 weights from ``bag_inputs``), in sum and mean: its time,
+    its plain version's, ``torch.nn.functional.embedding_bag``'s (timed
+    only: the port never calls it; the mean as its weighted sum and a
+    divide), and the byte bound, which charges each distinct row once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import ops, ref
+    from repro_torch.models.recsys.embedding import bag_inputs
+    kid, w = bag_inputs(table.shape[0], hist, mask)
+    b, l = kid.shape
+    d = table.shape[1]
+    distinct = int(torch.unique(kid).numel())
+    bytes_ = distinct * d * table.element_size() + b * l * 8 + b * d * 4
+    res = dict(bags=b, lookups=b * l, distinct_rows=distinct,
+               bytes=bytes_)
+    for mode in ("sum", "mean"):
+        flops = 2 * b * l * d + (b * d if mode == "mean" else 0)
+        byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        op_ms = flops / F32_FLOPS * 1e3
+
+        def library(mode=mode):
+            s = F.embedding_bag(kid, table, per_sample_weights=w, mode="sum")
+            return s if mode == "sum" else \
+                s / w.sum(1, keepdim=True).clamp_min(1e-9)
+        calls = dict(kernel=lambda: ops.embedding_bag(table, kid, w,
+                                                      mode=mode),
+                     plain=lambda: ref.embedding_bag_ref(table, kid, w,
+                                                         mode=mode),
+                     library=library)
+        got, want = calls["kernel"](), calls["plain"]()
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            raise AssertionError(f"embedding_bag {mode} at B={b}: kernel "
+                                 f"and plain version differ")
+        res[mode] = dict(
+            ms=cuda_ms(calls["kernel"]), plain_ms=cuda_ms(calls["plain"]),
+            library_ms=cuda_ms(calls["library"]),
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            flops=flops, max_abs_err=float((got - want).abs().max()),
+            library_max_abs_err=float((calls["library"]() - want).abs().max()))
+    return res
+
+
+def recsys_profile(cfg, params, batches, device):
+    """Where the recsys path's time goes: the embedding layer at
+    ``serve_bulk`` (mean), ``serve_interests`` at both shapes and
+    ``retrieval_scores`` over ``N_CANDIDATES``, each timed on the host
+    clock (mean of 3, ending in a synchronize) and once under
+    ``torch.profiler``: device time, its share of the wall time, the
+    kernels launched and the four costliest by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.recsys.embedding import embedding_bag_batched
+    from repro_torch.models.recsys.mind import (retrieval_scores,
+                                                serve_interests)
+    cand = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.n_items, N_CANDIDATES).astype(np.int32)).to(device)
+    as_batch = lambda n: dict(zip(("hist", "hist_mask"), batches[n]))
+    u0 = serve_interests(cfg, params, as_batch("serve_p99"))[0]
+    calls = {
+        "layer serve_bulk mean": lambda: embedding_bag_batched(
+            params["item_embed"], *batches["serve_bulk"], mode="mean"),
+        **{f"serve_interests {n}": (lambda n=n: serve_interests(
+            cfg, params, as_batch(n))) for n in RECSYS_SHAPES},
+        "retrieval_scores": lambda: retrieval_scores(cfg, params, u0, cand)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) / 3 * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+        out[name] = dict(
+            wall_ms=wall_ms, device_ms=device_ms,
+            device_busy_share=device_ms / wall_ms,
+            kernels=sum(e.count for e in kern),
+            top=[(e.key[:60], e.self_device_time_total / 1e3) for e in top])
+    return out
+
+
+def recsys_phases(device):
+    """Phase 5 and its numbers; returns the ``embedding_bag`` entry of the
+    ``kernels`` line and the recsys numbers."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import RecsysStream
+    from repro_torch.models.recsys.mind import init_params
+    mind = get("mind")
+    cfg = mind.make_config()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    table = params["item_embed"]
+    log(f"[recsys] {cfg.name}: item table {tuple(table.shape)} {table.dtype} "
+        f"({table.numel() * table.element_size() / 1e9:.2f} GB) drawn on "
+        f"the card in {time.perf_counter() - t0:.2f} s")
+    stream = RecsysStream(cfg.n_items, cfg.hist_len, seed=0)
+    batches = {}
+    for name in RECSYS_SHAPES:
+        b = stream.batch(0, mind.SHAPES[name]["batch"])
+        batches[name] = (torch.from_numpy(b["hist"]).to(device),
+                         torch.from_numpy(b["hist_mask"]).to(device))
+    n_cases = bag_vs_plain(table, batches, device)
+    log(f"[kernel-vs-plain] embedding_bag: {n_cases} seeded cases bitwise "
+        f"equal (each call twice)")
+    layer = recsys_layer(table, batches, device)
+    log(f"[recsys] embedding layer: {layer['calls']} calls of "
+        f"embedding_bag_batched over the full table, {layer['launches']} "
+        f"kernel launches, {layer['plain_calls']} plain-version calls, "
+        f"bitwise equal to the plain version; NaN bags {layer['nan_bags']} "
+        f"as the reference")
+    serving = mind_serving(cfg, params, batches, device)
+    for key in (*RECSYS_SHAPES, "retrieval_cand"):
+        log(f"[recsys] MIND {key}: " + json.dumps(serving[key]))
+    numbers = {name: measure_bag(table, *batches[name])
+               for name in RECSYS_SHAPES}
+    for name, m in numbers.items():
+        log(f"[embedding_bag] {name}: " + json.dumps(m))
+    serving["profile"] = recsys_profile(cfg, params, batches, device)
+    for name, m in serving["profile"].items():
+        log(f"[profile] {name}: " + json.dumps(m))
+    del params, table, batches
+    torch.cuda.empty_cache()
+    bulk = numbers["serve_bulk"]
+    kernel = {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:48",
+        "launches": layer["launches"],
+        "max_abs_err": max(m[mode]["max_abs_err"] for m in numbers.values()
+                           for mode in ("sum", "mean")),
+        "ms": bulk["sum"]["ms"], "plain_ms": bulk["sum"]["plain_ms"],
+        "bound_ms": bulk["sum"]["bound_ms"],
+        "bound_by": bulk["sum"]["bound_by"],
+        "library_ms": bulk["sum"]["library_ms"],
+        "shape": "serve_bulk: B = 262,144 bags of L = 50 over the 10^7 x 64 "
+                 "f32 MIND table, mask weights, sum",
+        "lookups": bulk["lookups"], "distinct_rows": bulk["distinct_rows"],
+        "mean": bulk["mean"],
+        "serve_p99": numbers["serve_p99"],
+    }
+    return dict(kernel=kernel, layer=layer, serving=serving)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1757,9 +2143,15 @@ def main() -> int:
     lm = lm_phases(device)
     mark("phase 4 (language model)")
     kernels.append(lm["kernel"])
+    torch.cuda.empty_cache()
+    recsys = recsys_phases(device)
+    mark("phase 5 (recsys)")
+    kernels.append(recsys["kernel"])
     print(json.dumps({"kernels": kernels}), flush=True)
     log(json.dumps(solves))
     log(json.dumps({"serving": lm["serving"], "parity": lm["parity"]}))
+    log(json.dumps({"recsys": {"layer": recsys["layer"],
+                               "mind": recsys["serving"]}}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

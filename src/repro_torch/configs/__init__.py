@@ -3,8 +3,8 @@
 
 Every ported module exposes ``FAMILY``, ``make_config(**kw)`` (the full
 configuration), ``SHAPES`` and ``smoke_config()`` (a reduced config of the
-same family for CPU tests).  Only the dense LMs the serving slice runs are
-ported; :func:`get` raises for the others.
+same family for CPU tests).  Ported: the dense LMs of the serving slice
+and MIND (the recsys slice); :func:`get` raises for the others.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ ARCHS = [
 
 BONUS_ARCHS = ["qwen3-0.6b-swa"]  # sub-quadratic variant for long_500k
 
-PORTED = ("qwen3-0.6b", "qwen3-0.6b-swa")
+PORTED = ("qwen3-0.6b", "qwen3-0.6b-swa", "mind")
 
 
 def _modname(arch: str) -> str:
@@ -40,6 +40,6 @@ def get(arch: str):
         known = arch in ARCHS or arch in BONUS_ARCHS
         raise NotImplementedError(
             f"architecture {arch!r} is " + (
-                "not ported yet (ROADMAP.md, queue 1 item 16); ported: "
+                "not ported yet (ROADMAP.md, queue 1 items 11-12); ported: "
                 if known else "unknown; ported: ") + ", ".join(PORTED))
     return importlib.import_module(_modname(arch))

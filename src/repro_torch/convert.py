@@ -27,7 +27,9 @@ max_hops``, so that both packages prune with the same matrix.
 :func:`lm_params_from_reference` does the same for the language model's
 parameter pytree, flattened by the caller into ``{"embed": ...,
 "ln_f": ..., "layers/wq": ..., ...}`` numpy arrays (bf16 leaves as their
-exact float32 values: the port needs no ``ml_dtypes``).
+exact float32 values: the port needs no ``ml_dtypes``), and
+:func:`mind_params_from_reference` for MIND's ``{"item_embed": ...,
+"s_map": ...}``.
 """
 from __future__ import annotations
 
@@ -167,3 +169,15 @@ def lm_params_from_reference(arrays: dict, dtype, device="cpu") -> dict:
         else:
             raise ValueError(f"unexpected parameter key {key!r}")
     return out
+
+
+def mind_params_from_reference(arrays: dict, device="cpu") -> dict:
+    """The port's MIND parameters (:mod:`repro_torch.models.recsys.mind`)
+    from the reference's ``init_params`` leaves as numpy arrays
+    (``item_embed`` ``[V, D]``, ``s_map`` ``[D, D]``), float32 on
+    ``device``."""
+    if set(arrays) != {"item_embed", "s_map"}:
+        raise ValueError(f"MIND parameters are item_embed and s_map, got "
+                         f"{sorted(arrays)}")
+    return {k: torch.from_numpy(np.array(a, np.float32)).to(
+        torch.device(device)) for k, a in arrays.items()}

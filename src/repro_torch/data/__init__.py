@@ -1,1 +1,2 @@
-"""Graph generators of the port."""
+"""Data of the port: graph generators (``generators``) and synthetic
+recsys traffic (``synthetic``)."""

@@ -1,2 +1,2 @@
-"""Model code of the port: the dense decoder-only LM (``transformer``)
-and its building blocks (``layers``)."""
+"""Model code of the port: the dense decoder-only LM (``transformer``),
+its building blocks (``layers``) and the recsys models (``recsys``)."""

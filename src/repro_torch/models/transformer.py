@@ -9,7 +9,7 @@ here: the reference's ``_constrain``/``act_spec``, ``seq_shard`` and
 ``remat`` (sharding and autodiff hooks that inference on one card does
 not need), its ``lax.scan`` over stacked layers (a Python loop over the
 same stacked parameters), the MoE block and ``loss_fn``, which come with
-later slices (ROADMAP.md, queue 1 item 16).
+later slices (ROADMAP.md, queue 1 item 11).
 
 Attention runs one of two implementations, named by ``attn``:
 
@@ -104,7 +104,7 @@ def _no_moe(cfg: LMConfig):
     if cfg.moe:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers (moe_block) are not ported yet; they "
-            "come with a later slice (ROADMAP.md, queue 1 item 16)")
+            "come with a later slice (ROADMAP.md, queue 1 item 11.2)")
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:

@@ -10,7 +10,10 @@ and numpy.  Every test needs the card and skips without one; the kernels
 build with nvcc on first use.  The edge-relax comparisons are bitwise;
 flash attention is held to its plain version (f32 inside) at 2e-5 in
 float32 and 2e-2 in bfloat16, the tolerances of the reference's own
-kernel tests.
+kernel tests.  embedding_bag is held bitwise against its plain version
+(both sum in lookup order with separately rounded multiplies and adds),
+and the recsys layer on the card bitwise against the same call on the
+CPU.
 """
 import itertools
 
@@ -25,7 +28,9 @@ from repro_torch.core.landmarks import build_landmarks
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from repro_torch.data.generators import kronecker, road_grid
 from repro_torch.kernels.edge_relax import ops, ref
+from repro_torch.kernels.embedding_bag import ops as eops
 from repro_torch.kernels.flash_attn import ops as fops
+from repro_torch.models.recsys import embedding as remb
 from repro_torch.models.transformer import ring_positions
 from repro_torch.serve.queries import reconstruct_path
 
@@ -352,3 +357,100 @@ def test_cuda_flash_attention_query_chunk(card, dtype, tol):
             want = fops.flash_attention_pos_ref(*args, **kw)
             torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                        atol=tol)
+
+
+def _bits(out, want):
+    """Bitwise equal, NaN where the other is NaN."""
+    out, want = out.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(out), nan)) and bool(torch.equal(
+        out.masked_fill(nan, 0).view(torch.int32),
+        want.masked_fill(nan, 0).view(torch.int32)))
+
+
+# the reference kernel test's shapes, then L = 1, a wide row (two passes
+# of 32 lanes) and a batch that leaves part of a block idle
+_BAG_SHAPES = [(64, 16, 4, 3), (300, 32, 8, 7), (1000, 64, 2, 20),
+               (50, 8, 33, 1), (200, 256, 5, 40), (500, 64, 1000, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_embedding_bag_matches_plain_version(card, dtype):
+    rng = np.random.default_rng(14)
+    for (v, d, b, l), mode, weighted in itertools.product(
+            _BAG_SHAPES, ("sum", "mean"), (False, True)):
+        table = _normal(rng, (v, d), dtype, card)
+        ids = torch.from_numpy(rng.integers(0, v, (b, l)).astype(
+            np.int32)).to(card)
+        w = (torch.from_numpy(rng.random((b, l)).astype(np.float32)).to(card)
+             if weighted else None)
+        if weighted:
+            w[0] = 0.0                    # a bag of zero weights: mean 0
+        before = eops.LAUNCHES.embedding_bag
+        out = eops.embedding_bag(table, ids, w, mode=mode)
+        torch.cuda.synchronize()
+        assert eops.LAUNCHES.embedding_bag == before + 1
+        want = eops.embedding_bag_ref(table, ids, w, mode=mode)
+        assert out.dtype == torch.float32 and out.shape == (b, d)
+        assert _bits(out, want), (v, d, b, l, mode, weighted, dtype)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_cuda_embedding_bag_out_of_range_ids(card, mode):
+    """-1 and -V wrap to id + V; V, 2V and ids below -V clamp into
+    [0, V-1], as in the plain version."""
+    rng = np.random.default_rng(15)
+    v = 40
+    table = _normal(rng, (v, 32), torch.float32, card)
+    ids = torch.tensor([[-1, 0, -v, 3], [v, 2 * v, -v - 1, 2 ** 31 - 1],
+                        [-2 ** 31, 5, v - 1, -1]], dtype=torch.int32,
+                       device=card)
+    w = torch.from_numpy(rng.random((3, 4)).astype(np.float32)).to(card)
+    out = eops.embedding_bag(table, ids, w, mode=mode)
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all())
+    assert _bits(out, eops.embedding_bag_ref(table, ids, w, mode=mode))
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_cuda_embedding_layer_matches_cpu(card, mode):
+    """The recsys layer through the kernel equals the same call on the
+    CPU (its plain version), NaN bags included."""
+    rng = np.random.default_rng(16)
+    v, b, l = 5000, 300, 50
+    table = rng.normal(0, 0.02, (v, 64)).astype(np.float32)
+    ids = rng.integers(0, v, (b, l)).astype(np.int32)
+    mask = rng.random((b, l)) < 0.8
+    mask[3] = False
+    ids[5, 7], mask[5, 7] = v, True                # NaN bag
+    ids[6, 8], mask[6, 8] = 2 * v, False           # masked out: no effect
+    ids[7, 0] = -1                                 # wraps
+    args = [torch.from_numpy(a) for a in (table, ids, mask)]
+    before = eops.LAUNCHES.embedding_bag
+    out = remb.embedding_bag_batched(*(a.to(card) for a in args), mode=mode)
+    torch.cuda.synchronize()
+    assert eops.LAUNCHES.embedding_bag == before + 1
+    want = remb.embedding_bag_batched(*args, mode=mode)
+    assert _bits(out, want)
+    assert torch.isnan(out[5]).all() and bool(out[6].isfinite().all())
+    assert not out[3].any()
+
+
+def test_cuda_embedding_bag_wrapper_refuses(card):
+    table = torch.zeros((10, 16), device=card)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        eops.embedding_bag(torch.zeros((10, 6), device=card), ids)
+    with pytest.raises(TypeError, match="int32"):
+        eops.embedding_bag(table, ids.long())
+    with pytest.raises(ValueError, match="is on cpu"):
+        eops.embedding_bag(table, ids.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        eops.embedding_bag(table, ids, torch.ones((2, 3)))
+    with pytest.raises(ValueError, match="aligned"):
+        eops.embedding_bag(torch.zeros(164, device=card)[1:161].view(10, 16),
+                           ids)
+    before = eops.LAUNCHES.embedding_bag
+    empty = eops.embedding_bag(table, ids[:0])
+    assert empty.shape == (0, 16) and eops.LAUNCHES.embedding_bag == before

@@ -1,6 +1,7 @@
 """The port stands alone: ``import repro_torch``, CPU solves (single
-device, fused, sharded v1, ALT p2p with a landmark build, bidirectional)
-and CPU serving of the LM load neither jax nor the reference package,
+device, fused, sharded v1, ALT p2p with a landmark build, bidirectional),
+CPU serving of the LM and the recsys path (embedding layer, MIND) load
+neither jax nor the reference package,
 ``chip_smoke.py`` and the card-side tests import neither, entry points
 need ``cuda`` unless told ``device="cpu"``, and a CPU tensor never counts
 as a kernel launch."""
@@ -113,10 +114,51 @@ def test_lm_serving_imports_no_jax_and_no_reference():
         assert [len(o) for o in outs] == [4, 4, 4], name
 
 
+_RECSYS_PROBE = """
+import json, sys
+import numpy as np
+import torch
+from repro_torch import configs, convert
+from repro_torch.data.synthetic import RecsysStream
+from repro_torch.kernels.embedding_bag import ops
+from repro_torch.models.recsys import embedding, mind
+cfg = configs.get("mind").smoke_config()
+params = mind.init_params(cfg, torch.Generator().manual_seed(0))
+b = RecsysStream(cfg.n_items, cfg.hist_len, seed=0).batch(0, 8)
+table = params["item_embed"]
+hist, m = torch.from_numpy(b["hist"]), torch.from_numpy(b["hist_mask"])
+pooled = [embedding.embedding_bag_batched(table, hist, m, mode=mode)
+          for mode in ("sum", "mean")]
+ragged = embedding.embedding_bag(table, hist.reshape(-1),
+                                 torch.arange(80) // 10, 8)
+u = mind.serve_interests(cfg, params, b)
+s = mind.retrieval_scores(cfg, params, u[0], np.arange(100, dtype=np.int32))
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "launches": ops.LAUNCHES.embedding_bag,
+                  "finite": all(bool(t.isfinite().all()) for t in
+                                (*pooled, ragged, u, s)),
+                  "shapes": [list(t.shape) for t in (*pooled, u, s)]}))
+"""
+
+
+def test_recsys_path_imports_no_jax_and_no_reference():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _RECSYS_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["launches"] == 0           # CPU tensors: the plain version
+    assert res["finite"]
+    assert res["shapes"] == [[8, 16], [8, 16], [8, 4, 16], [100]]
+
+
 def test_unported_architectures_raise():
     from repro_torch import configs
     assert configs.get("qwen3-0.6b").make_config().n_layers == 28
-    for arch in ("deepseek-moe-16b", "granite-34b", "mind"):
+    assert configs.get("mind").make_config().n_items == 10_000_000
+    for arch in ("deepseek-moe-16b", "granite-34b", "gatedgcn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.get(arch)
     with pytest.raises(NotImplementedError, match="unknown"):

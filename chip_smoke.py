@@ -60,7 +60,20 @@ Phases, in order; any failure exits non-zero:
    on ``blocked`` (the ``edge_relax_partials`` kernel, which must
    launch, with no launch of the other two) and on ``segment_min``: both
    bitwise equal to the single-device blocked solve, with equal logical
-   counters, and matching Dijkstra.  Cuts: scale 20, as the paper's
+   counters, and matching Dijkstra.  Then queries on the v1 engine:
+   both kronecker pairs of the p2p phase and road_grid's pair 2 with its
+   landmark sets, on ``blocked`` (``edge_relax_partials``' ALT branch,
+   which must launch, with no other kernel) and on ``segment_min``:
+   ``dist[t]`` and the path bitwise the unpruned single-device query's,
+   ``n_relax`` and ``n_pruned`` the single-device ALT query's, some
+   candidate pruned on each graph; a ``bounded`` and a ``knear`` query
+   on kronecker, settled entries equal to the tree solve's.  Then that
+   ALT branch against its plain version on every shard of the P = 4
+   kronecker layout at the middle kernel call of the first kronecker v1
+   ALT query, and on 20 seeded random layouts with prune bounds of +inf,
+   below every candidate, at a tie and in between (each call twice;
+   ``val``, ``win`` and the four counters bitwise equal).  Cuts: scale
+   20, as the paper's
    graphs are scale 26-27 (its road network has 24M vertices), and the
    numpy generator needs about a minute at scale 20 and about four times
    that per step of scale, which the run's time limit does not hold.
@@ -104,7 +117,10 @@ Phases, in order; any failure exits non-zero:
    library-call times from CUDA events, the bound, launches on the main
    path; the ALT rows at the middle kernel call of the first p2p pair's
    ALT query, unfused and fused, captured by solving that query again,
-   with their launches over the p2p queries), each solve's and query's
+   with their launches over the p2p queries; ``edge_relax_partials``'
+   ALT row at the middle call of each graph's first v1 ALT query,
+   captured in that query, with its launches over the v1 queries), each
+   solve's and query's
    seconds, rounds, iterations (one host sync each), kernel invocations,
    and the seconds its step transitions and relaxation calls took (CUDA
    events around each call, :class:`PhaseTimes`), ``[time]`` lines with
@@ -699,7 +715,7 @@ def p2p_path(results, device):
             f"the card) {host.s['_check_symmetric']!r} s, the rest (copies, "
             "8 tree solves)")
         pairs = pick_pairs(hg, N_PAIRS, seed=10 + gi)
-        queries, pruned = [], 0
+        queries, pruned, exact = [], 0, {}
         for s, t in pairs:
             solves = {}
             for what, backend, opts, counter in P2P_SOLVES:
@@ -724,6 +740,7 @@ def p2p_path(results, device):
                     metrics=metrics_dict(m), seconds=secs, phases=phases,
                     launches=getattr(LAUNCHES, counter) if counter else 0)
             base = solves["unpruned"]
+            exact[s, t] = base["dist_t"], base["path"]
             for what, r in solves.items():
                 if not (bitwise_equal(r["dist_t"], base["dist_t"])
                         and r["path"] == base["path"]):
@@ -777,10 +794,22 @@ def p2p_path(results, device):
         out[name] = dict(landmarks=lm, build_s=build_s,
                          select_s=host.s["select_landmarks"],
                          symmetry_s=host.s["_check_symmetric"],
-                         queries=queries, pruned=pruned)
+                         queries=queries, pruned=pruned, exact=exact)
         mark(f"p2p {name}")
     out["goals"] = goal_solves(results["kronecker(20,16)"], device)
     return out
+
+
+def settled_as_tree(goal, gp, d, p, dist, parent) -> bool:
+    """Whether a ``bounded`` or ``knear`` query's settled entries (``d``,
+    ``p``) equal the tree solve's (``dist``, ``parent``): every vertex
+    within the bound, or the k + 1 smallest distances."""
+    if goal == "bounded":
+        keep = dist <= gp
+        return bitwise_equal(d[keep], dist[keep]) and p[keep].equal(
+            parent[keep])
+    near = lambda x: torch.sort(x).values[:gp + 1]
+    return bitwise_equal(near(d), near(dist))
 
 
 def goal_solves(res, device):
@@ -797,13 +826,7 @@ def goal_solves(res, device):
         d, p, m, secs, _ = solve(res["graph"], res["source"], "blocked",
                                  device, layout=res["layout"], goal=goal,
                                  goal_param=gp)
-        if goal == "bounded":
-            keep = dist <= bound
-            ok = bitwise_equal(d[keep], dist[keep]) and p[keep].equal(
-                parent[keep])
-        else:
-            near = lambda x: torch.sort(x).values[:k + 1]
-            ok = bitwise_equal(near(d), near(dist))
+        ok = settled_as_tree(goal, gp, d, p, dist, parent)
         md = metrics_dict(m)
         log(f"[goal] kronecker(20,16) {goal}={gp!r}: {secs!r} s, "
             f"rounds={md['n_rounds']} steps={md['n_steps']} "
@@ -961,6 +984,34 @@ def window_destinations(dist, paths, src, dst, w, lb, ub) -> int:
     return int(torch.unique(dst[ok]).numel())
 
 
+class MiddleCall:
+    """Records the arguments (cloned) of call ``k`` of the function
+    ``name`` of ``repro_torch.core.relax`` while the context is open, and
+    counts the calls."""
+
+    def __init__(self, name: str, k: int):
+        self.name, self.k, self.calls = name, k, 0
+        self.args = self.kw = None
+
+    def __enter__(self):
+        from repro_torch.core import relax
+        self.orig = getattr(relax, self.name)
+
+        def recorded(*args, **kw):
+            if self.calls == self.k:
+                self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args)
+                self.kw = kw
+            self.calls += 1
+            return self.orig(*args, **kw)
+        setattr(relax, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import relax
+        setattr(relax, self.name, self.orig)
+
+
 def mid_query_call(res, query, lm, fused: bool, device):
     """The arguments of the middle ALT kernel call of one of the p2p
     phase's ALT queries, solved again here on the main path's layout:
@@ -968,32 +1019,19 @@ def mid_query_call(res, query, lm, fused: bool, device):
     ``relax_fused`` calls (``edge_relax_fused[alt]``) of the fused one.
     Returns ``(args, kwargs, index, calls)``; the query must make as many
     calls as in the p2p phase."""
-    from repro_torch.core import relax
     from repro_torch.core.sssp import sssp
     name = "relax_fused" if fused else "relax_bucket"
     calls = query["solves"]["alt fused" if fused else "alt"]["launches"]
-    k, seen, got = calls // 2, [0], {}
-    orig = getattr(relax, name)
-
-    def recorded(*args, **kw):
-        if seen[0] == k:
-            got.update(args=tuple(a.clone() if torch.is_tensor(a) else a
-                                  for a in args), kw=kw)
-        seen[0] += 1
-        return orig(*args, **kw)
-    setattr(relax, name, recorded)
-    try:
+    with MiddleCall(name, calls // 2) as rec:
         sssp(res["graph"], query["source"], backend="blocked",
              layout=res["layout"], device=device, goal="p2p",
              goal_param=query["target"], landmarks=lm,
              fused_rounds=FUSED_ROUNDS if fused else 0)
-    finally:
-        setattr(relax, name, orig)
-    if seen[0] != calls:
+    if rec.calls != calls:
         raise AssertionError(f"the ALT query ({query['source']}, "
-                             f"{query['target']}) made {seen[0]} {name} "
+                             f"{query['target']}) made {rec.calls} {name} "
                              f"calls, {calls} in the p2p phase")
-    return got["args"], got["kw"], k, calls
+    return rec.args, rec.kw, rec.k, calls
 
 
 def measure_alt(res, lm, query, device):
@@ -1109,18 +1147,20 @@ def shard_inputs(arrays, q: int, block: int, dist, paths, parent, device):
             t(arrays.dst[q]), t(arrays.w[q]), t(arrays.tile_first[q]))
 
 
-def partials_pair(args, lb, ub, kw, what):
+def partials_pair(args, lb, ub, kw, what, alt=()):
     """The kernel (called twice, to catch races) against its plain version
-    on one shard; returns both outputs, raises on a disagreement."""
+    on one shard, with the ALT operands ``alt`` (``alt_lb``, the prune
+    bound) if given; returns both outputs, raises on a disagreement."""
     from repro_torch.kernels.edge_relax import ops, ref
-    want = ref.edge_relax_partials_ref(*args, lb, ub, **kw)
+    want = ref.edge_relax_partials_ref(*args, lb, ub, *alt, **kw)
     for _ in range(2):
-        out = ops.relax_partials(*args, lb, ub, **kw)
+        out = ops.relax_partials(*args, lb, ub, *alt, **kw)
         if not (bitwise_equal(out[0], want[0]) and out[1].equal(want[1])
                 and out[2].equal(want[2])):
             raise AssertionError(
-                f"edge_relax_partials {what}: kernel {out[2].tolist()} and "
-                f"plain version {want[2].tolist()} disagree")
+                f"edge_relax_partials{'[alt]' if alt else ''} {what}: "
+                f"kernel {out[2].tolist()} and plain version "
+                f"{want[2].tolist()} disagree")
     return out, want
 
 
@@ -1142,31 +1182,12 @@ def mid_solve_window(res, n_pad, device):
     return dist_p, paths, grow(parent, -1), lb.reshape(()), ub.reshape(())
 
 
-def partials_vs_plain(results, device, seed: int = 2,
-                      n_random: int = 30) -> int:
-    """``edge_relax_partials`` against its plain version on every shard of
-    a P = 4 layout of the kronecker graph at a mid-solve window of its
-    solve (the shards' local source ranges differ from the destination
-    range there), then on ``n_random`` seeded random graphs over shard
-    counts, geometries, windows and ties.  Returns the number of shard
-    calls compared, raises on the first disagreement."""
+def random_shard_calls(rng, n_random: int, device):
+    """``n_random`` seeded random graphs over shard counts, geometries,
+    windows and ties; yields ``(args, lb, ub, kw, label)`` for every
+    shard of each, as :func:`partials_pair` takes them."""
     from repro_torch.core.distributed import shard_blocked
     from repro_torch.core.graph import build_csr
-    res = results["kronecker(20,16)"]
-    arrays, meta = shard_blocked(res["host"], 4, device=device)
-    block = meta.n_src_blocks * meta.block_v
-    dist, paths, parent, lb, ub = mid_solve_window(res, 4 * block, device)
-    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
-    checked = 0
-    for q in range(4):
-        args = shard_inputs(arrays, q, block, dist, paths, parent, device)
-        partials_pair(args, lb, ub, kw, f"kronecker(20,16) shard {q}/4")
-        checked += 1
-    log(f"[kernel-vs-plain] edge_relax_partials: kronecker(20,16) P=4 "
-        f"block_v={meta.block_v} tile_e={meta.tile_e} "
-        f"slots/shard={arrays.src.shape[1]} window=[{float(lb)!r}, "
-        f"{float(ub)!r})")
-    rng = np.random.default_rng(seed)
     f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
     for i in range(n_random):
         n = int(rng.integers(64, 20000))
@@ -1197,11 +1218,40 @@ def partials_vs_plain(results, device, seed: int = 2,
         for q in range(p):
             args = shard_inputs(arrays, q, block, t(d), t(front), t(par),
                                 device)
-            partials_pair(args, lb, ub, kw,
-                          f"random case {i} (n={n} m={m} P={p} "
-                          f"block_v={meta.block_v} tile_e={tile_e} "
-                          f"ties={ties} lb0={lb0}) shard {q}")
-            checked += 1
+            yield args, lb, ub, kw, (
+                f"random case {i} (n={n} m={m} P={p} block_v={meta.block_v} "
+                f"tile_e={tile_e} ties={ties} lb0={lb0}) shard {q}")
+
+
+def partials_vs_plain(results, device, seed: int = 2,
+                      n_random: int = 30) -> int:
+    """``edge_relax_partials`` against its plain version on every shard of
+    a P = 4 layout of the kronecker graph at a mid-solve window of its
+    solve (the shards' local source ranges differ from the destination
+    range there; the layout is kept for the v1 queries), then on
+    ``n_random`` seeded random graphs (:func:`random_shard_calls`).
+    Returns the number of shard calls compared, raises on the first
+    disagreement."""
+    from repro_torch.core.distributed import shard_blocked
+    res = results["kronecker(20,16)"]
+    arrays, meta = res["shard4_layout"] = shard_blocked(res["host"], 4,
+                                                        device=device)
+    block = meta.n_src_blocks * meta.block_v
+    dist, paths, parent, lb, ub = mid_solve_window(res, 4 * block, device)
+    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
+    checked = 0
+    for q in range(4):
+        args = shard_inputs(arrays, q, block, dist, paths, parent, device)
+        partials_pair(args, lb, ub, kw, f"kronecker(20,16) shard {q}/4")
+        checked += 1
+    log(f"[kernel-vs-plain] edge_relax_partials: kronecker(20,16) P=4 "
+        f"block_v={meta.block_v} tile_e={meta.tile_e} "
+        f"slots/shard={arrays.src.shape[1]} window=[{float(lb)!r}, "
+        f"{float(ub)!r})")
+    rng = np.random.default_rng(seed)
+    for args, lb, ub, kw, what in random_shard_calls(rng, n_random, device):
+        partials_pair(args, lb, ub, kw, what)
+        checked += 1
     return checked
 
 
@@ -1262,6 +1312,232 @@ def sharded_path(results, device):
         res.update(shard_layout=layout, sharded=sg, v1_launches=launches,
                    v1_solve_s=vs, v1_plain_solve_s=ss, v1_phases=vt,
                    v1_plain_phases=st, v1_metrics=vmd)
+
+
+# ---------------------------------------------------------------------------
+# queries on the v1 engine (edge_relax_partials' ALT branch)
+# ---------------------------------------------------------------------------
+
+# the p2p phase's pairs the v1 engine answers, by index; the first is the
+# one whose middle kernel call is checked and timed (road_grid's pair 1
+# takes twice as long as pair 2: left out for the run's time)
+V1_PAIRS = {"kronecker(20,16)": (0, 1), "road_grid(1024)": (1,)}
+
+
+def v1_queries(results, p2p, device):
+    """ALT p2p queries on the v1 engine at world size 1 over NCCL: the
+    ``V1_PAIRS`` of the p2p phase with its landmark sets, on ``blocked``
+    (``edge_relax_partials``' ALT branch; counters zeroed just before
+    each query and read just after) and ``segment_min``.  ``dist[t]`` and
+    the path must equal the single-device unpruned query's, ``n_relax``
+    and ``n_pruned`` the single-device ALT query's, the logical counters
+    of both backends each other's; ``blocked`` must launch the ALT kernel
+    and no other, and some candidate must be pruned on each graph.  The
+    middle kernel call of each graph's first pair is kept.  Then a
+    ``bounded`` and a ``knear`` query on kronecker with the goals phase's
+    parameters, whose settled entries must equal the tree solve's."""
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.serve.queries import reconstruct_path
+    out = {}
+    for name, res in results.items():
+        sg, layout, lm = res["sharded"], res["shard_layout"], \
+            p2p[name]["landmarks"]
+        queries, pruned, middle = [], 0, None
+        for qi in V1_PAIRS[name]:
+            q = p2p[name]["queries"][qi]
+            s, t = q["source"], q["target"]
+            dist_t, path = p2p[name]["exact"][s, t]
+            single = q["solves"]["alt"]
+            solves = {}
+            for backend in ("blocked", "segment_min"):
+                kw = dict(goal="p2p", goal_param=t, landmarks=lm)
+                if backend == "blocked":
+                    kw["blocked"] = layout
+                rec = MiddleCall("relax_partials", single["launches"] // 2)
+                LAUNCHES.reset()
+                with rec:
+                    d, p, m, secs, phases = solve(sg, s, backend, device,
+                                                  sharded=True, **kw)
+                others = dict(vars(LAUNCHES))
+                alt_n = others.pop("edge_relax_partials_alt")
+                if any(others.values()) or (alt_n > 0) != (
+                        backend == "blocked"):
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) v1 {backend}: kernel launches "
+                        f"{vars(LAUNCHES)}")
+                if backend == "blocked" and rec.calls != single["launches"]:
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) v1: {rec.calls} partials calls, "
+                        f"{single['launches']} relax calls single-device")
+                if backend == "blocked" and qi == V1_PAIRS[name][0]:
+                    middle = dict(args=rec.args, kw=rec.kw, k=rec.k,
+                                  calls=rec.calls, query=[s, t])
+                md = metrics_dict(m)
+                if not (bitwise_equal(d[t:t + 1], dist_t)
+                        and reconstruct_path(p.cpu().numpy(), s, t)
+                        == path):
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) v1 {backend}: d(s,t) "
+                        f"{float(d[t])!r} or its path differs from the "
+                        f"unpruned single-device query's")
+                bad = [f for f in ("n_relax", "n_pruned")
+                       if md[f] != single[f]]
+                if bad:
+                    raise AssertionError(
+                        f"{name} ({s}, {t}) v1 {backend}: {bad} differ from "
+                        "the single-device ALT query's")
+                solves[backend] = dict(metrics=md, seconds=secs,
+                                       phases=phases, launches=alt_n)
+            bad = [f for f in LOGICAL_METRIC_FIELDS
+                   if solves["blocked"]["metrics"][f]
+                   != solves["segment_min"]["metrics"][f]]
+            if bad:
+                raise AssertionError(f"{name} ({s}, {t}) v1: blocked and "
+                                     f"segment_min counters differ: {bad}")
+            pruned += solves["blocked"]["metrics"]["n_pruned"]
+            relax0 = q["solves"]["unpruned"]["n_relax"]
+            for backend, r in solves.items():
+                md = r["metrics"]
+                one = q["solves"]["alt" if backend == "blocked"
+                                  else "alt segment_min"]["seconds"]
+                log(f"[p2p] {name} ({s} -> {t}) v1 alt {backend}: "
+                    f"{r['seconds']!r} s (single-device {one!r} s), "
+                    f"d={float(dist_t)!r}, path of {len(path)} vertices, "
+                    f"rounds={md['n_rounds']} steps={md['n_steps']} "
+                    f"iterations={int(md['n_host_syncs'])} "
+                    f"n_relax={md['n_relax']} n_pruned={md['n_pruned']} "
+                    f"relax ratio={md['n_relax'] / max(relax0, 1)!r} "
+                    f"ALT launches={r['launches']} " + " ".join(
+                        f"{k}={v['calls']}x/{v['s']!r}s"
+                        for k, v in r["phases"].items()))
+            queries.append(dict(source=s, target=t, solves={
+                b: dict(seconds=r["seconds"], launches=r["launches"],
+                        phases=r["phases"], **{k: r["metrics"][k] for k in (
+                            "n_rounds", "n_steps", "n_relax", "n_pruned",
+                            "n_host_syncs")})
+                for b, r in solves.items()}))
+        if pruned <= 0:
+            raise AssertionError(f"{name}: no v1 ALT query pruned a "
+                                 "candidate")
+        out[name] = dict(queries=queries, middle=middle, pruned=pruned)
+    res = results["kronecker(20,16)"]
+    out["goals"] = {}
+    for goal in ("bounded", "knear"):
+        gp = p2p["goals"][goal]["param"]
+        d, p, m, secs, _ = solve(res["sharded"], res["source"], "blocked",
+                                 device, sharded=True,
+                                 blocked=res["shard_layout"], goal=goal,
+                                 goal_param=gp)
+        n = res["host"].n
+        md = metrics_dict(m)
+        log(f"[goal] kronecker(20,16) v1 {goal}={gp!r}: {secs!r} s, "
+            f"rounds={md['n_rounds']} steps={md['n_steps']} "
+            f"iterations={int(md['n_host_syncs'])} "
+            f"settled={int((d[:n] < float('inf')).sum())}")
+        if not settled_as_tree(goal, gp, d[:n], p[:n], res["dist"],
+                               res["parent"]):
+            raise AssertionError(f"kronecker(20,16) v1 {goal}={gp!r}: "
+                                 "settled entries differ from the tree "
+                                 "solve's")
+        out["goals"][goal] = dict(param=gp, seconds=secs,
+                                  n_rounds=md["n_rounds"],
+                                  n_steps=md["n_steps"])
+    return out
+
+
+def partials_alt_vs_plain(results, v1q, device, seed: int = 6,
+                          n_random: int = 20) -> int:
+    """``edge_relax_partials``' ALT branch against its plain version on
+    every shard of the P = 4 kronecker layout at the middle kernel call of
+    the first kronecker v1 ALT query (its state, window, ``alt_lb`` and
+    prune bound, re-padded to the P = 4 ranges), then on ``n_random``
+    seeded random layouts with the prune bound at +inf, below every
+    candidate's ``cand + alt_lb[dst]``, exactly at one (a tie) and at
+    their median, in turn.  Returns the shard calls compared."""
+    name = "kronecker(20,16)"
+    res, mid = results[name], v1q[name]["middle"]
+    arrays, meta = res["shard4_layout"]
+    block = meta.n_src_blocks * meta.block_v
+    n_out = meta.n_dst_blocks * meta.block_v
+    n = res["host"].n
+    dist, paths, parent, *_, lb, ub, alt_lb, bound = mid["args"]
+
+    def grow(x, size, v):
+        x = x[:n]
+        return torch.cat([x, torch.full((size - n,), v, dtype=x.dtype,
+                                        device=device)])
+    dist4, paths4, parent4 = (grow(x, 4 * block, v) for x, v in (
+        (dist, float("inf")), (paths, False), (parent, -1)))
+    alt = (grow(alt_lb, n_out, float("inf")), bound)
+    kw = dict(tile_e=meta.tile_e, n_out=n_out)
+    checked = 0
+    for q in range(4):
+        args = shard_inputs(arrays, q, block, dist4, paths4, parent4, device)
+        partials_pair(args, lb, ub, kw, f"{name} shard {q}/4 at the v1 "
+                      f"query's call {mid['k']} of {mid['calls']}", alt)
+        checked += 1
+    rng = np.random.default_rng(seed)
+    cases = ("inf", "below-all", "tie", "between")
+    for i, (args, lb, ub, kw, what) in enumerate(
+            random_shard_calls(rng, n_random, device)):
+        alt_lb = (rng.integers(0, 12, kw["n_out"]) / 8).astype(np.float32)
+        alt_lb[rng.random(kw["n_out"]) < 0.15] = np.inf
+        alt_lb = torch.from_numpy(alt_lb).to(device)
+        d, pa, _, src, dst, w, _ = args
+        cand = d[src.long()] + w
+        ok = pa[src.long()] & (cand >= lb) & (cand < ub)
+        tot = (cand + alt_lb[dst.long()])[ok]
+        tot = torch.sort(tot[torch.isfinite(tot)]).values
+        case = cases[i % len(cases)]
+        if case == "inf" or tot.numel() < 2:
+            pb = float("inf")
+        else:
+            pb = {"below-all": float(tot[0]) / 2, "tie": float(
+                tot[tot.numel() // 3]), "between": float(tot[
+                    tot.numel() // 2])}[case]
+        pb = torch.full((), pb, dtype=torch.float32, device=device)
+        partials_pair(args, lb, ub, kw, f"{what} bound {case}", (alt_lb, pb))
+        checked += 1
+    return checked
+
+
+def measure_partials_alt(res, mid, device):
+    """``edge_relax_partials``' ALT branch at the middle kernel call of a
+    v1 ALT query, against its plain version there; ``ms_without_alt`` is
+    the kernel on the same state without the cut."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    args, kw = mid["args"], mid["kw"]
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, alt_lb, bound = \
+        args
+    out, want = partials_pair(args[:7], lb, ub, kw, "at the v1 query's "
+                              "middle call", (alt_lb, bound))
+    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
+    kernel_ms = cuda_ms(lambda: ops.relax_partials(*args, **kw))
+    no_alt_ms = cuda_ms(lambda: ops.relax_partials(*args[:9], **kw))
+    plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args, **kw))
+    library_ms, s_n, n_cand, n_kept = library_scatter_ms(
+        dist, paths, src, dst, w, tile_first, lb, ub, alt_lb, bound, **kw)
+    # row 3's least bytes, plus 4 B of alt_lb per distinct destination of
+    # the in-window candidates
+    s = src.long()
+    live = paths[s].bool() & torch.isfinite(w)
+    cand = dist[s] + w
+    in_window = live & (cand >= lb) & (cand < ub)
+    n_path = int(torch.unique(s[live]).numel())
+    n_par = int(torch.unique(s[in_window]).numel())
+    n_dst = window_destinations(dist, paths, src, dst, w, lb, ub)
+    e, nt, n_src, n_out = src.shape[0], tile_first.shape[0], \
+        dist.shape[0], kw["n_out"]
+    bytes_ = (4 * e + nt + 8 * s_n * kw["tile_e"] + n_src + 4 * n_path
+              + 4 * n_par + 8 * n_out + 16 + 4 * n_dst)
+    cnt = dict(zip(ops.PARTIAL_COUNTERS, out[2].tolist()))
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                ms_without_alt=no_alt_ms, bytes=bytes_, counts=cnt,
+                candidates=n_cand, kept=n_kept, destinations=n_dst,
+                query=mid["query"], call=[mid["k"], mid["calls"]],
+                window=[float(lb), float(ub)], prune_bound=float(bound))
 
 
 def measure_partials(res, device):
@@ -2170,6 +2446,11 @@ def report(graphs, device):
         f"{partials_vs_plain(results, device)} shard calls bitwise equal")
     sharded_path(results, device)
     mark("v1 engine")
+    v1q = v1_queries(results, p2p, device)
+    log(f"[kernel-vs-plain] edge_relax_partials[alt]: "
+        f"{partials_alt_vs_plain(results, v1q, device)} shard calls bitwise "
+        "equal")
+    mark("v1 queries")
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -2182,6 +2463,11 @@ def report(graphs, device):
                 for name, res in results.items()}
     for name, m in partials.items():
         log(f"[edge_relax_partials] {name}: " + json.dumps(m))
+    partials_alt = {name: measure_partials_alt(res, v1q[name]["middle"],
+                                               device)
+                    for name, res in results.items()}
+    for name, m in partials_alt.items():
+        log(f"[edge_relax_partials[alt]] {name}: " + json.dumps(m))
     alt = {name: measure_alt(res, p2p[name]["landmarks"],
                              p2p[name]["queries"][0], device)
            for name, res in results.items()}
@@ -2195,6 +2481,9 @@ def report(graphs, device):
     mark("kernel numbers")
     head, fhead = per_graph["kronecker(20,16)"], fused["kronecker(20,16)"]
     phead = partials["kronecker(20,16)"]
+    pahead = partials_alt["kronecker(20,16)"]
+    v1_alt_launches = {n: [q["solves"]["blocked"]["launches"]
+                           for q in v1q[n]["queries"]] for n in results}
     ahead, fahead = alt["kronecker(20,16)"], fused_alt["kronecker(20,16)"]
 
     def alt_launches(kinds):
@@ -2265,6 +2554,18 @@ def report(graphs, device):
         "library_ms": phead["library_ms"],
         "launches_per_solve": {n: r["v1_launches"]
                                for n, r in results.items()},
+    }, {
+        "name": "edge_relax_partials[alt]", "route": "cuda",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/"
+                  "edge_relax_partials.cu",
+        "replaces": "src/repro/kernels/edge_relax/edge_relax.py:497",
+        "launches": sum(map(sum, v1_alt_launches.values())),
+        "max_abs_err": max(m["max_abs_err"] for m in partials_alt.values()),
+        "ms": pahead["ms"], "plain_ms": pahead["plain_ms"],
+        "bound_ms": pahead["bound_ms"], "bound_by": "bytes",
+        "library_ms": pahead["library_ms"],
+        "ms_per_graph": {n: m["ms"] for n, m in partials_alt.items()},
+        "launches_per_query": v1_alt_launches,
     }]
     solves = {"solves": {n: dict(
         solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
@@ -2289,7 +2590,10 @@ def report(graphs, device):
                         max_hops=p2p[n]["landmarks"].max_hops,
                         queries=p2p[n]["queries"], pruned=p2p[n]["pruned"])
                 for n in results},
-        "goals": p2p["goals"]}
+        "goals": p2p["goals"],
+        "v1_queries": {n: dict(queries=v1q[n]["queries"],
+                               pruned=v1q[n]["pruned"]) for n in results},
+        "v1_goals": v1q["goals"]}
     return kernels, solves
 
 

@@ -20,18 +20,30 @@ push; the graph stores both directions) with the same merge.  Every
 loop decision is taken from replicated state after the collectives, so
 all ranks leave the loop together.
 
+Queries (``goal=``): ``p2p``, ``bounded`` and ``knear`` stop as the
+single-device ones do; the goal test runs on the replicated ``dist``
+after the pull phase.  A p2p query with ``landmarks`` prunes with ALT:
+the per-vertex bound toward the target, padded with +inf to the padded
+vertex range, and a prune bound ``min(seed, dist[t] * infl)`` taken from
+``dist`` at the start of each round and each transition.  It cuts the
+round's candidates (in the partials kernel on ``blocked``, with
+:func:`relax.alt_prune` on ``segment_min``), the pending candidates of
+the fast-forward, and the pull phase's requests, on ``lb[dst]``: in the
+mirrored push the requester that receives the update is the
+destination.
+
 Per-shard backends (``backend=``): ``segment_min`` relaxes the flat
 local slab in plain torch; ``blocked`` relaxes the shard's
 :class:`~repro_torch.core.graph.ShardSlice` slabs through one
 ``edge_relax_partials`` call per round (the CUDA kernel on the card, its
-plain version on the CPU).  Both give the same ``dist``/``parent`` and
-logical counters as the single-device engine.
+plain version on the CPU; with ALT, its ALT branch).  Both give the
+same ``dist``/``parent`` and logical counters as the single-device
+engine.
 
 The layouts (:class:`ShardedGraph`, :class:`BlockedShards`) are built on
 the host in numpy, for every shard; each rank moves only its own shard
-to its device.  v2/v3, batches, repair, goals, ALT, the adaptive policy,
-tracing and ``config=`` come with later slices and raise
-``NotImplementedError``.
+to its device.  v2/v3, batches, repair, the adaptive policy, tracing and
+``config=`` come with later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,7 +61,8 @@ from . import sssp as single
 from .graph import (DEFAULT_ALPHA, DEFAULT_BETA, HostGraph, shard_block_v,
                     shard_geometry, slice_for_shard)
 from .relax import INF, count
-from .sssp import SsspMetrics, SsspState, resolve_device
+from .sssp import (SsspMetrics, SsspState, _check_goal_bounds,
+                   goal_param_array, resolve_device)
 
 __all__ = ["ShardedGraph", "shard_graph", "BlockedShards",
            "BlockedShardMeta", "shard_blocked", "DIST_BACKENDS",
@@ -62,8 +75,6 @@ _LATER = {
     "version": "the v2/v3 slice (block-sharded state, the all_to_all "
                "exchange, fused_rounds grouping)",
     "batch": "the v2/v3 slice, with batched and repair solves",
-    "goal": "the query-goal slice (p2p, bounded, knear)",
-    "landmarks": "the ALT slice",
     "policy": "the adaptive-policy slice",
     "trace": "the observability slice",
     "config": "the config and facade slice",
@@ -281,26 +292,62 @@ def _sum(counts, group):
     return counts
 
 
+class _AltCtx(NamedTuple):
+    """One ALT p2p query's pruning operands, replicated on every rank
+    and fixed for the solve."""
+    lb: torch.Tensor         # [n_pad] f32 lower bound to the target
+    seed: torch.Tensor       # 0-d f32 landmark-seeded bound on d(s, t)
+    infl: torch.Tensor       # 0-d f32 prune-bound inflation (1 + 4 delta)
+    tgt: torch.Tensor        # 0-d int32 target
+
+    def bound(self, dist):
+        """The prune bound at ``dist``: the best known s-t length,
+        inflated, capped by the seed (a 0-d device tensor, no read)."""
+        return torch.minimum(self.seed, relax.at(dist, self.tgt) * self.infl)
+
+
+def _make_alt_ctx(alt: relax.AltData, source: int, tgt, n_pad: int):
+    """The :class:`_AltCtx` of one (source, target) query; the bound
+    vector is padded with +inf so that the padding vertices, which hold
+    no real edges, index safely."""
+    infl = 1.0 + 4.0 * alt.delta
+    lb = relax.alt_lower_bounds(alt.D, tgt, alt.delta, alt.sym)
+    lb = torch.cat([lb, torch.full((n_pad - lb.shape[0],), INF,
+                                   dtype=lb.dtype, device=lb.device)])
+    src_t = torch.tensor(source, dtype=torch.int32, device=lb.device)
+    seed = relax.alt_seed_ub(alt.D, src_t, tgt, infl, alt.sym)
+    return _AltCtx(lb=lb, seed=seed, infl=infl, tgt=tgt)
+
+
 # ---------------------------------------------------------------------------
 # v1
 # ---------------------------------------------------------------------------
 
 def _v1_relax_round(view: _ShardView, slabs: Optional[_DeviceSlabs],
-                    st_: SsspState) -> SsspState:
+                    st_: SsspState, ac: Optional[_AltCtx] = None
+                    ) -> SsspState:
     """One synchronized round: local partials, one merge, one counter
-    sum, and the replicated commit."""
+    sum, and the replicated commit.  With ``ac`` (ALT p2p) candidates
+    that cannot improve the target are cut, at the prune bound of the
+    round's starting ``dist``."""
     dist, parent, frontier = st_.dist, st_.parent, st_.frontier
     n_pad = view.n
     paths = relax.leaf_pruned(frontier, dist, view.deg)
     zero = torch.zeros((), dtype=torch.int32, device=dist.device)
+    pb = None if ac is None else ac.bound(dist)
     if slabs is None:
         src, dst = view.src, view.dst
         cand, in_window, active = relax.edge_candidates(
             dist[src], paths[src], parent[src], dst, view.w, st_.lb, st_.ub)
+        prn = zero
+        if ac is not None:
+            active, pruned = relax.alt_prune(cand, active, ac.lb[dst], pb)
+            cand = torch.where(active, cand, INF)
+            prn = count(pruned)
         best_l = relax.segment_partial_min(cand, dst, n_pad)
         win_l = relax.winner_partial(cand, active, src, dst, best_l, n_pad)
         # n_trav, n_relax, n_tiles, n_pruned, n_invocations
-        counts = torch.stack([count(in_window), count(active), zero, zero,
+        counts = torch.stack([count(in_window), count(active), zero, prn,
                               zero])
         dense = 0
     else:
@@ -309,7 +356,8 @@ def _v1_relax_round(view: _ShardView, slabs: Optional[_DeviceSlabs],
             relax.blocked_shard_partials_fused(
                 slabs.src, slabs.dst, slabs.w, slabs.tile_first,
                 dist[lo:hi], paths[lo:hi], parent[lo:hi], slabs.base,
-                st_.lb, st_.ub, tile_e=slabs.tile_e, n_out=n_pad)
+                st_.lb, st_.ub, tile_e=slabs.tile_e, n_out=n_pad,
+                alt_lb=None if ac is None else ac.lb, prune_bound=pb)
         counts = torch.stack([trav, rlx, n_tiles, prn, zero + 1])
         dense = slabs.dense_grid_tiles
     best, winner = _merge_partials(best_l, win_l, view.group)
@@ -331,41 +379,54 @@ def _v1_relax_round(view: _ShardView, slabs: Optional[_DeviceSlabs],
                         metrics=metrics)
 
 
-def _v1_min_pending(view: _ShardView, dist, ub):
-    """The smallest pending candidate over every rank's slab."""
-    local = single._min_pending(view, dist, ub).reshape(1)
+def _v1_min_pending(view: _ShardView, dist, ub, alt_lb=None, bound=None):
+    """The smallest pending candidate over every rank's slab; with ALT,
+    less the ones the bound cuts (on ``alt_lb[dst]``)."""
+    local = single._min_pending(view, dist, ub, alt_lb, bound).reshape(1)
     tdist.all_reduce(local, op=tdist.ReduceOp.MIN, group=view.group)
     return local.reshape(())
 
 
 def _v1_pull_phase(view: _ShardView, dist, parent, st, lb, ub,
-                   metrics: SsspMetrics):
+                   metrics: SsspMetrics, alt_lb=None, prune_bound=None):
     """Function 1's pull phase as a mirrored push from the settled band
     over the local slab (the responder is the owned source, the
-    requester the destination), merged across ranks."""
+    requester the destination), merged across ranks.  With ALT the
+    requester receiving the update is ``dst``, so requests with ``cand +
+    alt_lb[dst] > prune_bound`` are cut (the single-device phase cuts on
+    ``alt_lb[src]``, its requester; the directed edges pair up one to
+    one, so the counts agree)."""
     src, dst, w = view.src, view.dst, view.w
     dv = dist[src]
     mask = (dv >= st) & (dv < lb) & (dv + w < ub)
     cand = torch.where(mask, dv + w, INF)
+    n_pruned = torch.zeros((), dtype=torch.int32, device=dist.device)
+    if alt_lb is not None:
+        mask, pruned = relax.alt_prune(cand, mask, alt_lb[dst], prune_bound)
+        cand = torch.where(mask, cand, INF)
+        n_pruned = count(pruned)
     best_l = relax.segment_partial_min(cand, dst, view.n)
     win_l = relax.winner_partial(cand, mask, src, dst, best_l, view.n)
     best, winner = _merge_partials(best_l, win_l, view.group)
     new_dist, new_parent, improved = relax.apply_updates(
         dist, parent, best, winner, gate=dist > lb)
-    # pull scans (requester unsettled, weight short enough) and requests
+    # pull scans (requester unsettled, weight short enough), requests and
+    # requests cut by ALT
     counts = _sum(torch.stack([count((dv > lb) & (w < ub - st)),
-                               count(mask)]), view.group)
+                               count(mask), n_pruned]), view.group)
     metrics = metrics._replace(
         n_pull_trav=metrics.n_pull_trav + counts[0],
         n_extended=metrics.n_extended + count(improved & (view.deg > 1)),
         n_relax=metrics.n_relax + counts[1],
         n_updates=metrics.n_updates + count(improved),
+        n_pruned=metrics.n_pruned + counts[2],
         n_rounds=metrics.n_rounds + 1)      # the pull phase is a round/sync
     return new_dist, new_parent, metrics
 
 
 def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
-            max_iters: int, alpha: float, beta: float):
+            max_iters: int, alpha: float, beta: float, goal: str,
+            goal_param: torch.Tensor, alt: Optional[relax.AltData]):
     rank = tdist.get_rank(group)
     block = sg.deg.shape[1]
     t = lambda a, dtype=None: torch.from_numpy(
@@ -389,11 +450,15 @@ def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
             dense_grid_tiles=meta.dense_grid_tiles)
     c = single._consts(deg, alpha, beta)
     s = single._initial_state(view.n, source, dev)
+    ac = None if alt is None else _make_alt_ctx(alt, source, goal_param,
+                                                view.n)
     return single._solve_loop(
-        view, s, c, lambda s: _v1_relax_round(view, slabs, s),
-        lambda s: single._transition(view, s, c,
-                                     min_pending=_v1_min_pending,
-                                     pull_phase=_v1_pull_phase),
+        view, s, c, lambda s: _v1_relax_round(view, slabs, s, ac),
+        lambda s: single._transition(
+            view, s, c, min_pending=_v1_min_pending,
+            pull_phase=_v1_pull_phase, goal=goal, goal_param=goal_param,
+            alt_lb=None if ac is None else ac.lb,
+            bound_of=None if ac is None else ac.bound),
         max_iters)
 
 
@@ -431,24 +496,36 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
     pass a prebuilt :func:`shard_blocked` layout as ``blocked=``, or
     ``block_v``/``tile_e`` for a one-off build.
 
+    ``goal``/``goal_param`` select an early-exit query
+    (:data:`~repro_torch.core.sssp.GOALS`: ``p2p`` with its target,
+    ``bounded`` with its bound, ``knear`` with its k) that stops as the
+    single-device one does.  ``landmarks`` (a
+    :class:`~repro_torch.core.landmarks.LandmarkSet` or a raw
+    :class:`~repro_torch.core.relax.AltData`) prunes a p2p query exactly
+    with ALT and is ignored by the other goals.
+
     Only ``version="v1"`` is ported; the reference's default ``"v2"``
     stays the default and raises, as do ``fused_rounds``/``capacity``
-    (v2/v3 knobs), goals other than ``"tree"``, ``landmarks``, the
-    adaptive ``policy``, ``trace`` and ``config``.  Returns ``(dist,
-    parent, metrics)`` over the padded vertex range ``[0, P*B)``,
-    replicated on every rank, as device tensors.
+    (v2/v3 knobs), the adaptive ``policy``, ``trace`` and ``config``.
+    Returns ``(dist, parent, metrics)`` over the padded vertex range
+    ``[0, P*B)``, replicated on every rank, as device tensors.
     """
     if version in ("v2", "v3") or fused_rounds or capacity is not None:
         raise _later("version")
     if version != "v1":
         raise ValueError(f"unknown distributed version {version!r}")
-    asked = {"goal": goal != "tree" or goal_param is not None,
-             "landmarks": landmarks is not None,
-             "policy": policy != "static", "trace": bool(trace),
+    asked = {"policy": policy != "static", "trace": bool(trace),
              "config": config is not None}
     for name, on in asked.items():
         if on:
             raise _later(name)
+    gp = goal_param_array(goal, goal_param)
+    _check_goal_bounds(goal, gp, sg.n_true)
+    alt = getattr(landmarks, "alt_data", landmarks) \
+        if goal == "p2p" and landmarks is not None else None
+    if alt is not None and alt.D.shape[1] != sg.n_true:
+        raise ValueError(f"landmark distances span {alt.D.shape[1]} "
+                         f"vertices, the graph {sg.n_true}")
     if not tdist.is_initialized():
         raise RuntimeError("sssp_distributed needs a process group: call "
                            "torch.distributed.init_process_group first")
@@ -466,8 +543,10 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
     if not 0 <= int(source) < sg.n_true:
         raise ValueError(f"source {source} out of range for n={sg.n_true}")
     layout = _resolve_blocked(sg, backend, blocked, dev, block_v, tile_e)
+    if alt is not None:
+        alt = relax.AltData(*(t.to(dev) for t in alt))
     return _run_v1(sg, layout, int(source), group, dev, int(max_iters),
-                   float(alpha), float(beta))
+                   float(alpha), float(beta), goal, gp.to(dev), alt)
 
 
 def sssp_distributed_batch(*args, **kwargs):

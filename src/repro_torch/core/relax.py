@@ -381,20 +381,23 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
 
 def blocked_shard_partials_fused(src, dst, w, tile_first, dist_src,
                                  paths_src, parent_src, src_base: int, lb,
-                                 ub, *, tile_e: int, n_out: int):
+                                 ub, *, tile_e: int, n_out: int,
+                                 alt_lb=None, prune_bound=None):
     """One relaxation round over all of a shard's slabs in one kernel call.
 
     ``src`` (shard-local ids, the slabs' offsets already added), ``dst``,
     ``w`` and ``tile_first`` are the shard's concatenated slabs;
     ``dist_src``/``paths_src``/``parent_src`` its slice of the replicated
-    state.  Returns ``(best, winner, n_tiles, n_trav, n_relax,
+    state.  With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d
+    f32) the kernel cuts candidates that cannot improve the p2p target
+    (its ALT branch).  Returns ``(best, winner, n_tiles, n_trav, n_relax,
     n_pruned)`` over ``n_out`` destinations, with *global* winner ids
     (``src_base`` added, ``INT_MAX`` kept); the counters are 0-d int32
     device tensors.
     """
     best, win_local, cnt = relax_partials(
         dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
-        tile_e=tile_e, n_out=n_out)
+        alt_lb, prune_bound, tile_e=tile_e, n_out=n_out)
     winner = torch.where(win_local == INT_MAX, win_local,
                          win_local + src_base)
     return best, winner, cnt[2], cnt[0], cnt[1], cnt[3]

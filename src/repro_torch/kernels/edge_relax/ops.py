@@ -30,8 +30,8 @@ class _Counter:
     :func:`relax_bucket` call on the card without ALT and
     ``edge_relax_alt`` one per call with it, ``edge_relax_fused`` and
     ``edge_relax_fused_alt`` the same for :func:`relax_fused`, and
-    ``edge_relax_partials`` one per :func:`relax_partials` call; CPU calls
-    never count."""
+    ``edge_relax_partials`` and ``edge_relax_partials_alt`` the same for
+    :func:`relax_partials`; CPU calls never count."""
 
     def __init__(self):
         self.reset()
@@ -42,6 +42,7 @@ class _Counter:
         self.edge_relax_fused = 0
         self.edge_relax_fused_alt = 0
         self.edge_relax_partials = 0
+        self.edge_relax_partials_alt = 0
 
 
 LAUNCHES = _Counter()
@@ -56,8 +57,9 @@ _FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P, _P, _P]
 
 
-_PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-                      ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P]
+_PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P,
+                      _P, _P, _P, _P]
 
 
 def _library(name="edge_relax", argtypes=_ARGTYPES):
@@ -263,8 +265,8 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
 
 
 def _edge_relax_partials_cuda(dist_src, paths_src, parent_src, src, dst, w,
-                              tile_first, lb, ub, *, tile_e: int,
-                              n_out: int):
+                              tile_first, lb, ub, alt_lb, prune_bound, *,
+                              tile_e: int, n_out: int):
     dev = dist_src.device
     e = src.shape[0]
     nt = tile_first.shape[0]
@@ -280,6 +282,8 @@ def _edge_relax_partials_cuda(dist_src, paths_src, parent_src, src, dst, w,
             ("tile_first", tile_first, torch.bool, (nt,)),
             ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
         _check(name, t, dtype, shape, dev)
+    alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
+                     ((n_out,), ()), (torch.float32,) * 2, dev)
     fn = _library("edge_relax_partials", _PARTIALS_ARGTYPES)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     sched = empty(nt, torch.int32)
@@ -292,18 +296,22 @@ def _edge_relax_partials_cuda(dist_src, paths_src, parent_src, src, dst, w,
         err = fn(dist_src.data_ptr(), paths_src.data_ptr(),
                  parent_src.data_ptr(), src.data_ptr(), dst.data_ptr(),
                  w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
-                 ub.data_ptr(), nt, tile_e, n_out, sched.data_ptr(),
-                 keys.data_ptr(), val.data_ptr(), win.data_ptr(),
-                 counts.data_ptr(), stream)
+                 ub.data_ptr(), _ptr(alt_lb), _ptr(prune_bound), nt, tile_e,
+                 n_out, sched.data_ptr(), keys.data_ptr(), val.data_ptr(),
+                 win.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"edge_relax_partials launch failed: cudaError "
                            f"{err}")
-    LAUNCHES.edge_relax_partials += 1
+    if alt:
+        LAUNCHES.edge_relax_partials_alt += 1
+    else:
+        LAUNCHES.edge_relax_partials += 1
     return val, win, counts
 
 
 def relax_partials(dist_src, paths_src, parent_src, src, dst, w, tile_first,
-                   lb, ub, *, tile_e: int, n_out: int):
+                   lb, ub, alt_lb=None, prune_bound=None, *, tile_e: int,
+                   n_out: int):
     """One relaxation round over all of a shard's slabs (the sharded
     engines' per-shard partials).
 
@@ -312,18 +320,21 @@ def relax_partials(dist_src, paths_src, parent_src, src, dst, w, tile_first,
     that range), ``dst`` int32 (global ids below ``n_out``) and ``w`` f32
     are the shard's slabs concatenated, ``[NT * tile_e]`` (padding slots
     carry ``w=+inf``); ``tile_first`` bool ``[NT]``; ``lb``/``ub`` 0-d
-    f32.  Returns ``(val, win, counts)`` over ``n_out`` destinations: the
-    minimum in-window candidate, the smallest shard-local source id
-    achieving it (``(inf, INT_MAX)`` where none), and the int32
+    f32.  With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d f32),
+    the ALT cut: a candidate enters only if ``cand + alt_lb[dst] <=
+    prune_bound``, and the cut ones not back along the parent edge count
+    in ``n_pruned``.  Returns ``(val, win, counts)`` over ``n_out``
+    destinations: the minimum kept candidate, the smallest shard-local
+    source id achieving it (``(inf, INT_MAX)`` where none), and the int32
     ``PARTIAL_COUNTERS`` (on the device).
     """
     if dist_src.is_cuda:
         return _edge_relax_partials_cuda(
             dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
-            tile_e=tile_e, n_out=n_out)
+            alt_lb, prune_bound, tile_e=tile_e, n_out=n_out)
     if dist_src.device.type != "cpu":
         raise ValueError(f"edge_relax_partials runs on CUDA or CPU, not "
                          f"{dist_src.device}")
     return edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst,
-                                   w, tile_first, lb, ub, tile_e=tile_e,
-                                   n_out=n_out)
+                                   w, tile_first, lb, ub, alt_lb,
+                                   prune_bound, tile_e=tile_e, n_out=n_out)

@@ -4,8 +4,8 @@
 ``scatter_reduce``; ``schedule_tiles`` is the reference's
 frontier-compaction prepass; ``edge_relax_fused_ref`` is the multi-round
 fused kernel's contract; ``edge_relax_partials_ref`` is the sharded
-engines' one-round partials kernel's contract.  The first two kernels
-take the ALT cut as an option.  The wrappers in :mod:`.ops` run them for
+engines' one-round partials kernel's contract.  Every kernel takes the
+ALT cut as an option.  The wrappers in :mod:`.ops` run them for
 CPU tensors, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
 work on any device.
@@ -146,7 +146,8 @@ def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
 
 
 def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
-                            tile_first, lb, ub, *, tile_e: int, n_out: int):
+                            tile_first, lb, ub, alt_lb=None,
+                            prune_bound=None, *, tile_e: int, n_out: int):
     """One round over all of a shard's slabs against its local source
     range.
 
@@ -157,14 +158,22 @@ def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
     minimum in-window candidate of a path source and the smallest
     shard-local source id achieving it (``(inf, INT_MAX)`` where none),
     and the int32 ``PARTIAL_COUNTERS``: in-window slots, those not back
-    along the source's parent edge, the active tiles, and 0 pruned (no
-    ALT here).
+    along the source's parent edge and not pruned, the active tiles, and
+    the pruned ones.  With ``alt_lb`` (f32 ``[n_out]``) and
+    ``prune_bound`` (0-d f32), the ALT cut: a candidate with ``cand +
+    alt_lb[dst] > prune_bound`` leaves the scatter-min whatever its
+    parent, and ``n_pruned`` counts the cut ones not back along the
+    parent edge, so that ``n_relax`` without the cut is ``n_relax +
+    n_pruned`` with it; ``n_trav`` stays the in-window count.
     """
     src_l = src.long()
     pa_src = paths_src[src_l]
     cand = dist_src[src_l] + w
     ok = pa_src & (cand >= lb) & (cand < ub)
+    fail = None
+    if alt_lb is not None:
+        fail = cand + alt_lb[dst.long()] > prune_bound
     val, win = edge_relax_ref(dist_src, paths_src, src, dst, w, lb, ub,
-                              n_out=n_out)
+                              alt_lb, prune_bound, n_out=n_out)
     return val, win, torch.stack(_slab_counters(
-        pa_src, w, dst, parent_src[src_l], ok, tile_first, tile_e))
+        pa_src, w, dst, parent_src[src_l], ok, tile_first, tile_e, fail))

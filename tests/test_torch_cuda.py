@@ -156,6 +156,56 @@ def _alt_lb(rng, n_out, n, card):
 
 @pytest.mark.parametrize("bound", [2.0, np.inf, 0.0, 3.0],
                          ids=["mid", "inf", "below-all", "ties"])
+def test_cuda_partials_alt_kernel_matches_plain_version(card, bound):
+    # the P = 4 layout of the non-ALT test, integer dists, weights and
+    # bounds (ties at exactly the bound, which `<=` keeps)
+    rng = np.random.default_rng(10)
+    g = _graph(rng, ties=True)
+    arrays, meta = shard_blocked(g, 4, block_v=75, tile_e=64)
+    block = meta.n_src_blocks * meta.block_v
+    n_pad, n_out = 4 * block, meta.n_dst_blocks * meta.block_v
+    dist = rng.integers(0, 5, n_pad).astype(np.float32)
+    dist[rng.random(n_pad) < 0.2] = np.inf
+    paths = (rng.random(n_pad) < 0.4) & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, n_pad, n_pad),
+                      -1).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    lb, ub = _f32(1.0, card), _f32(6.0, card)
+    alt = (_alt_lb(rng, n_out, g.n, card), _f32(bound, card))
+    kw = dict(tile_e=meta.tile_e, n_out=n_out)
+    kept = pruned = 0
+    for q in range(4):
+        lo = q * block
+        args = (t(dist[lo:lo + block]), t(paths[lo:lo + block]),
+                t(parent[lo:lo + block]), t(arrays.src[q]), t(arrays.dst[q]),
+                t(arrays.w[q]), t(arrays.tile_first[q]), lb, ub)
+        pv, pw, pc = ref.edge_relax_partials_ref(*args, *alt, **kw)
+        for _ in range(2):
+            before = (ops.LAUNCHES.edge_relax_partials,
+                      ops.LAUNCHES.edge_relax_partials_alt)
+            val, win, cnt = ops.relax_partials(*args, *alt, **kw)
+            torch.cuda.synchronize()
+            assert (ops.LAUNCHES.edge_relax_partials,
+                    ops.LAUNCHES.edge_relax_partials_alt) == \
+                (before[0], before[1] + 1)
+            assert torch.equal(val.view(torch.int32),
+                               pv.view(torch.int32)), q
+            assert torch.equal(win, pw), q
+            assert cnt.tolist() == pc.tolist(), q
+        free = ops.relax_partials(*args, **kw)[2].tolist()
+        trav, rlx, tiles, prn = cnt.tolist()
+        assert [trav, rlx + prn, tiles, 0] == free, q
+        kept, pruned = kept + rlx, pruned + prn
+    if bound == 0.0:
+        assert kept == 0 and pruned > 0
+    elif bound == np.inf:
+        assert pruned == 0 and kept > 0
+    else:
+        assert kept > 0 and pruned > 0
+
+
+@pytest.mark.parametrize("bound", [2.0, np.inf, 0.0, 3.0],
+                         ids=["mid", "inf", "below-all", "ties"])
 def test_cuda_alt_kernel_matches_plain_version(card, bound):
     # integer weights, dists and bounds: many candidates land exactly on
     # the bound, which `<=` keeps
@@ -271,6 +321,40 @@ def test_cuda_v1_solve_matches_single_device(card, tmp_path):
                 m, want = metrics_dict(m), metrics_dict(m1)
                 assert all(m[f] == want[f] for f in LOGICAL_METRIC_FIELDS)
             assert ops.LAUNCHES.edge_relax_partials > before
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_cuda_v1_alt_p2p_matches_segment_min(card, tmp_path):
+    import torch.distributed as tdist
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        for g, seed in ((kronecker(10, 8, seed=1), 3),
+                        (road_grid(24, seed=2), 4)):
+            lm = build_landmarks(g, 4, device=card)
+            rng = np.random.default_rng(seed)
+            s, t = (int(v) for v in rng.choice(g.n, 2, replace=False))
+            sg = shard_graph(g, 1)
+            kw = dict(version="v1", goal="p2p", goal_param=t, device=card)
+            plain = sssp_distributed(sg, s, backend="segment_min", **kw)
+            want = sssp_distributed(sg, s, backend="segment_min",
+                                    landmarks=lm, **kw)
+            before = (ops.LAUNCHES.edge_relax_partials,
+                      ops.LAUNCHES.edge_relax_partials_alt)
+            d, p, m = sssp_distributed(sg, s, backend="blocked",
+                                       landmarks=lm, **kw)
+            assert ops.LAUNCHES.edge_relax_partials == before[0]
+            assert ops.LAUNCHES.edge_relax_partials_alt > before[1]
+            assert torch.equal(d.view(torch.int32),
+                               want[0].view(torch.int32))
+            assert torch.equal(p, want[1])
+            md, wd = metrics_dict(m), metrics_dict(want[2])
+            assert all(md[f] == wd[f] for f in LOGICAL_METRIC_FIELDS)
+            assert d[t].item() == plain[0][t].item()
+            assert reconstruct_path(p.cpu().numpy(), s, t) == \
+                reconstruct_path(plain[1].cpu().numpy(), s, t)
     finally:
         tdist.destroy_process_group()
 

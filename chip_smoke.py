@@ -14,10 +14,16 @@ Phases, in order; any failure exits non-zero:
    geometries and round caps; each kernel call made twice; ``dist``,
    ``parent``, ``frontier`` and the eight counters bitwise equal), and
    ``flash_attention`` on seeded cases in float32 (at 2e-5) and bfloat16
-   (at 2e-2): S not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64
-   and 128, causal, non-causal and windowed masks, decode calls over a
-   cache slice with keys at 0..T-1, -1 padded or at ring-buffer
-   positions, and qwen3-0.6b's prefill call.  Then the ALT branches of
+   (at 2e-2), each call launching once, of the design ``ops.variant``
+   names ("tc" bf16 tensor cores, "split" split-KV decode, "simt" CUDA
+   cores): S not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64
+   and 128, causal, non-causal and windowed masks; prefill calls at S = T
+   of 64, 200, 2048 and 3072 with qwen3-0.6b's 8 KV heads of 2 and D =
+   128, and S = 130 with groups of 8 at D = 64; a chunk of queries at
+   positions 300..369 over keys at 0..T-1 and -1 padded; decode calls
+   over a cache slice with keys at 0..T-1, -1 padded or at ring-buffer
+   positions, slots past the cache and below T - 1, with and without a
+   window.  Then the ALT branches of
    ``edge_relax`` and ``edge_relax_fused`` (``alt_lb`` with +inf entries;
    prune bounds of +inf, below every candidate, at a tie and in between;
    fused targets reached before and within the call, so that the bound
@@ -83,9 +89,10 @@ Phases, in order; any failure exits non-zero:
    bfloat16 answers 12 requests of 32 new tokens (prompt lengths drawn
    by numpy seed 0 in [256, 3072]; 12 requests for 8 slots, so slots
    are refilled): every request must get 32 tokens, every logit be
-   finite, the kernel launch in prefill and in decode, and no plain
-   attention run (``_sdpa_dense``, ``_sdpa_blockwise``, ``_sdpa_decode``
-   are counted).  Then one 2048-token prefill and one 8-slot decode step
+   finite, every prefill launch be the "tc" design and every decode
+   launch "split" (launches counted by design), and no plain attention
+   run (``_sdpa_dense``, ``_sdpa_blockwise``, ``_sdpa_decode`` are
+   counted).  Then one 2048-token prefill and one 8-slot decode step
    timed and profiled (device time by kernel).  Then the whole path in
    float32 (TF32 off), a
    2048-token prefill and 16 teacher-forced decode steps, once through
@@ -127,10 +134,14 @@ Phases, in order; any failure exits non-zero:
    the seconds since the start at the end of each phase, the serving
    path's time to first token per
    request, prefill tokens/s, and decode ms per step and tokens/s, and
-   ``flash_attention``'s times at the qwen3 prefill and decode calls
-   (kernel, plain version, ``scaled_dot_product_attention``) beside its
-   bound; ``embedding_bag``'s at both serve shapes in sum and mean
-   (kernel, plain version, ``torch.nn.functional.embedding_bag``) beside
+   ``flash_attention``'s device times (CUDA-graph replay) at the qwen3
+   prefill calls (S = T of 256, 1024, 2048 and 3072) and decode calls (8
+   slots at positions 2048 and 4095 of 4096): kernel, plain version,
+   ``scaled_dot_product_attention``, the kernel called eagerly, and at S
+   = 2048 the CUDA-core design on the same call, beside its bound, with
+   TFLOP/s or GB/s, the bound's share and the design; ``embedding_bag``'s
+   at both serve shapes in sum and mean (kernel, plain version,
+   ``torch.nn.functional.embedding_bag``) beside
    its byte bound, which charges each distinct row once, and MIND's
    ``serve_interests`` and ``retrieval_scores`` milliseconds, users/s and
    candidates/s (``[recsys]`` lines).
@@ -144,6 +155,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1612,13 +1624,28 @@ def flash_check(out, want, dtype, what) -> float:
     return err
 
 
+def flash_launches():
+    """The flash kernel's launch counts: all calls and each design's."""
+    from repro_torch.kernels.flash_attn import ops
+    return dict(all=ops.LAUNCHES.flash_attention,
+                **{n: getattr(ops.LAUNCHES, f"flash_attention_{n}")
+                   for n in ops.VARIANTS})
+
+
+def launches_since(before):
+    now = flash_launches()
+    return {n: now[n] - before[n] for n in now}
+
+
 def flash_vs_plain(device, seed: int = 3):
     """``flash_attention`` against its plain version on seeded cases in
-    float32 and bfloat16; returns ``(cases, {dtype: max |err|})``."""
+    float32 and bfloat16, each call checked to launch once, of the design
+    ``ops.variant`` names; returns ``(cases, {dtype: max |err|},
+    {design: cases})``."""
     from repro_torch.kernels.flash_attn import ops
     from repro_torch.models.transformer import ring_positions
     rng = np.random.default_rng(seed)
-    errs, n = {}, 0
+    errs, n, by_kind = {}, 0, dict.fromkeys(ops.VARIANTS, 0)
     for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         rand = lambda *shape: _randn(rng, shape, dtype, device)
         cases = []
@@ -1632,21 +1659,56 @@ def flash_vs_plain(device, seed: int = 3):
                                    (False, 33)):
                 kw = dict(causal=causal, window=window)
                 cases.append((f"B={b} H={h} Hkv={hkv} S={s} D={d} {kw}",
+                              (s * (h // hkv), d),
                               lambda q=q, k=k, v=v, kw=kw:
                               ops.flash_attention(q, k, v, **kw),
                               lambda q=q, k=k, v=v, kw=kw:
                               ops.flash_attention_ref(q, k, v, **kw)))
+        # prefill calls: S = T up to the longest padded prompt at
+        # qwen3-0.6b's widths (8 KV heads of 2, D = 128), and D = 64 with
+        # groups of 8; causal, non-causal and window 31
+        for s, kv, hg, d in ((64, 8, 2, 128), (200, 8, 2, 128),
+                             (2048, 8, 2, 128), (3072, 8, 2, 128),
+                             (130, 2, 8, 64)):
+            q, k, v = rand(1, s, kv, hg, d), rand(1, s, kv, d), \
+                rand(1, s, kv, d)
+            for causal, window in ((True, 0), (False, 0), (True, 31)):
+                kw = dict(causal=causal, window=window)
+                cases.append((f"prefill S=T={s} KV={kv} HG={hg} D={d} {kw}",
+                              (s * hg, d),
+                              lambda q=q, k=k, v=v, kw=kw:
+                              ops.flash_attention_pos(q, k, v, **kw),
+                              lambda q=q, k=k, v=v, kw=kw:
+                              ops.flash_attention_pos_ref(q, k, v, **kw)))
+        # a chunk of queries at positions 300..369 over 400 keys, at 0..T-1
+        # and -1 padded
+        q, k, v = rand(3, 70, 2, 4, 64), rand(3, 400, 2, 64), \
+            rand(3, 400, 2, 64)
+        q_pos = (300 + torch.arange(70, dtype=torch.int32, device=device)
+                 ).expand(3, 70)
+        pad = torch.arange(400, dtype=torch.int32, device=device).expand(
+            3, 400).clone()
+        pad[:, torch.from_numpy(rng.integers(0, 400, 133)).to(device)] = -1
+        for name, k_pos in (("arange", None), ("padded", pad)):
+            args = (q, k, v, q_pos, k_pos)
+            cases.append((f"query chunk 300..369 {name}", (280, 64),
+                          lambda args=args: ops.flash_attention_pos(
+                              *args, causal=True),
+                          lambda args=args: ops.flash_attention_pos_ref(
+                              *args, causal=True)))
         # decode calls: one query per slot at its position over one layer
-        # of a [L, B, T, KV, D] cache, keys at 0..T-1, -1 padded, or a ring
-        for b, kv, hg, d, t, window in ((8, 8, 2, 128, 4096, 0),
-                                        (5, 2, 1, 64, 700, 0),
-                                        (3, 1, 8, 128, 513, 0),
-                                        (4, 8, 2, 128, 1024, 1024)):
+        # of a [L, B, T, KV, D] cache, keys at 0..T-1, -1 padded, or a ring;
+        # positions past the cache, and below T - 1 with a window
+        for b, kv, hg, d, t, window, below in (
+                (8, 8, 2, 128, 4096, 0, False), (5, 2, 1, 64, 700, 0, False),
+                (3, 1, 8, 128, 513, 0, False),
+                (4, 8, 2, 128, 1024, 1024, False),
+                (8, 8, 2, 128, 300, 0, True), (8, 8, 2, 128, 4096, 97, True)):
             cache = rand(2, 2, b, t, kv, d)
             kc, vc = cache[0, 1], cache[1, 1]
             q = rand(b, 1, kv, hg, d)
-            pos = torch.from_numpy(rng.integers(0, 2 * t, b).astype(
-                np.int32)).to(device)
+            pos = torch.from_numpy(rng.integers(
+                0, t - 1 if below else 2 * t, b).astype(np.int32)).to(device)
             pad = torch.arange(t, dtype=torch.int32,
                                device=device).expand(b, t).clone()
             pad[:, torch.from_numpy(rng.integers(0, t, t // 4)).to(device)] = -1
@@ -1655,24 +1717,27 @@ def flash_vs_plain(device, seed: int = 3):
                 args = (q, kc, vc, pos[:, None], k_pos)
                 kw = dict(causal=True, window=window)
                 cases.append((f"decode B={b} T={t} HG={hg} D={d} {name} "
-                              f"{kw}",
+                              f"{kw}", (hg, d),
                               lambda args=args, kw=kw:
                               ops.flash_attention_pos(*args, **kw),
                               lambda args=args, kw=kw:
                               ops.flash_attention_pos_ref(*args, **kw)))
-        # qwen3-0.6b's prefill call: S = T = 2048, 8 KV heads of 2
-        q, k, v = rand(1, 2048, 8, 2, 128), rand(1, 2048, 8, 128), \
-            rand(1, 2048, 8, 128)
-        cases.append(("qwen3 prefill S=T=2048",
-                      lambda: ops.flash_attention_pos(q, k, v, causal=True),
-                      lambda: ops.flash_attention_pos_ref(q, k, v,
-                                                          causal=True)))
         errs[key] = 0.0
-        for what, kernel, plain in cases:
-            errs[key] = max(errs[key], flash_check(kernel(), plain(), dtype,
+        for what, (rows, d), kernel, plain in cases:
+            kind = ops.variant(dtype, d, rows)
+            before = flash_launches()
+            got = kernel()
+            launched = launches_since(before)
+            if launched != dict(all=1, **{v: int(v == kind)
+                                          for v in ops.VARIANTS}):
+                raise AssertionError(f"flash_attention {what} {dtype}: "
+                                     f"expected one {kind} launch, got "
+                                     f"{launched}")
+            errs[key] = max(errs[key], flash_check(got, plain(), dtype,
                                                    what))
+            by_kind[kind] += 1
             n += 1
-    return n, errs
+    return n, errs, by_kind
 
 
 class PlainAttentionCalls:
@@ -1705,7 +1770,7 @@ def lm_serve(cfg, params, device):
     requests of ``MAX_NEW`` tokens.  The launch counter is zeroed just
     before the run and read just after; the engine's prefill and decode
     calls are timed (host clock, each ending in a synchronize)."""
-    from repro_torch.kernels.flash_attn.ops import LAUNCHES
+    from repro_torch.kernels.flash_attn.ops import LAUNCHES, VARIANTS
     from repro_torch.serve.engine import Request, ServeEngine
     # warm-up: one short request (cuBLAS handles, first launches)
     warm = ServeEngine(cfg, params, max_batch=8, s_cache=512,
@@ -1720,28 +1785,33 @@ def lm_serve(cfg, params, device):
                            N_REQUESTS)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
         np.int32), max_new=MAX_NEW) for i, n in enumerate(lengths)]
-    st = dict(prefill=[], decode=[], first=[], launches_prefill=0,
-              launches_decode=0, nonfinite=0)
+    st = dict(prefill=[], decode=[], first=[], nonfinite=0,
+              by_design=dict(prefill=dict.fromkeys(("all",) + VARIANTS, 0),
+                             decode=dict.fromkeys(("all",) + VARIANTS, 0)))
     prefill, decode = engine._prefill, engine._decode
 
+    def count(call, before):
+        for n, k in launches_since(before).items():
+            st["by_design"][call][n] += k
+
     def timed_prefill(tokens):
-        before, t = LAUNCHES.flash_attention, time.perf_counter()
+        before, t = flash_launches(), time.perf_counter()
         cache, logits = prefill(tokens)
         torch.cuda.synchronize()
         now = time.perf_counter()
         st["prefill"].append((int(tokens.shape[1]), now - t))
         st["first"].append(now - t0)    # its token is the argmax just after
-        st["launches_prefill"] += LAUNCHES.flash_attention - before
+        count("prefill", before)
         st["nonfinite"] += int((~torch.isfinite(logits)).sum())
         return cache, logits
 
     def timed_decode(cache, tok):
         active = sum(r is not None for r in engine.slot_req)
-        before, t = LAUNCHES.flash_attention, time.perf_counter()
+        before, t = flash_launches(), time.perf_counter()
         logits, cache = decode(cache, tok)
         torch.cuda.synchronize()
         st["decode"].append((active, time.perf_counter() - t))
-        st["launches_decode"] += LAUNCHES.flash_attention - before
+        count("decode", before)
         st["nonfinite"] += int((~torch.isfinite(logits)).sum())
         return logits, cache
 
@@ -1762,12 +1832,14 @@ def lm_serve(cfg, params, device):
                              f"{MAX_NEW} each")
     if st["nonfinite"]:
         raise AssertionError(f"{st['nonfinite']} logits were NaN or inf")
-    if st["launches_prefill"] <= 0 or st["launches_decode"] <= 0 or \
-            launches != st["launches_prefill"] + st["launches_decode"]:
+    pre, dec = st["by_design"]["prefill"], st["by_design"]["decode"]
+    if pre["all"] <= 0 or dec["all"] <= 0 or \
+            launches != pre["all"] + dec["all"] or \
+            pre["tc"] != pre["all"] or dec["split"] != dec["all"]:
         raise AssertionError(
-            f"flash_attention launched {st['launches_prefill']} times in "
-            f"prefill and {st['launches_decode']} in decode ({launches} in "
-            "all): the serving path must run the kernel in both")
+            f"flash_attention launches by design in prefill {pre} and in "
+            f"decode {dec} ({launches} in all): every prefill launch must "
+            "be tc and every decode launch split")
     if any(plain.calls.values()):
         raise AssertionError(f"the serving path took the plain attention: "
                              f"{plain.calls}")
@@ -1785,8 +1857,9 @@ def lm_serve(cfg, params, device):
         decode_ms_per_step=dec_s / len(st["decode"]) * 1e3,
         decode_tokens_per_s=dec_tok / dec_s,
         decode_active_slots=[a for a, _ in st["decode"]],
-        launches=launches, launches_prefill=st["launches_prefill"],
-        launches_decode=st["launches_decode"], plain_calls=plain.calls)
+        launches=launches, launches_prefill=pre["all"],
+        launches_decode=dec["all"], launches_by_design=st["by_design"],
+        plain_calls=plain.calls)
 
 
 def lm_profile(cfg, params, device):
@@ -1823,12 +1896,19 @@ def lm_profile(cfg, params, device):
         kern = [e for e in events if e.device_type == DeviceType.CUDA]
         ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
         device_ms = ms(kern)
-        flash_ms = ms(e for e in kern if "flash_fwd" in e.key)
+        flash = [e for e in kern if "flash_fwd" in e.key]
+        flash_ms = ms(flash)
+        flash_by_kernel = {}
+        for e in flash:
+            kname = re.search(r"flash_fwd_\w+", e.key).group(0)
+            flash_by_kernel[kname] = flash_by_kernel.get(kname, 0.0) + \
+                ms([e])
         gemm_ms = ms(e for e in kern if any(
             w in e.key for w in ("gemm", "nvjet", "xmma", "cutlass")))
         out[name] = dict(
             wall_ms=wall_ms, device_ms=device_ms,
             device_busy_share=device_ms / wall_ms, flash_attention_ms=flash_ms,
+            flash_attention_ms_by_kernel=flash_by_kernel,
             matmul_ms=gemm_ms, other_device_ms=device_ms - flash_ms - gemm_ms,
             kernels=sum(e.count for e in kern),
             host_launch_calls=sum(e.count for e in events if e.key in (
@@ -1886,71 +1966,121 @@ def lm_parity(cfg32, device):
     return res
 
 
+PREFILL_LENGTHS = (256, 1024, 2048, 3072)   # S = T of a prefill call
+DECODE_POSITIONS = (2048, 4095)             # of a 4096-slot cache
+
+
 def measure_flash(device):
-    """The kernel at qwen3-0.6b's prefill call (S = T = 2048, causal) and
-    decode call (B = 8 slots at position 4095 of a 4096-slot cache), in
-    bfloat16: its time, its plain version's, the library yardstick's
+    """The kernel at qwen3-0.6b's prefill calls (S = T in
+    ``PREFILL_LENGTHS``, causal) and decode calls (B = 8 slots at each of
+    ``DECODE_POSITIONS`` of a 4096-slot cache), in bfloat16: its time,
+    its plain version's, the library yardstick's
     (``scaled_dot_product_attention`` with ``enable_gqa``, timed only),
-    and its bound."""
+    its bound, the rate it reached and the design that served it; at S =
+    2048 also the CUDA-core design ("simt", the only one before "tc") on
+    the same call."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops
     bf, h, kv, d = torch.bfloat16, 16, 8, 128
     rng = np.random.default_rng(4)
-    out = {}
-    s = 2048
-    q = _randn(rng, (1, s, kv, h // kv, d), bf, device)
-    k, v = _randn(rng, (1, s, kv, d), bf, device), _randn(rng, (1, s, kv, d),
-                                                         bf, device)
-    qh = q.reshape(1, s, h, d).transpose(1, 2)
-    calls = dict(
-        kernel=lambda: ops.flash_attention_pos(q, k, v, causal=True),
-        plain=lambda: ops.flash_attention_pos_ref(q, k, v, causal=True),
-        library=lambda: F.scaled_dot_product_attention(
-            qh, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True).transpose(1, 2).reshape(q.shape))
-    pairs = s * (s + 1) // 2                  # visible (query, key) pairs
-    out["prefill"] = _flash_numbers(
-        calls, flops=4 * d * h * pairs,
-        bytes_=2 * (2 * q.numel() + k.numel() + v.numel()),
-        what="prefill S=T=2048")
+    out = {"prefill": {}, "decode": {}}
+    for s in PREFILL_LENGTHS:
+        q = _randn(rng, (1, s, kv, h // kv, d), bf, device)
+        k, v = _randn(rng, (1, s, kv, d), bf, device), \
+            _randn(rng, (1, s, kv, d), bf, device)
+        qh = q.reshape(1, s, h, d).transpose(1, 2)
+        calls = dict(
+            kernel=lambda: ops.flash_attention_pos(q, k, v, causal=True),
+            plain=lambda: ops.flash_attention_pos_ref(q, k, v, causal=True),
+            library=lambda: F.scaled_dot_product_attention(
+                qh, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True).transpose(1, 2).reshape(q.shape))
+        flops = 4 * d * h * (s * (s + 1) // 2)   # visible (query, key) pairs
+        m = _flash_numbers(calls, flops=flops,
+                           bytes_=2 * (2 * q.numel() + k.numel() + v.numel()),
+                           what=f"prefill S=T={s}")
+        m.update(design=ops.variant(bf, d, s * (h // kv)),
+                 tflop_per_s=flops / m["ms"] / 1e9)
+        if s == 2048:
+            o = torch.empty_like(q)
+            simt = lambda: ops._flash_cuda(q, k, v, None, None, o, True, 0,
+                                           kind="simt")
+            simt()
+            m["simt_max_abs_err"] = flash_check(o, calls["plain"](), bf,
+                                                "prefill S=T=2048 simt")
+            m["simt_ms"] = graph_ms(simt)
+        out["prefill"][s] = m
     b, t = 8, 4096
     cache = _randn(rng, (2, b, t, kv, d), bf, device)
     kc, vc = cache[0], cache[1]
     q = _randn(rng, (b, 1, kv, h // kv, d), bf, device)
-    pos = torch.full((b, 1), t - 1, dtype=torch.int32, device=device)
-    mask = (torch.arange(t, device=device)[None, :] <= pos)[:, None, None, :]
     qh = q.reshape(b, 1, h, d).transpose(1, 2)
-    calls = dict(
-        kernel=lambda: ops.flash_attention_pos(q, kc, vc, pos, None,
-                                               causal=True),
-        plain=lambda: ops.flash_attention_pos_ref(q, kc, vc, pos, None,
-                                                  causal=True),
-        library=lambda: F.scaled_dot_product_attention(
-            qh, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
-            enable_gqa=True).transpose(1, 2).reshape(q.shape))
-    visible = int(mask.sum())
-    out["decode"] = _flash_numbers(
-        calls, flops=4 * d * h * visible,
-        bytes_=2 * (2 * visible * kv * d + 2 * q.numel()) + 4 * b,
-        what="decode B=8 T=4096")
+    for p in DECODE_POSITIONS:
+        pos = torch.full((b, 1), p, dtype=torch.int32, device=device)
+        mask = (torch.arange(t, device=device)[None, :] <= pos)[:, None,
+                                                              None, :]
+        calls = dict(
+            kernel=lambda: ops.flash_attention_pos(q, kc, vc, pos, None,
+                                                   causal=True),
+            plain=lambda: ops.flash_attention_pos_ref(q, kc, vc, pos, None,
+                                                      causal=True),
+            library=lambda: F.scaled_dot_product_attention(
+                qh, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True).transpose(1, 2).reshape(q.shape))
+        visible = int(mask.sum())
+        bytes_ = 2 * (2 * visible * kv * d + 2 * q.numel()) + 4 * b
+        m = _flash_numbers(calls, flops=4 * d * h * visible, bytes_=bytes_,
+                           what=f"decode B=8 at {p} of T=4096")
+        m.update(design=ops.variant(bf, d, h // kv),
+                 gb_per_s=bytes_ / m["ms"] / 1e6)
+        out["decode"][p] = m
     return out
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of ``fn()``: ``reps`` calls captured in one
+    CUDA graph, replayed 3 times between CUDA events.  Unlike
+    :func:`cuda_ms` this leaves out the host's cost of issuing a call,
+    which a short kernel behind a Python wrapper can exceed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def _flash_numbers(calls, *, flops, bytes_, what):
-    """Times of the three calls (CUDA events, mean of 20 after 2 warm-ups)
-    and the bound: the larger of the operations over the bf16 tensor-core
-    rate and the bytes (inputs read once, output written once) over the
-    memory rate."""
+    """Device times of the three calls (:func:`graph_ms`), the kernel's
+    eager time (:func:`cuda_ms`, host issue included) and the bound: the
+    larger of the operations over the bf16 tensor-core rate and the bytes
+    (inputs read once, output written once) over the memory rate."""
     got = calls["kernel"]()
     want = calls["plain"]()
     err = flash_check(got, want, torch.bfloat16, what)
     lib_err = float((calls["library"]().float() - want.float()).abs().max())
     op_ms = flops / BF16_FLOPS * 1e3
     byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    return dict(ms=cuda_ms(calls["kernel"]), plain_ms=cuda_ms(calls["plain"]),
-                library_ms=cuda_ms(calls["library"]),
+    ms = graph_ms(calls["kernel"])
+    return dict(ms=ms, eager_ms=cuda_ms(calls["kernel"]),
+                plain_ms=graph_ms(calls["plain"]),
+                library_ms=graph_ms(calls["library"]),
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
+                bound_share=max(op_ms, byte_ms) / ms,
                 flops=flops, bytes=bytes_, max_abs_err=err,
                 library_max_abs_err=lib_err)
 
@@ -1979,8 +2109,9 @@ def lm_phases(device):
         f"decode {serving['decode_ms_per_step']!r} ms/step "
         f"({serving['decode_tokens_per_s']!r} tokens/s), flash_attention "
         f"launches {serving['launches_prefill']} in prefill + "
-        f"{serving['launches_decode']} in decode, plain attention calls "
-        f"{sum(serving['plain_calls'].values())}")
+        f"{serving['launches_decode']} in decode (by design: "
+        f"{json.dumps(serving['launches_by_design'])}), plain attention "
+        f"calls {sum(serving['plain_calls'].values())}")
     for key, m in serving["profile"].items():
         log(f"[profile] {key}: " + json.dumps(m))
     parity = lm_parity(dataclasses.replace(cfg, dtype=torch.float32), device)
@@ -1989,23 +2120,35 @@ def lm_phases(device):
             f"{PARITY_PROMPT}-token prefill and {PARITY_STEPS} decode steps: "
             + json.dumps(parity[key]))
     numbers = measure_flash(device)
-    for key, m in numbers.items():
-        log(f"[flash_attention] {key}: " + json.dumps(m))
-    pre, dec = numbers["prefill"], numbers["decode"]
+    for call, by in numbers.items():
+        for key, m in by.items():
+            where = f"S=T={key}" if call == "prefill" else f"position {key}"
+            log(f"[flash_attention] {call} {where}: " + json.dumps(m))
+    pre, dec = numbers["prefill"][2048], numbers["decode"][4095]
     kernel = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attn/flash_attn.py:77",
         "launches": serving["launches"],
-        "max_abs_err": max(pre["max_abs_err"], dec["max_abs_err"]),
+        "max_abs_err": max(m["max_abs_err"] for by in numbers.values()
+                           for m in by.values()),
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"],
         "shape": "prefill: S = T = 2048, 16 heads over 8 KV heads, D = 128, "
                  "causal, bf16",
-        "decode": dict(dec, shape="B = 8, T = 4096, all keys visible, bf16"),
+        "design": pre["design"],
+        "simt_ms": pre["simt_ms"],
+        "decode": dict(dec, shape="B = 8 at position 4095 of T = 4096, all "
+                                  "keys visible, bf16"),
+        "variants": {pre["design"]: "prefill", dec["design"]: "decode"},
         "launches_prefill": serving["launches_prefill"],
         "launches_decode": serving["launches_decode"],
+        "launches_by_design": serving["launches_by_design"],
+        "prefill_ms_by_length": {s: m["ms"] for s, m in
+                                 numbers["prefill"].items()},
+        "decode_ms_by_position": {p: m["ms"] for p, m in
+                                  numbers["decode"].items()},
     }
     return dict(kernel=kernel, serving=serving, parity=parity)
 
@@ -2397,10 +2540,10 @@ def main() -> int:
         "random slab cases bitwise equal")
     log(f"[kernel-vs-plain] edge_relax[alt] and edge_relax_fused[alt]: "
         f"{alt_vs_plain(device)} random slab cases bitwise equal")
-    n_flash, flash_err = flash_vs_plain(device)
+    n_flash, flash_err, flash_kinds = flash_vs_plain(device)
     log(f"[kernel-vs-plain] flash_attention: {n_flash} seeded cases within "
         f"tolerance (max |err| f32 {flash_err['f32']!r}, bf16 "
-        f"{flash_err['bf16']!r})")
+        f"{flash_err['bf16']!r}), cases by design {flash_kinds}")
     mark("phase 2")
 
     t0 = time.perf_counter()

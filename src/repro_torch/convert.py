@@ -150,7 +150,7 @@ def landmarks_from_reference(arrays: dict, device) -> LandmarkSet:
         max_hops=int(arrays["max_hops"]))
 
 
-def lm_params_from_reference(arrays: dict, dtype, device="cpu") -> dict:
+def lm_params_from_reference(arrays: dict, dtype, device) -> dict:
     """The port's parameter dict (:mod:`repro_torch.models.transformer`)
     from the reference's ``init_params`` pytree flattened with ``/``-joined
     keys (``layers/<name>`` for the stacked per-layer tensors).  Every
@@ -171,7 +171,7 @@ def lm_params_from_reference(arrays: dict, dtype, device="cpu") -> dict:
     return out
 
 
-def mind_params_from_reference(arrays: dict, device="cpu") -> dict:
+def mind_params_from_reference(arrays: dict, device) -> dict:
     """The port's MIND parameters (:mod:`repro_torch.models.recsys.mind`)
     from the reference's ``init_params`` leaves as numpy arrays
     (``item_embed`` ``[V, D]``, ``s_map`` ``[D, D]``), float32 on

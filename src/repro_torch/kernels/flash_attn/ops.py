@@ -5,43 +5,84 @@ layout; :func:`flash_attention_pos` is the form the model path calls, on
 its own layouts (q ``[B, S, KV, HG, D]``, one layer of the KV cache
 ``[B, T, KV, D]``) with per-query and per-key positions.  Both take the
 tensors where they lie: CPU tensors go to the plain versions in
-:mod:`.ref`; CUDA tensors go to the hand-written kernel in
-``csrc/flash_attn.cu`` (built on first use), which reads them in place
-through their strides, or the call raises.  There is no fallback from one
-to the other.
+:mod:`.ref`; CUDA tensors go to the hand-written kernels in
+``csrc/flash_attn.cu`` (built on first use), which read them in place
+through their strides, or the call raises.  :func:`variant` names the
+design a call gets from its type, head width and rows: ``"tc"`` (bf16
+tensor cores, prefill), ``"split"`` (split-KV decode) or ``"simt"``
+(f32 on the CUDA cores).  There is no fallback from one to another, nor
+to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .ref import flash_attention_pos_ref, flash_attention_ref
+from .ref import (flash_attention_pos_ref, flash_attention_ref,
+                  flash_attention_split_ref)
 
 __all__ = ["flash_attention", "flash_attention_pos", "flash_attention_ref",
-           "flash_attention_pos_ref", "LAUNCHES", "HEAD_DIMS"]
+           "flash_attention_pos_ref", "flash_attention_split_ref",
+           "variant", "split_count", "LAUNCHES", "HEAD_DIMS", "VARIANTS"]
 
 HEAD_DIMS = (16, 32, 64, 128)       # the kernel's compiled head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("simt", "tc", "split")  # in the C launcher's numbering
+TC_HEAD_DIMS = (64, 128)            # wgmma's N for O += P V
+TC_MIN_ROWS = 64                    # one warpgroup's rows
+SPLIT_MAX_ROWS = 8                  # S * HG of a decode call
+SPLIT_MIN_KEYS = 128                # keys a split chunk holds at least
+
+
+def variant(dtype, d: int, rows: int) -> str:
+    """The design that serves a call on the card: ``"split"`` for at most
+    ``SPLIT_MAX_ROWS`` rows ``S * HG`` (decode), ``"tc"`` for bfloat16
+    with ``d`` in ``TC_HEAD_DIMS`` and at least ``TC_MIN_ROWS`` rows
+    (prefill on the tensor cores), ``"simt"`` otherwise (float32 keeps
+    its 2e-5 tolerance there; D 16 and 32; 9 to 63 rows)."""
+    if rows <= SPLIT_MAX_ROWS:
+        return "split"
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS and rows >= TC_MIN_ROWS:
+        return "tc"
+    return "simt"
+
+
+def split_count(b: int, kv: int, t: int, sms: int) -> int:
+    """Chunks of the key range for ``"split"``: the most that keep the
+    ``b * kv * n`` blocks within two per SM (two are resident at once, so
+    the launch is one wave with no tail), each chunk at least
+    ``SPLIT_MIN_KEYS`` keys of the ``t``, and at least one."""
+    return max(1, min(2 * sms // max(1, b * kv), -(-t // SPLIT_MIN_KEYS)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class _Counter:
-    """Launches of the CUDA kernel: one per :func:`flash_attention` or
-    :func:`flash_attention_pos` call on the card; CPU calls never count."""
+    """Launches on the card: ``flash_attention`` counts one per
+    :func:`flash_attention` or :func:`flash_attention_pos` call, and
+    ``flash_attention_<variant>`` the same calls by the design that
+    served them; CPU calls never count."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
         self.flash_attention = 0
+        for name in VARIANTS:
+            setattr(self, f"flash_attention_{name}", 0)
 
 
 LAUNCHES = _Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-             ctypes.c_float, _P]
+_ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+             _I, ctypes.c_float, _P, _I, _P]
 
 
 def _library():
@@ -57,8 +98,9 @@ def _library():
 
 
 def _check_rows(name, t, elem):
-    """k and v rows are copied 16 bytes at a time: their start and row
-    stride must be 16-byte aligned, their last dimension contiguous."""
+    """k and v rows (and q's, in ``"tc"`` and ``"split"``) are read 16
+    bytes at a time: their start and row stride must be 16-byte aligned,
+    their last dimension contiguous."""
     if t.stride(-1) != 1:
         raise ValueError(f"{name}'s last dimension is not contiguous")
     if t.data_ptr() % 16 or any((st * elem) % 16 for st in t.stride()[:-1]):
@@ -77,7 +119,10 @@ def _positions(name, pos, shape, device):
     return pos, pos.stride()
 
 
-def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window):
+def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window, kind=None):
+    """One launch on the card, of design ``kind`` (default
+    :func:`variant`'s; a measurement may name another that takes the
+    call)."""
     b, s, kv, hg, d = q.shape
     t = k.shape[1]
     dev = q.device
@@ -98,25 +143,40 @@ def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window):
     elem = q.element_size()
     _check_rows("k", k, elem)
     _check_rows("v", v, elem)
+    kind = kind or variant(q.dtype, d, s * hg)
+    if kind not in VARIANTS:
+        raise ValueError(f"no flash_attention design {kind!r}")
+    if kind != "simt":
+        _check_rows("q", q, elem)
     q_pos, qps = _positions("q_pos", q_pos, (b, s), dev)
     k_pos, kps = _positions("k_pos", k_pos, (b, t), dev)
     strides = (ctypes.c_longlong * 18)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4],
         *qps, *kps)
+    n_split, scratch = 0, None
+    if kind == "split":
+        index = torch.cuda.current_device() if dev.index is None else \
+            dev.index
+        n_split = split_count(b, kv, t, _sm_count(index))
+        scratch = torch.empty(b * kv * n_split * s * hg * (d + 2),
+                              dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_attn_launch(
-            _DTYPES[q.dtype], d, b, s, t, kv, hg, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(),
+            VARIANTS.index(kind), _DTYPES[q.dtype], d, b, s, t, kv, hg,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), strides,
-            int(bool(causal)), int(window), 1.0 / d ** 0.5, stream)
+            int(bool(causal)), int(window), 1.0 / d ** 0.5,
+            None if scratch is None else scratch.data_ptr(), n_split, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: "
+        raise RuntimeError(f"flash_attention ({kind}) launch failed: "
                            f"{lib.flash_attn_error_name(err).decode()} "
                            f"({err})")
     LAUNCHES.flash_attention += 1
+    name = f"flash_attention_{kind}"
+    setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
     return out
 
 

@@ -35,6 +35,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..core.sssp import resolve_device
 from ..kernels.flash_attn.ops import flash_attention_pos
 from .layers import apply_rope, dense_init, embed_init, gelu_mlp, rms_norm, \
     swiglu
@@ -292,6 +293,9 @@ def forward(cfg: LMConfig, params: dict, tokens, *, attn=None):
 # --- serving ---------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, s_cache: int, device=None):
+    """A zero cache of ``batch`` slots of ``s_cache`` positions on
+    ``device`` (``None``: the card; without one this raises)."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, s_cache, cfg.n_kv, cfg.hd)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -10,10 +10,11 @@ and numpy.  Every test needs the card and skips without one; the kernels
 build with nvcc on first use.  The edge-relax comparisons are bitwise;
 flash attention is held to its plain version (f32 inside) at 2e-5 in
 float32 and 2e-2 in bfloat16, the tolerances of the reference's own
-kernel tests.  embedding_bag is held bitwise against its plain version
-(both sum in lookup order with separately rounded multiplies and adds),
-and the recsys layer on the card bitwise against the same call on the
-CPU.
+kernel tests, and each of its designs ("tc", "split", "simt") is checked
+to serve the calls that ``ops.variant`` gives it.  embedding_bag is held
+bitwise against its plain version (both sum in lookup order with
+separately rounded multiplies and adds), and the recsys layer on the
+card bitwise against the same call on the CPU.
 """
 import itertools
 
@@ -367,6 +368,21 @@ def _normal(rng, shape, dtype, device):
         device, dtype)
 
 
+def _flash_checked(fn, kind, *args, **kw):
+    """``fn(*args, **kw)`` on the card: exactly one launch, of design
+    ``kind`` (``fops.variant``'s name)."""
+    counts = lambda: {n: getattr(fops.LAUNCHES, f"flash_attention_{n}")
+                      for n in fops.VARIANTS}
+    before, calls = counts(), fops.LAUNCHES.flash_attention
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    after = counts()
+    assert fops.LAUNCHES.flash_attention == calls + 1
+    assert {n: after[n] - before[n] for n in after} == {
+        n: int(n == kind) for n in after}
+    return out
+
+
 @pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
 def test_cuda_flash_attention_matches_plain_version(card, dtype, tol):
     # S not a multiple of any tile, GQA groups 1, 2 and 8, D 16 to 128
@@ -410,8 +426,8 @@ def test_cuda_flash_attention_decode_positions(card, dtype, tol):
         pad[:, rng.integers(0, t, t // 3)] = -1
         for k_pos in (None, pad, ring_positions(pos, t)):
             args = (q, kc, vc, pos[:, None], k_pos)
-            out = fops.flash_attention_pos(*args, causal=True, window=window)
-            torch.cuda.synchronize()
+            out = _flash_checked(fops.flash_attention_pos, "split", *args,
+                                 causal=True, window=window)
             want = fops.flash_attention_pos_ref(*args, causal=True,
                                                 window=window)
             torch.testing.assert_close(out.float(), want.float(), rtol=tol,
@@ -432,15 +448,67 @@ def test_cuda_flash_attention_query_chunk(card, dtype, tol):
         b, s)
     pad = torch.arange(t, device=card, dtype=torch.int32).expand(b, t).clone()
     pad[:, rng.integers(0, t, t // 3)] = -1
+    kind = "tc" if dtype == torch.bfloat16 else "simt"
     for k_pos in (None, pad):
         for causal, window in ((True, 0), (True, 40), (False, 40)):
             args = (q, k, v, q_pos, k_pos)
             kw = dict(causal=causal, window=window)
-            out = fops.flash_attention_pos(*args, **kw)
-            torch.cuda.synchronize()
+            out = _flash_checked(fops.flash_attention_pos, kind, *args, **kw)
             want = fops.flash_attention_pos_ref(*args, **kw)
             torch.testing.assert_close(out.float(), want.float(), rtol=tol,
                                        atol=tol)
+
+
+@pytest.mark.parametrize("s,hg,d", [(64, 2, 128), (200, 2, 128),
+                                    (2048, 2, 128), (3072, 2, 128),
+                                    (130, 8, 64)])
+def test_cuda_flash_tc_matches_plain_version(card, s, hg, d):
+    # the tensor-core prefill design at qwen3-0.6b's widths (8 KV heads of
+    # 2, D = 128; S = T up to the longest padded prompt) and at D = 64,
+    # HG = 8; ragged row tiles, causal, non-causal and window 31
+    rng = np.random.default_rng(s + d)
+    kv = 8 if d == 128 else 2
+    q = _normal(rng, (1, s, kv, hg, d), torch.bfloat16, card)
+    k = _normal(rng, (1, s, kv, d), torch.bfloat16, card)
+    v = _normal(rng, (1, s, kv, d), torch.bfloat16, card)
+    for causal, window in ((True, 0), (False, 0), (True, 31)):
+        kw = dict(causal=causal, window=window)
+        out = _flash_checked(fops.flash_attention_pos, "tc", q, k, v, **kw)
+        want = fops.flash_attention_pos_ref(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
+@pytest.mark.parametrize("t", [300, 4096])
+def test_cuda_flash_split_matches_plain_version(card, dtype, tol, t):
+    # the split-KV decode design over one layer of a qwen3-0.6b-shaped
+    # cache (8 slots, 8 KV heads of 2): positions below T - 1, -1 padding
+    # (a slot with no written key gives 0), a ring buffer, and a window
+    rng = np.random.default_rng(t)
+    b, kv, hg, d = 8, 8, 2, 128
+    cache = _normal(rng, (2, 2, b, t, kv, d), dtype, card)
+    kc, vc = cache[0, 1], cache[1, 1]
+    q = _normal(rng, (b, 1, kv, hg, d), dtype, card)
+    pos = torch.from_numpy(rng.integers(0, t - 1, b).astype(np.int32)).to(
+        card)
+    pad = torch.arange(t, device=card, dtype=torch.int32).expand(b, t).clone()
+    pad[:, rng.integers(0, t, t // 3)] = -1
+    pad[3] = -1
+    lap2 = pos + 2 * t                  # the ring in its third lap
+    ring = ring_positions(lap2, t)
+    cases = [(pos, None, 0), (pos, pad, 0), (lap2, ring, 0), (pos, None, 97),
+             (lap2, ring, t)]
+    for q_pos, k_pos, window in cases:
+        args = (q, kc, vc, q_pos[:, None], k_pos)
+        out = _flash_checked(fops.flash_attention_pos, "split", *args,
+                             causal=True, window=window)
+        want = fops.flash_attention_pos_ref(*args, causal=True,
+                                            window=window)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if k_pos is pad:
+            assert not out[3].any()
 
 
 def _bits(out, want):

@@ -147,3 +147,12 @@ def test_config_matches_reference():
         assert got.pop("dtype") == torch.float32
         assert want.pop("dtype") == jnp.float32
         assert got == want, make
+
+
+def test_mind_params_from_reference_needs_a_device():
+    arrays = {"item_embed": np.ones((4, 2), np.float32),
+              "s_map": np.eye(2, dtype=np.float32)}
+    with pytest.raises(TypeError):
+        convert.mind_params_from_reference(arrays)
+    params = convert.mind_params_from_reference(arrays, "cpu")
+    assert params["s_map"].device.type == "cpu"

@@ -32,7 +32,7 @@ def _params(jcfg, tcfg):
             if k != "layers"}
     flat.update({f"layers/{k}": np.asarray(v, np.float32)
                  for k, v in jparams["layers"].items()})
-    return jparams, lm_params_from_reference(flat, tcfg.dtype)
+    return jparams, lm_params_from_reference(flat, tcfg.dtype, "cpu")
 
 
 def _serve(engine, request_cls, prompts, max_new):

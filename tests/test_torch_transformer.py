@@ -59,7 +59,8 @@ def _models(arch, dtype="float32"):
         jcfg = dataclasses.replace(jcfg, dtype=jnp.bfloat16)
         tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = lm_params_from_reference(_flatten(jparams), tcfg.dtype)
+    tparams = lm_params_from_reference(_flatten(jparams), tcfg.dtype,
+                                       "cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -279,3 +280,26 @@ def test_layers_match_reference(dtype, tol):
            JL.swiglu(J(x), J(wg), J(wu), J(wd)), tol)
     _close(TL.gelu_mlp(P(x), P(wu), P(wd)), JL.gelu_mlp(J(x), J(wu), J(wd)),
            tol)
+
+
+def test_init_cache_runs_on_the_card_unless_asked():
+    # like every entry point of the port: no device means the card, and
+    # without one that raises instead of allocating on the CPU
+    cfg = qwen3_0_6b.smoke_config()
+    if torch.cuda.is_available():
+        assert T.init_cache(cfg, 1, 8)["k"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            T.init_cache(cfg, 1, 8)
+    cache = T.init_cache(cfg, 1, 8, "cpu")
+    assert cache["k"].device.type == "cpu"
+    assert cache["k"].shape == (cfg.n_layers, 1, 8, cfg.n_kv, cfg.hd)
+    assert cache["pos"].dtype == torch.int32
+
+
+def test_lm_params_from_reference_needs_a_device():
+    flat = {"embed": np.ones((4, 2), np.float32)}
+    with pytest.raises(TypeError):
+        lm_params_from_reference(flat, torch.float32)
+    assert lm_params_from_reference(flat, torch.float32, "cpu")[
+        "embed"].device.type == "cpu"

@@ -1,14 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (a checkout of another commit, e.g. ``git archive`` of
+the parent unpacked into an ignored directory) also times that checkout's
+``edge_relax`` and ``edge_relax_partials`` kernels on the same inputs as
+this tree's, in turns (parent, this, this, parent).  Run with no
+argument, the script needs one card and nothing else.
 
 Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit; build every CUDA kernel from
    the sources in this checkout (one ``nvcc`` per source, in parallel).
 2. Kernels vs plain versions on seeded random slabs: ``edge_relax``
-   (empty buckets, an all-padding slab, ``lb <= 0``, forced ties;
-   ``vals``, ``wins`` and ``n_tiles`` bitwise equal) and
+   (empty buckets, an all-padding slab, ``lb <= 0``, forced ties; each
+   call made twice; ``vals``, ``wins`` and the four counters bitwise
+   equal, the scheduled-tile count also equal to ``schedule_tiles``') and
    ``edge_relax_fused`` (ties, ``lb <= 0``, ``fused_rounds`` 1, 4 and 8,
    a call that stops after its first round, then 40 seeded cases over
    geometries and round caps; each kernel call made twice; ``dist``,
@@ -122,7 +129,16 @@ Phases, in order; any failure exits non-zero:
    on the CPU, in float32 with TF32 off.
 6. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the bound, launches on the main
-   path; the ALT rows at the middle kernel call of the first p2p pair's
+   path; ``edge_relax`` and ``edge_relax_partials``, with and without
+   ALT, per graph by :func:`graph_ms` (device time, the row's ``ms``) and
+   eager (the host's launch cost included), beside the library yardstick
+   that computes the whole output (:func:`library_round`) and the parent
+   design's scatter-only figure, the bound as the kernel reads (the
+   row's ``bound_ms``), the same with 12 B per scheduled slot and the
+   parent design's bound (:func:`bound_bytes`), and with ``--parent``
+   the parent design's times on the same inputs; the
+   ``[layout]`` lines give the vertex->tile index's build seconds; the
+   ALT rows at the middle kernel call of the first p2p pair's
    ALT query, unfused and fused, captured by solving that query again,
    with their launches over the p2p queries; ``edge_relax_partials``'
    ALT row at the middle call of each graph's first v1 ALT query,
@@ -153,6 +169,7 @@ no result.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import itertools
 import json
 import re
@@ -264,17 +281,41 @@ def _slab_case(rng, n, m, *, block_v, tile_e, ties, lb0, device):
             else rng.random(bg.n_out) * 3).astype(np.float32)
     dist[rng.random(bg.n_out) < 0.2] = np.inf
     frontier = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, bg.n_out, bg.n_out),
+                      -1).astype(np.int32)
     lb, ub = (0.0, np.inf) if lb0 else (1.0, 4.0)
     t = lambda a: torch.from_numpy(a).to(device)
     f32 = lambda x: torch.full((), x, dtype=torch.float32, device=device)
-    return (t(dist), t(frontier), bg.src, bg.dst, bg.w, bg.tile_first,
-            f32(lb), f32(ub)), dict(tile_e=bg.tile_e, n_out=bg.n_out), bg
+    return (t(dist), t(frontier), t(parent), bg.src, bg.dst, bg.w,
+            bg.tile_first, f32(lb), f32(ub)), dict(
+                tile_e=bg.tile_e, n_out=bg.n_out, index=bg.index), bg
+
+
+def round_pair(args, kw, what, fn="relax_bucket"):
+    """A one-round kernel (``ops.relax_bucket`` or ``ops.relax_partials``,
+    called twice to catch races) against the plain version on one layout:
+    ``vals``, ``wins`` and the four counters (the third the scheduled-tile
+    count, held against ``schedule_tiles``) bitwise.  Returns the kernel's
+    and the plain version's outputs."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
+    want = ref.edge_relax_partials_ref(*args, **plain_kw)
+    _, pn = ref.schedule_tiles(args[1], args[3], args[5], args[6],
+                               kw["tile_e"])
+    for _ in range(2):
+        out = getattr(ops, fn)(*args, **kw)
+        if not (bitwise_equal(out[0], want[0]) and out[1].equal(want[1])
+                and out[2].equal(want[2]) and int(out[2][2]) == int(pn)):
+            raise AssertionError(
+                f"{fn} {what}: kernel {out[2].tolist()} and plain version "
+                f"{want[2].tolist()} (schedule_tiles: {int(pn)} tiles) "
+                "disagree")
+    return out, want
 
 
 def kernel_vs_plain(device, seed: int = 0) -> int:
     """Random slabs through the kernel and the plain version; returns the
     number of cases, raises on the first disagreement."""
-    from repro_torch.kernels.edge_relax import ops, ref
     rng = np.random.default_rng(seed)
     cases = [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=False,
                   lb0=False),
@@ -288,14 +329,7 @@ def kernel_vs_plain(device, seed: int = 0) -> int:
                   lb0=True)]
     for i, case in enumerate(cases):
         args, kw, _ = _slab_case(rng, device=device, **case)
-        vals, wins, nt = ops.relax_bucket(*args, **kw)
-        pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
-        _, pn = ref.schedule_tiles(args[1], args[2], args[4], args[5],
-                                   kw["tile_e"])
-        if not (bitwise_equal(vals, pv) and wins.equal(pw)
-                and int(nt) == int(pn)):
-            raise AssertionError(f"edge_relax case {i} {case}: kernel and "
-                                 "plain version disagree")
+        round_pair(args, kw, f"case {i} {case}")
     return len(cases)
 
 
@@ -401,17 +435,7 @@ def alt_vs_plain(device, seed: int = 4, n_random: int = 20) -> int:
         args, kw, bg = _slab_case(rng, device=device, **case)
         alt = (_alt_lb(rng, bg.n_out, case["n"], device, ties=case["ties"]),
                f32(bound))
-        want = ref.edge_relax_ref(*args[:5], *args[6:], *alt,
-                                  n_out=kw["n_out"])
-        _, pn = ref.schedule_tiles(args[1], args[2], args[4], args[5],
-                                   kw["tile_e"])
-        for _ in range(2):
-            vals, wins, nt = ops.relax_bucket(*args, *alt, **kw)
-            if not (bitwise_equal(vals, want[0]) and wins.equal(want[1])
-                    and int(nt) == int(pn)):
-                raise AssertionError(f"edge_relax[alt] case {i} {case} "
-                                     f"bound={bound}: kernel and plain "
-                                     "version disagree")
+        round_pair(args + alt, kw, f"[alt] case {i} {case} bound={bound}")
         checked += 1
     names = list(ops.FUSED_COUNTERS)
     cases = [dict(n=1000, m=6000, block_v=128, tile_e=128, ties=True,
@@ -502,20 +526,19 @@ class PhaseTimes:
     the call's first launch to its last, the host's launch gaps
     included, since the loop's host read leaves the stream idle when the
     call begins."""
-    TARGETS = (("repro_torch.core.sssp", "_solve_loop"),
-               ("repro_torch.core.sssp", "_transition"),
-               ("repro_torch.core.sssp", "_relax_round"),
-               ("repro_torch.core.sssp", "_fused_relax_rounds"),
-               ("repro_torch.core.distributed", "_v1_relax_round"),
-               ("repro_torch.core.distributed", "_merge_partials"),
-               ("repro_torch.core.distributed", "_sum"))
+    TARGETS = (("core.sssp", "_solve_loop"),
+               ("core.sssp", "_transition"),
+               ("core.sssp", "_relax_round"),
+               ("core.sssp", "_fused_relax_rounds"),
+               ("core.distributed", "_v1_relax_round"),
+               ("core.distributed", "_merge_partials"),
+               ("core.distributed", "_sum"))
 
     def __enter__(self):
-        import importlib
         self.saved = []
         self.spans = {name: [] for _, name in self.TARGETS}
         for mod_name, name in self.TARGETS:
-            mod = importlib.import_module(mod_name)
+            mod = importlib.import_module(f"repro_torch.{mod_name}")
             fn = getattr(mod, name)
             self.saved.append((mod, name, fn))
             setattr(mod, name, self._timed(fn, self.spans[name]))
@@ -551,9 +574,9 @@ def solve(g, source, backend, device, *, sharded=False, **opts):
     phases)`` with ``phases`` from :class:`PhaseTimes`.  ``sharded``
     solves the :class:`ShardedGraph` ``g`` with the v1 engine over the
     world process group."""
-    from repro_torch.core.distributed import sssp_distributed
-    from repro_torch.core.sssp import sssp
-    entry = sssp_distributed if sharded else sssp
+    mod = importlib.import_module(
+        f"repro_torch.core.{'distributed' if sharded else 'sssp'}")
+    entry = mod.sssp_distributed if sharded else mod.sssp
     if sharded:
         opts["version"] = "v1"
     with PhaseTimes() as phases:
@@ -587,6 +610,29 @@ def warm_up(device):
               sharded=True)
 
 
+class IndexSeconds:
+    """Host seconds spent building vertex->tile indexes
+    (``core/graph.py::tile_index``, which ``_bucket`` calls) while the
+    context is open: the layout build's own index, timed where it is
+    made."""
+
+    def __enter__(self):
+        from repro_torch.core import graph
+        self.real, self.s = graph.tile_index, 0.0
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            self.s += time.perf_counter() - t0
+            return out
+        graph.tile_index = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import graph
+        graph.tile_index = self.real
+
+
 def main_path(graphs, device):
     """Three solves per graph; returns per-graph results.  The launch
     counters are zeroed just before each kernel's solve and read just
@@ -599,12 +645,15 @@ def main_path(graphs, device):
         dg = hg.to_device(device)
         source = int(np.argmax(hg.deg))
         t0 = time.perf_counter()
-        bg = build_blocked(dg)          # the geometry derived for the card
+        with IndexSeconds() as index_s:
+            bg = build_blocked(dg)      # the geometry derived for the card
         layout_s = time.perf_counter() - t0
         slots = bg.src.shape[0]
         log(f"[layout] {name}: block_v={bg.block_v} tile_e={bg.tile_e} "
             f"padded slots={slots} over m={hg.m} "
-            f"(blow-up {slots / max(hg.m, 1):.4f}x) in {layout_s:.2f} s")
+            f"(blow-up {slots / max(hg.m, 1):.4f}x) in {layout_s:.2f} s, "
+            f"of which the vertex->tile index {index_s.s:.2f} s "
+            f"({bg.index.vt_tile.shape[0]} entries)")
         LAUNCHES.reset()
         kd, kp, km, ks, kt = solve(dg, source, "blocked", device,
                                    layout=bg)
@@ -640,10 +689,10 @@ def main_path(graphs, device):
         check_against_dijkstra(ref, kd)
         check_against_dijkstra(ref, fd)
         reached = int(np.isfinite(kd.cpu().numpy()).sum())
-        for what, secs, md, n_launch, phases in (
-                ("blocked", ks, kmd, launches, kt),
-                ("fused", fs, fmd, fused_launches, ft),
-                ("segment_min", ps, pmd, None, pt)):
+        solves = [("blocked", ks, kmd, launches, kt),
+                  ("fused", fs, fmd, fused_launches, ft),
+                  ("segment_min", ps, pmd, None, pt)]
+        for what, secs, md, n_launch, phases in solves:
             spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
                              for k, v in phases.items())
             log(f"[solve] {name} {what}: source={source} {secs!r} s, "
@@ -859,7 +908,8 @@ def goal_solves(res, device):
 def window_inputs(res, device):
     """A mid-solve round of the main path's layout: the window
     [median dist, median + maxW) with the push band below it as frontier
-    (the shape of a typical step), on the solved distances."""
+    (the shape of a typical step), on the solved distances and parents.
+    Returns ``relax_bucket``'s arguments and keywords."""
     from repro_torch.core.relax import leaf_pruned
     dg, bg, dist = res["graph"], res["layout"], res["dist"]
     finite = dist[torch.isfinite(dist)]
@@ -867,75 +917,192 @@ def window_inputs(res, device):
     ub = lb + dg.max_w
     band = (dist >= lb - dg.max_w) & (dist < ub)
     pad = bg.n_out - dg.n
-    dist_p = torch.cat([dist, torch.full((pad,), float("inf"),
-                                         device=device)])
-    band_p = torch.cat([band, torch.zeros(pad, dtype=torch.bool,
-                                          device=device)])
-    paths = leaf_pruned(band_p, dist_p, bg.deg)
-    return (dist_p, paths, bg.src, bg.dst, bg.w, bg.tile_first,
-            lb.reshape(()), ub.reshape(())), dict(tile_e=bg.tile_e,
-                                                  n_out=bg.n_out)
+    grow = lambda x, v: torch.cat([x, torch.full((pad,), v, dtype=x.dtype,
+                                                 device=device)])
+    dist_p = grow(dist, float("inf"))
+    paths = leaf_pruned(grow(band, False), dist_p, bg.deg)
+    return (dist_p, paths, grow(res["parent"], -1), bg.src, bg.dst, bg.w,
+            bg.tile_first, lb.reshape(()), ub.reshape(())), dict(
+                tile_e=bg.tile_e, n_out=bg.n_out, index=bg.index)
 
 
-def measure(res, device):
-    from repro_torch.kernels.edge_relax import ops, ref
-    args, kw = window_inputs(res, device)
-    dist, paths, src, dst, w, tile_first, lb, ub = args
-    vals, wins, nt = ops.relax_bucket(*args, **kw)
-    pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
-    _, pn = ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
-    err = float((vals - pv).abs().nan_to_num(0.0).max())
-    if not (bitwise_equal(vals, pv) and wins.equal(pw)
-            and int(nt) == int(pn)):
-        raise AssertionError("edge_relax disagrees with its plain version "
-                             "on the main path's layout")
-    kernel_ms = cuda_ms(lambda: ops.relax_bucket(*args, **kw))
-
-    def plain():
-        ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
-        ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
-    plain_ms = cuda_ms(plain)
-
-    library_ms, s_n, n_cand, _ = library_scatter_ms(*args, **kw)
-    tile_e = kw["tile_e"]
-
-    # least bytes the function must move for this round's data: src of
-    # every slot (to find the active tiles), dst and w of the scheduled
-    # slots, tile_first, dist and paths once, vals and wins written once
-    e, n_tiles_all, n_out = src.shape[0], tile_first.shape[0], kw["n_out"]
-    bytes_ = 4 * e + 8 * s_n * tile_e + n_tiles_all + 5 * n_out + 8 * n_out
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                sched_tiles=s_n, n_tiles=n_tiles_all, bytes=bytes_,
-                candidates=n_cand)
+# the parent commit's edge-relax wrappers (``--parent DIR``), timed beside
+# this tree's on the same inputs; None when not asked for
+PARENT = None
 
 
-def library_scatter_ms(dist, paths, src, dst, w, tile_first, lb, ub,
-                       alt_lb=None, prune_bound=None, *, tile_e: int,
-                       n_out: int):
-    """The library yardstick of the one-round kernels: one
-    ``scatter_reduce_`` amin of packed (value bits, source id) keys over
-    the in-window candidates of the scheduled tiles (with ALT, those that
-    survive the cut).  It computes the values and winners, not the
-    schedule or any counter.  Returns ``(ms, scheduled tiles, candidates
-    in the window, candidates kept)``."""
+def load_parent(root: str):
+    """The ``kernels.edge_relax.ops`` module of another checkout's port
+    (its kernels built into that checkout's ``build/``), imported as the
+    package ``parent_repro_torch`` beside this one."""
+    import importlib.util
+    pkg = Path(root).resolve() / "src" / "repro_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_repro_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_repro_torch"] = mod
+    spec.loader.exec_module(mod)
+    importlib.import_module("parent_repro_torch.kernels._build").build_all()
+    return importlib.import_module("parent_repro_torch.kernels.edge_relax.ops")
+
+
+def parent_call(fn: str, args, kw):
+    """The parent design's call on the same inputs: its ``relax_bucket``
+    took no ``parent`` and no index, its ``relax_partials`` no index."""
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
+    if fn == "relax_bucket":
+        args = args[:2] + args[3:]
+    return lambda: getattr(PARENT, fn)(*args, **plain_kw)
+
+
+def scheduled_slots(args, kw):
+    """The slots of the tiles ``schedule_tiles`` schedules for a round."""
     from repro_torch.kernels.edge_relax import ref
+    dist, paths, parent, src, dst, w, tile_first, *_ = args
+    tile_e = kw["tile_e"]
     sched, sched_n = ref.schedule_tiles(paths, src, w, tile_first, tile_e)
-    s_n = int(sched_n)
-    slots = (sched[:s_n].long()[:, None] * tile_e
-             + torch.arange(tile_e, device=w.device)[None, :]).reshape(-1)
+    return (sched[:int(sched_n)].long()[:, None] * tile_e
+            + torch.arange(tile_e, device=w.device)[None, :]).reshape(-1)
+
+
+def bound_bytes(args, kw, slots, fn: str):
+    """Least bytes of one round, counted as ``relax_tiles`` reads them,
+    and two coarser counts.  ``slots`` are the scheduled tiles' slots.
+    The kernel's count: ``paths`` of every source (1 B), ``vt_ptr`` (8 B)
+    and the index entries (4 B each) of each path source, the forced
+    tiles (4 B each), ``src`` of every scheduled slot, ``w`` of each such
+    slot whose source has a path and ``dst`` of each in-window candidate
+    (4 B each), ``dist`` of each distinct path source in those slots and
+    ``parent`` of each distinct source with an in-window candidate (4 B
+    each), with ALT ``alt_lb`` of each distinct in-window destination (4
+    B), ``vals`` and ``wins`` written (8 B per destination) and the four
+    counters.  The second count charges ``src``, ``dst`` and ``w`` (12 B)
+    for every scheduled slot instead.  The third is the parent design's:
+    it read ``src`` of every slot and ``tile_first`` to find the tiles
+    (row 1 also ``dist`` and ``paths`` of every vertex and 8 B per
+    scheduled slot)."""
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, *alt = args
+    vt_ptr, vt_tile, forced = kw["index"]
+    n_out = kw["n_out"]
+    s = src[slots].long()
+    on = paths[s].bool()
+    cand = dist[s] + w[slots]
+    in_window = on & (cand >= lb) & (cand < ub)
+    n_on, n_window = int(on.sum()), int(in_window.sum())
+    n_path = int(torch.unique(s[on]).numel())
+    n_par = int(torch.unique(s[in_window]).numel())
+    n_dst = (int(torch.unique(dst[slots][in_window]).numel()) if alt
+             else 0)
+    pa = paths.bool()
+    entries = int((vt_ptr[1:] - vt_ptr[:-1])[pa].sum())
+    n_src, e, nt = dist.shape[0], src.shape[0], tile_first.shape[0]
+    n_slots = slots.shape[0]
+    shared = (n_src + 8 * int(pa.sum()) + 4 * entries + 4 * forced.shape[0]
+              + 4 * n_path + 4 * n_par + 4 * n_dst + 8 * n_out + 16)
+    new = shared + 4 * (n_slots + n_on + n_window)
+    if fn == "relax_bucket":
+        old = 4 * e + 8 * n_slots + nt + 5 * n_out + 8 * n_out
+    else:
+        old = (4 * e + nt + 8 * n_slots + n_src + 4 * n_path
+               + 4 * n_par + 8 * n_out + 16)
+    return new, shared + 12 * n_slots, old + 4 * n_dst, dict(
+        path_sources=n_path, parent_sources=n_par, index_entries=entries,
+        path_slots=n_on, destinations=n_dst)
+
+
+def library_round(args, kw, slots, want):
+    """The library yardstick of a one-round kernel: the whole output by
+    one PyTorch scatter.  The keys are filled, ``scatter_reduce_`` (amin)
+    takes the packed (value bits, source id) keys of the in-window kept
+    candidates of the scheduled tiles' ``slots`` (found and packed
+    beforehand: no schedule, gather or counter is timed), and the keys
+    are unpacked to ``vals`` and ``wins``, which must equal the plain
+    version's.  Returns its device ms (:func:`graph_ms`), the parent's
+    scatter-only figure (``scatter_reduce_`` alone into filled keys, over
+    every slot of the scheduled tiles, eager), the in-window and the kept
+    candidates."""
+    from repro_torch.kernels.edge_relax import ref
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, *alt = args
+    n_out = kw["n_out"]
     s_src, s_dst = src[slots].long(), dst[slots].long()
     cand = dist[s_src] + w[slots]
     ok = paths[s_src] & (cand >= lb) & (cand < ub)
     n_window = int(ok.sum())
-    if alt_lb is not None:
-        ok = ok & (cand + alt_lb[s_dst] <= prune_bound)
-    empty = (0x7F800000 << 32) | 0x7FFFFFFF
+    if alt:
+        ok = ok & (cand + alt[0][s_dst] <= alt[1])
     packed = torch.where(ok, (cand.view(torch.int32).long() << 32) | s_src,
-                         empty)
-    keys = torch.full((n_out,), empty, dtype=torch.int64, device=w.device)
-    ms = cuda_ms(lambda: keys.scatter_reduce_(0, s_dst, packed, "amin"))
-    return ms, s_n, n_window, int(ok.sum())
+                         ref.EMPTY_KEY)
+    kept, k_dst = packed[ok], s_dst[ok]
+
+    def whole():
+        keys = torch.full((n_out,), ref.EMPTY_KEY, dtype=torch.int64,
+                          device=w.device)
+        keys.scatter_reduce_(0, k_dst, kept, "amin")
+        return ((keys >> 32).to(torch.int32).view(torch.float32),
+                (keys & 0xFFFFFFFF).to(torch.int32))
+    vals, wins = whole()
+    if not (bitwise_equal(vals, want[0]) and wins.equal(want[1])):
+        raise AssertionError("the library yardstick's output differs from "
+                             "the plain version's")
+    keys = torch.full((n_out,), ref.EMPTY_KEY, dtype=torch.int64,
+                      device=w.device)
+    scatter_ms = cuda_ms(lambda: keys.scatter_reduce_(0, s_dst, packed,
+                                                      "amin"))
+    return graph_ms(whole), scatter_ms, n_window, int(ok.sum())
+
+
+def round_numbers(fn: str, args, kw, what: str):
+    """One one-round kernel call (``fn`` is ``relax_bucket``, row 1, or
+    ``relax_partials``, row 3; ALT when ``args`` carry ``alt_lb`` and the
+    bound) on the main path's inputs: the check against the plain
+    version (:func:`round_pair`), the kernel's device time
+    (:func:`graph_ms`) and eager time (:func:`cuda_ms`, the host's
+    launch cost included), the plain version's, the library yardstick's
+    (:func:`library_round`, with the parent's scatter-only figure), the
+    bounds (:func:`bound_bytes`), and with ``--parent`` the parent
+    design's device and eager times on the same inputs, timed parent,
+    new, new, parent."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    out, want = round_pair(args, kw, what, fn)
+    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
+    call = lambda: getattr(ops, fn)(*args, **kw)
+    times = dict(ms=[], eager_ms=[], parent_ms=[], parent_eager_ms=[])
+    turns = ((PARENT is not None, "parent_"), (True, ""), (True, ""),
+             (PARENT is not None, "parent_"))
+    for on, tag in turns:
+        if on:
+            f = parent_call(fn, args, kw) if tag else call
+            times[f"{tag}ms"].append(graph_ms(f))
+            times[f"{tag}eager_ms"].append(cuda_ms(f))
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
+    plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args,
+                                                           **plain_kw))
+    slots = scheduled_slots(args, kw)
+    library_ms, scatter_ms, n_window, n_kept = library_round(args, kw, slots,
+                                                             want)
+    new_b, slots_b, old_b, seen = bound_bytes(args, kw, slots, fn)
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    return dict(
+        ms=mean(times["ms"]), eager_ms=mean(times["eager_ms"]),
+        parent_ms=mean(times["parent_ms"]),
+        parent_eager_ms=mean(times["parent_eager_ms"]), turns=times,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_scatter_ms=scatter_ms,
+        bound_ms=new_b / HBM_BYTES_PER_S * 1e3,
+        bound_ms_12b_slots=slots_b / HBM_BYTES_PER_S * 1e3,
+        bound_ms_old=old_b / HBM_BYTES_PER_S * 1e3, bytes=new_b,
+        bytes_12b_slots=slots_b, bytes_old=old_b, max_abs_err=err,
+        sched_tiles=slots.shape[0] // kw["tile_e"],
+        n_tiles=int(args[6].shape[0]), candidates=n_window, kept=n_kept,
+        counts=dict(zip(ops.PARTIAL_COUNTERS, out[2].tolist())), **seen,
+        window=[float(args[7]), float(args[8])])
+
+
+def measure(res, device):
+    args, kw = window_inputs(res, device)
+    return round_numbers("relax_bucket", args, kw, "on the main path's "
+                         "layout")
 
 
 def fused_window_inputs(res, device):
@@ -1048,41 +1215,17 @@ def mid_query_call(res, query, lm, fused: bool, device):
 
 def measure_alt(res, lm, query, device):
     """``edge_relax``'s ALT branch at the middle call of an ALT query of
-    the p2p phase, against its plain version there; ``ms_without_alt`` is
-    the kernel on the same state without the cut."""
-    from repro_torch.kernels.edge_relax import ops, ref
+    the p2p phase (:func:`round_numbers`); ``ms_without_alt`` is the
+    kernel's device time on the same state without the cut."""
+    from repro_torch.kernels.edge_relax import ops
     args, kw, k, calls = mid_query_call(res, query, lm, False, device)
-    dist, paths, src, dst, w, tile_first, lb, ub, alt_lb, bound = args
-    vals, wins, nt = ops.relax_bucket(*args, **kw)
-    pv, pw = ref.edge_relax_ref(dist, paths, src, dst, w, lb, ub, alt_lb,
-                                bound, n_out=kw["n_out"])
-    _, pn = ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
-    if not (bitwise_equal(vals, pv) and wins.equal(pw)
-            and int(nt) == int(pn)):
-        raise AssertionError("edge_relax[alt] disagrees with its plain "
-                             "version at the query's middle call")
-    err = float((vals - pv).abs().nan_to_num(0.0).max())
-    kernel_ms = cuda_ms(lambda: ops.relax_bucket(*args, **kw))
-    no_alt_ms = cuda_ms(lambda: ops.relax_bucket(*args[:8], **kw))
-
-    def plain():
-        ref.edge_relax_ref(dist, paths, src, dst, w, lb, ub, alt_lb, bound,
-                           n_out=kw["n_out"])
-        ref.schedule_tiles(paths, src, w, tile_first, kw["tile_e"])
-    plain_ms = cuda_ms(plain)
-    library_ms, s_n, n_window, n_kept = library_scatter_ms(*args, **kw)
-    # row 1's least bytes, plus 4 B of alt_lb per distinct destination of
-    # the in-window candidates
-    n_dst = window_destinations(dist, paths, src, dst, w, lb, ub)
-    e, n_tiles_all, n_out = src.shape[0], tile_first.shape[0], kw["n_out"]
-    bytes_ = (4 * e + 8 * s_n * kw["tile_e"] + n_tiles_all + 5 * n_out
-              + 8 * n_out + 4 * n_dst)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                ms_without_alt=no_alt_ms, sched_tiles=s_n, bytes=bytes_,
-                candidates=n_window, destinations=n_dst, kept=n_kept,
-                query=[query["source"], query["target"]], call=[k, calls],
-                window=[float(lb), float(ub)], prune_bound=float(bound))
+    m = round_numbers("relax_bucket", args, kw, "[alt] at the query's "
+                      "middle call")
+    m.update(ms_without_alt=graph_ms(lambda: ops.relax_bucket(*args[:9],
+                                                              **kw)),
+             query=[query["source"], query["target"]], call=[k, calls],
+             prune_bound=float(args[10]))
+    return m
 
 
 def fused_round_destinations(args, tile_e: int, n_exec: int, want):
@@ -1152,28 +1295,21 @@ def init_group(store_dir: str):
 
 def shard_inputs(arrays, q: int, block: int, dist, paths, parent, device):
     """Shard ``q``'s slabs and its slice of the padded state, on the card,
-    as :func:`relax_partials` takes them."""
+    as :func:`relax_partials` takes them, and the shard's tile index."""
+    from repro_torch.core.graph import TileIndex
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     lo, hi = q * block, (q + 1) * block
     return (dist[lo:hi], paths[lo:hi], parent[lo:hi], t(arrays.src[q]),
-            t(arrays.dst[q]), t(arrays.w[q]), t(arrays.tile_first[q]))
+            t(arrays.dst[q]), t(arrays.w[q]), t(arrays.tile_first[q])), \
+        TileIndex(arrays.vt_ptr[q], arrays.vt_tile[q],
+                  arrays.forced[q]).to(device)
 
 
 def partials_pair(args, lb, ub, kw, what, alt=()):
-    """The kernel (called twice, to catch races) against its plain version
-    on one shard, with the ALT operands ``alt`` (``alt_lb``, the prune
-    bound) if given; returns both outputs, raises on a disagreement."""
-    from repro_torch.kernels.edge_relax import ops, ref
-    want = ref.edge_relax_partials_ref(*args, lb, ub, *alt, **kw)
-    for _ in range(2):
-        out = ops.relax_partials(*args, lb, ub, *alt, **kw)
-        if not (bitwise_equal(out[0], want[0]) and out[1].equal(want[1])
-                and out[2].equal(want[2])):
-            raise AssertionError(
-                f"edge_relax_partials{'[alt]' if alt else ''} {what}: "
-                f"kernel {out[2].tolist()} and plain version "
-                f"{want[2].tolist()} disagree")
-    return out, want
+    """:func:`round_pair` for ``relax_partials`` on one shard, with the
+    ALT operands ``alt`` (``alt_lb``, the prune bound) if given."""
+    return round_pair(args + (lb, ub) + tuple(alt), kw,
+                      f"{'[alt] ' if alt else ''}{what}", "relax_partials")
 
 
 def mid_solve_window(res, n_pad, device):
@@ -1228,9 +1364,9 @@ def random_shard_calls(rng, n_random: int, device):
         lb, ub = (f32(0.0), f32(np.inf)) if lb0 else (f32(1.0), f32(4.0))
         kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
         for q in range(p):
-            args = shard_inputs(arrays, q, block, t(d), t(front), t(par),
-                                device)
-            yield args, lb, ub, kw, (
+            args, index = shard_inputs(arrays, q, block, t(d), t(front),
+                                       t(par), device)
+            yield args, lb, ub, dict(kw, index=index), (
                 f"random case {i} (n={n} m={m} P={p} block_v={meta.block_v} "
                 f"tile_e={tile_e} ties={ties} lb0={lb0}) shard {q}")
 
@@ -1253,8 +1389,10 @@ def partials_vs_plain(results, device, seed: int = 2,
     kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
     checked = 0
     for q in range(4):
-        args = shard_inputs(arrays, q, block, dist, paths, parent, device)
-        partials_pair(args, lb, ub, kw, f"kronecker(20,16) shard {q}/4")
+        args, index = shard_inputs(arrays, q, block, dist, paths, parent,
+                                   device)
+        partials_pair(args, lb, ub, dict(kw, index=index),
+                      f"kronecker(20,16) shard {q}/4")
         checked += 1
     log(f"[kernel-vs-plain] edge_relax_partials: kronecker(20,16) P=4 "
         f"block_v={meta.block_v} tile_e={meta.tile_e} "
@@ -1280,11 +1418,14 @@ def sharded_path(results, device):
         hg, source, n = res["host"], res["source"], res["host"].n
         t0 = time.perf_counter()
         sg = shard_graph(hg, 1)
-        layout = shard_blocked(sg, device=device)
+        with IndexSeconds() as index_s:
+            layout = shard_blocked(sg, device=device)
         layout_s = time.perf_counter() - t0
-        log(f"[layout] {name} v1: P=1 block_v={layout[1].block_v} "
-            f"tile_e={layout[1].tile_e} padded slots="
-            f"{layout[0].src.shape[1]} in {layout_s:.2f} s")
+        arrays, meta = layout
+        log(f"[layout] {name} v1: P=1 block_v={meta.block_v} "
+            f"tile_e={meta.tile_e} padded slots={arrays.src.shape[1]} in "
+            f"{layout_s:.2f} s, of which the vertex->tile index "
+            f"{index_s.s:.2f} s ({arrays.vt_tile.shape[-1]} entries)")
         LAUNCHES.reset()
         vd, vp, vm, vs, vt = solve(sg, source, "blocked", device,
                                    sharded=True, blocked=layout)
@@ -1309,9 +1450,9 @@ def sharded_path(results, device):
             raise AssertionError(
                 f"{name}: the v1 blocked solve launched edge_relax_partials "
                 f"{launches} times and edge_relax/edge_relax_fused {stray}")
-        for what, secs, md, n_launch, phases in (
-                ("v1 blocked", vs, vmd, launches, vt),
-                ("v1 segment_min", ss, smd, None, st)):
+        v1_solves = [("v1 blocked", vs, vmd, launches, vt),
+                     ("v1 segment_min", ss, smd, None, st)]
+        for what, secs, md, n_launch, phases in v1_solves:
             spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
                              for k, v in phases.items())
             log(f"[solve] {name} {what}: source={source} {secs!r} s, "
@@ -1485,9 +1626,11 @@ def partials_alt_vs_plain(results, v1q, device, seed: int = 6,
     kw = dict(tile_e=meta.tile_e, n_out=n_out)
     checked = 0
     for q in range(4):
-        args = shard_inputs(arrays, q, block, dist4, paths4, parent4, device)
-        partials_pair(args, lb, ub, kw, f"{name} shard {q}/4 at the v1 "
-                      f"query's call {mid['k']} of {mid['calls']}", alt)
+        args, index = shard_inputs(arrays, q, block, dist4, paths4, parent4,
+                                   device)
+        partials_pair(args, lb, ub, dict(kw, index=index), f"{name} shard "
+                      f"{q}/4 at the v1 query's call {mid['k']} of "
+                      f"{mid['calls']}", alt)
         checked += 1
     rng = np.random.default_rng(seed)
     cases = ("inf", "below-all", "tie", "between")
@@ -1516,80 +1659,30 @@ def partials_alt_vs_plain(results, v1q, device, seed: int = 6,
 
 def measure_partials_alt(res, mid, device):
     """``edge_relax_partials``' ALT branch at the middle kernel call of a
-    v1 ALT query, against its plain version there; ``ms_without_alt`` is
-    the kernel on the same state without the cut."""
-    from repro_torch.kernels.edge_relax import ops, ref
+    v1 ALT query (:func:`round_numbers`); ``ms_without_alt`` is the
+    kernel's device time on the same state without the cut."""
+    from repro_torch.kernels.edge_relax import ops
     args, kw = mid["args"], mid["kw"]
-    dist, paths, parent, src, dst, w, tile_first, lb, ub, alt_lb, bound = \
-        args
-    out, want = partials_pair(args[:7], lb, ub, kw, "at the v1 query's "
-                              "middle call", (alt_lb, bound))
-    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
-    kernel_ms = cuda_ms(lambda: ops.relax_partials(*args, **kw))
-    no_alt_ms = cuda_ms(lambda: ops.relax_partials(*args[:9], **kw))
-    plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args, **kw))
-    library_ms, s_n, n_cand, n_kept = library_scatter_ms(
-        dist, paths, src, dst, w, tile_first, lb, ub, alt_lb, bound, **kw)
-    # row 3's least bytes, plus 4 B of alt_lb per distinct destination of
-    # the in-window candidates
-    s = src.long()
-    live = paths[s].bool() & torch.isfinite(w)
-    cand = dist[s] + w
-    in_window = live & (cand >= lb) & (cand < ub)
-    n_path = int(torch.unique(s[live]).numel())
-    n_par = int(torch.unique(s[in_window]).numel())
-    n_dst = window_destinations(dist, paths, src, dst, w, lb, ub)
-    e, nt, n_src, n_out = src.shape[0], tile_first.shape[0], \
-        dist.shape[0], kw["n_out"]
-    bytes_ = (4 * e + nt + 8 * s_n * kw["tile_e"] + n_src + 4 * n_path
-              + 4 * n_par + 8 * n_out + 16 + 4 * n_dst)
-    cnt = dict(zip(ops.PARTIAL_COUNTERS, out[2].tolist()))
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                ms_without_alt=no_alt_ms, bytes=bytes_, counts=cnt,
-                candidates=n_cand, kept=n_kept, destinations=n_dst,
-                query=mid["query"], call=[mid["k"], mid["calls"]],
-                window=[float(lb), float(ub)], prune_bound=float(bound))
+    m = round_numbers("relax_partials", args, kw, "[alt] at the v1 query's "
+                      "middle call")
+    m.update(ms_without_alt=graph_ms(lambda: ops.relax_partials(*args[:9],
+                                                                **kw)),
+             query=mid["query"], call=[mid["k"], mid["calls"]],
+             prune_bound=float(args[10]))
+    return m
 
 
 def measure_partials(res, device):
     """``edge_relax_partials`` at the main path's shape (the whole graph
-    as one shard) and its mid-solve window."""
-    from repro_torch.kernels.edge_relax import ops, ref
+    as one shard) and its mid-solve window (:func:`round_numbers`)."""
     arrays, meta = res["shard_layout"]
     block = meta.n_src_blocks * meta.block_v
     dist, paths, parent, lb, ub = mid_solve_window(res, block, device)
-    args = shard_inputs(arrays, 0, block, dist, paths, parent, device)
-    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v)
-    out, want = partials_pair(args, lb, ub, kw, "main path layout")
-    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
-    kernel_ms = cuda_ms(lambda: ops.relax_partials(*args, lb, ub, **kw))
-    plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args, lb, ub,
-                                                           **kw))
-    d, pa, _, src, dst, w, tile_first = args
-    library_ms, s_n, n_cand, _ = library_scatter_ms(
-        d, pa, src, dst, w, tile_first, lb, ub, **kw)
-    # least bytes for this round's data: src of every slot and tile_first
-    # (the flag pass), dst and w of the scheduled slots, paths of every
-    # source, dist of each source with a path and a real edge, parent of
-    # each source with an in-window candidate, val and win written once,
-    # and the four counters
-    s = src.long()
-    live = pa[s].bool() & torch.isfinite(w)
-    cand = d[s] + w
-    in_window = live & (cand >= lb) & (cand < ub)
-    n_path = int(torch.unique(s[live]).numel())
-    n_par = int(torch.unique(s[in_window]).numel())
-    e, nt, n_src, n_out = src.shape[0], tile_first.shape[0], block, \
-        kw["n_out"]
-    bytes_ = (4 * e + nt + 8 * s_n * meta.tile_e + n_src + 4 * n_path
-              + 4 * n_par + 8 * n_out + 16)
-    cnt = dict(zip(ops.PARTIAL_COUNTERS, out[2].tolist()))
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                bytes=bytes_, counts=cnt, candidates=n_cand,
-                path_sources=n_path, parent_sources=n_par,
-                window=[float(lb), float(ub)])
+    args, index = shard_inputs(arrays, 0, block, dist, paths, parent, device)
+    kw = dict(tile_e=meta.tile_e, n_out=meta.n_dst_blocks * meta.block_v,
+              index=index)
+    return round_numbers("relax_partials", args + (lb, ub), kw,
+                         "on the main path's layout")
 
 
 # ---------------------------------------------------------------------------
@@ -2516,6 +2609,13 @@ def recsys_phases(device):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: time its "
+                    "edge_relax and edge_relax_partials on the same inputs "
+                    "as this tree's")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2533,6 +2633,12 @@ def main() -> int:
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    if opts.parent:
+        global PARENT
+        t0 = time.perf_counter()
+        PARENT = load_parent(opts.parent)
+        log(f"[build] the parent's kernels from {opts.parent} in "
+            f"{time.perf_counter() - t0:.2f} s")
 
     log(f"[kernel-vs-plain] edge_relax: {kernel_vs_plain(device)} random "
         "slab cases bitwise equal")
@@ -2639,6 +2745,12 @@ def report(graphs, device):
     per_query = lambda kind: {n: [q["solves"][kind]["launches"]
                                   for q in p2p[n]["queries"]]
                               for n in results}
+    def by_graph(numbers):
+        """Each graph's times and bounds of a one-round kernel row."""
+        keys = ("ms", "eager_ms", "parent_ms", "parent_eager_ms", "plain_ms",
+                "library_ms", "library_scatter_ms", "bound_ms",
+                "bound_ms_12b_slots", "bound_ms_old", "sched_tiles")
+        return {n: {k: m[k] for k in keys} for n, m in numbers.items()}
     kernels = [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -2649,6 +2761,7 @@ def report(graphs, device):
         "bound_ms": head["bound_ms"], "bound_by": "bytes",
         "library_ms": head["library_ms"],
         "launches_per_solve": {n: r["launches"] for n, r in results.items()},
+        "per_graph": by_graph(per_graph),
     }, {
         "name": "edge_relax[alt]", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -2658,6 +2771,7 @@ def report(graphs, device):
         "ms": ahead["ms"], "plain_ms": ahead["plain_ms"],
         "bound_ms": ahead["bound_ms"], "bound_by": "bytes",
         "library_ms": ahead["library_ms"],
+        "per_graph": by_graph(alt),
         "launches_per_graph": alt_per_graph,
         "launches_per_query": per_query("alt"),
         "launches_per_bidirectional_query": per_query("alt bidirectional"),
@@ -2687,27 +2801,26 @@ def report(graphs, device):
         "launches_per_query": per_query("alt fused"),
     }, {
         "name": "edge_relax_partials", "route": "cuda",
-        "source": "src/repro_torch/kernels/edge_relax/csrc/"
-                  "edge_relax_partials.cu",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
         "replaces": "src/repro/kernels/edge_relax/edge_relax.py:522",
         "launches": sum(r["v1_launches"] for r in results.values()),
         "max_abs_err": max(m["max_abs_err"] for m in partials.values()),
         "ms": phead["ms"], "plain_ms": phead["plain_ms"],
         "bound_ms": phead["bound_ms"], "bound_by": "bytes",
         "library_ms": phead["library_ms"],
+        "per_graph": by_graph(partials),
         "launches_per_solve": {n: r["v1_launches"]
                                for n, r in results.items()},
     }, {
         "name": "edge_relax_partials[alt]", "route": "cuda",
-        "source": "src/repro_torch/kernels/edge_relax/csrc/"
-                  "edge_relax_partials.cu",
+        "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
         "replaces": "src/repro/kernels/edge_relax/edge_relax.py:497",
         "launches": sum(map(sum, v1_alt_launches.values())),
         "max_abs_err": max(m["max_abs_err"] for m in partials_alt.values()),
         "ms": pahead["ms"], "plain_ms": pahead["plain_ms"],
         "bound_ms": pahead["bound_ms"], "bound_by": "bytes",
         "library_ms": pahead["library_ms"],
-        "ms_per_graph": {n: m["ms"] for n, m in partials_alt.items()},
+        "per_graph": by_graph(partials_alt),
         "launches_per_query": v1_alt_launches,
     }]
     solves = {"solves": {n: dict(

@@ -20,6 +20,10 @@ nothing of the reference package):
   meta fields ``block_v, tile_e, n_src_blocks, n_dst_blocks,
   dense_grid_tiles``.
 
+The port's vertex->tile index (``TileIndex``), which the reference does
+not have, is built here from the carried slots, as the port's own layout
+functions build it.
+
 :func:`landmarks_from_reference` carries a reference ``LandmarkSet``
 across, flattened into its ``.npz`` fields ``landmarks, D, strategy, sym,
 max_hops``, so that both packages prune with the same matrix.
@@ -39,8 +43,8 @@ import numpy as np
 import torch
 
 from .core.distributed import (BlockedShardMeta, BlockedShards,
-                               ShardedGraph)
-from .core.graph import BlockedGraph, DeviceGraph, HostGraph
+                               ShardedGraph, stack_tile_index)
+from .core.graph import BlockedGraph, DeviceGraph, HostGraph, tile_index
 from .core.landmarks import LandmarkSet
 
 _SLAB_FIELDS = ("src_local", "dst", "w", "tile_dst", "tile_first",
@@ -81,6 +85,8 @@ def _blocked(a: dict, dev: torch.device) -> BlockedGraph:
         np.concatenate([s[f] for s in slabs]).astype(dtype))).to(dev)
     src = np.concatenate([s["src_local"].astype(np.int32) + i * bv
                           for i, s in enumerate(slabs)])
+    w = np.concatenate([s["w"] for s in slabs]).astype(np.float32)
+    tf = np.concatenate([s["tile_first"] for s in slabs]).astype(bool)
     return BlockedGraph(
         n=int(a["n"]), block_v=bv, n_blocks=nb,
         n_dst_blocks=int(a["n_dst_blocks"]), tile_e=int(a["tile_e"]),
@@ -91,7 +97,8 @@ def _blocked(a: dict, dev: torch.device) -> BlockedGraph:
         tile_first=cat("tile_first", bool),
         bucket_nonempty=torch.from_numpy(np.stack(
             [s["bucket_nonempty"].astype(bool) for s in slabs])).to(dev),
-        deg=torch.from_numpy(np.array(a["deg"], np.int32)).to(dev))
+        deg=torch.from_numpy(np.array(a["deg"], np.int32)).to(dev),
+        index=tile_index(src, w, tf, int(a["tile_e"]), nb * bv).to(dev))
 
 
 def _sharded(a: dict) -> ShardedGraph:
@@ -113,11 +120,16 @@ def _blocked_shards(a: dict):
     p, n_sb = src.shape[:2]
     offs = (np.arange(n_sb, dtype=np.int32) * meta.block_v)[None, :, None]
     flat = lambda f, dtype: np.asarray(a[f], dtype).reshape(p, -1)
+    src, w, tf = ((src + offs).reshape(p, -1), flat("w", np.float32),
+                  flat("tile_first", bool))
+    index = stack_tile_index([
+        tile_index(src[q], w[q], tf[q], meta.tile_e, n_sb * meta.block_v)
+        for q in range(p)])
     arrays = BlockedShards(
-        src=(src + offs).reshape(p, -1), dst=flat("dst", np.int32),
-        w=flat("w", np.float32), tile_dst=flat("tile_dst", np.int32),
-        tile_first=flat("tile_first", bool),
-        bucket_nonempty=np.asarray(a["bucket_nonempty"], bool))
+        src=src, dst=flat("dst", np.int32), w=w,
+        tile_dst=flat("tile_dst", np.int32), tile_first=tf,
+        bucket_nonempty=np.asarray(a["bucket_nonempty"], bool),
+        **index._asdict())
     return arrays, meta
 
 

@@ -58,14 +58,15 @@ import torch.distributed as tdist
 
 from . import relax
 from . import sssp as single
-from .graph import (DEFAULT_ALPHA, DEFAULT_BETA, HostGraph, shard_block_v,
-                    shard_geometry, slice_for_shard)
+from .graph import (DEFAULT_ALPHA, DEFAULT_BETA, HostGraph, TileIndex,
+                    shard_block_v, shard_geometry, slice_for_shard)
 from .relax import INF, count
 from .sssp import (SsspMetrics, SsspState, _check_goal_bounds,
                    goal_param_array, resolve_device)
 
 __all__ = ["ShardedGraph", "shard_graph", "BlockedShards",
-           "BlockedShardMeta", "shard_blocked", "DIST_BACKENDS",
+           "BlockedShardMeta", "shard_blocked", "stack_tile_index",
+           "DIST_BACKENDS",
            "sssp_distributed", "sssp_distributed_batch",
            "repair_distributed"]
 
@@ -149,6 +150,10 @@ class BlockedShards(NamedTuple):
     tile_dst: np.ndarray         # [P, S*NT] int32 dst block per tile
     tile_first: np.ndarray       # [P, S*NT] bool forced first tiles
     bucket_nonempty: np.ndarray  # [P, S, NB] bool bucket has edges
+    # each shard's TileIndex over its local sources (stack_tile_index)
+    vt_ptr: np.ndarray           # [P, B+1] int32
+    vt_tile: np.ndarray          # [P, max entries] int32, 0-padded
+    forced: np.ndarray           # [P, max forced] int32, tile 0 repeated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +164,19 @@ class BlockedShardMeta:
     n_src_blocks: int            # S, source blocks per shard
     n_dst_blocks: int            # NB, destination blocks (global range)
     dense_grid_tiles: int        # global per-round cost of the dense scan
+
+
+def stack_tile_index(indexes) -> TileIndex:
+    """The shards' :class:`~repro_torch.core.graph.TileIndex` arrays
+    stacked ``[P, ...]``.  ``vt_tile`` is padded with zeros, which no
+    ``vt_ptr`` range reaches; ``forced`` with tile 0, which is forced in
+    every shard (its first slab's first tile), so a repeat adds no tile
+    to the schedule."""
+    pad = lambda arrays: np.stack([np.pad(a, (0, max(map(len, arrays))
+                                              - len(a))) for a in arrays])
+    return TileIndex(vt_ptr=np.stack([ix.vt_ptr for ix in indexes]),
+                     vt_tile=pad([ix.vt_tile for ix in indexes]),
+                     forced=pad([ix.forced for ix in indexes]))
 
 
 def _flat_edges(sg: ShardedGraph):
@@ -203,8 +221,10 @@ def shard_blocked(g, n_shards: Optional[int] = None, *,
     nt = max(int((-(-counts.reshape(-1, n_dst) // tile_e)).sum(1).max()), 1)
     slices = [slice_for_shard(g, q, n_shards, block_v=bv, tile_e=tile_e,
                               n_tiles=nt) for q in range(n_shards)]
-    arrays = BlockedShards(*(np.stack([getattr(sl, f) for sl in slices])
-                             for f in BlockedShards._fields))
+    arrays = BlockedShards(
+        **{f: np.stack([getattr(sl, f) for sl in slices])
+           for f in BlockedShards._fields if f not in TileIndex._fields},
+        **stack_tile_index([sl.index for sl in slices])._asdict())
     meta = BlockedShardMeta(
         block_v=bv, tile_e=tile_e, n_src_blocks=slices[0].n_blocks,
         n_dst_blocks=slices[0].n_dst_blocks,
@@ -271,6 +291,7 @@ class _DeviceSlabs(NamedTuple):
     dst: torch.Tensor
     w: torch.Tensor
     tile_first: torch.Tensor
+    index: TileIndex         # over the shard's local sources
     base: int                # global id of the shard's first source
     block: int
     tile_e: int
@@ -357,7 +378,8 @@ def _v1_relax_round(view: _ShardView, slabs: Optional[_DeviceSlabs],
                 slabs.src, slabs.dst, slabs.w, slabs.tile_first,
                 dist[lo:hi], paths[lo:hi], parent[lo:hi], slabs.base,
                 st_.lb, st_.ub, tile_e=slabs.tile_e, n_out=n_pad,
-                alt_lb=None if ac is None else ac.lb, prune_bound=pb)
+                index=slabs.index, alt_lb=None if ac is None else ac.lb,
+                prune_bound=pb)
         counts = torch.stack([trav, rlx, n_tiles, prn, zero + 1])
         dense = slabs.dense_grid_tiles
     best, winner = _merge_partials(best_l, win_l, view.group)
@@ -446,6 +468,8 @@ def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
         slabs = _DeviceSlabs(
             src=t(arrays.src[rank]), dst=t(arrays.dst[rank]),
             w=t(arrays.w[rank]), tile_first=t(arrays.tile_first[rank]),
+            index=TileIndex(t(arrays.vt_ptr[rank]), t(arrays.vt_tile[rank]),
+                            t(arrays.forced[rank])),
             base=rank * block, block=block, tile_e=meta.tile_e,
             dense_grid_tiles=meta.dense_grid_tiles)
     c = single._consts(deg, alpha, beta)

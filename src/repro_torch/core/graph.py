@@ -150,6 +150,57 @@ class BlockedEdges(NamedTuple):
     bucket_nonempty: torch.Tensor  # [n_dst_blocks] bool
 
 
+class TileIndex(NamedTuple):
+    """The vertex->tile index that drives the CUDA kernels' schedule.
+
+    For each source id ``s`` of a slab set, ``vt_tile[vt_ptr[s]:
+    vt_ptr[s+1]]`` lists, ascending and without repeats, the tiles that
+    hold a finite-weight slot of ``s`` (padding slots and real edges of
+    weight +inf are left out, as ``schedule_tiles`` leaves them out);
+    ``forced`` lists the ``tile_first`` tiles.  The tiles a round must
+    run are then those of its path sources and the forced ones: exactly
+    ``schedule_tiles``' set, found by reading the frontier instead of
+    every slot.  numpy arrays on the host, tensors on a device."""
+    vt_ptr: object                 # [n_src + 1] int32 offsets into vt_tile
+    vt_tile: object                # [entries] int32 tile ids
+    forced: object                 # [n_forced] int32 tile_first tiles
+
+    def to(self, device) -> "TileIndex":
+        return TileIndex(*(torch.from_numpy(np.ascontiguousarray(a))
+                           .to(device) if isinstance(a, np.ndarray)
+                           else a.to(device) for a in self))
+
+
+def _drop_repeats(s, t):
+    """``(s, t)`` pairs less those equal to the pair before them."""
+    keep = np.ones(s.size, bool)
+    keep[1:] = (s[1:] != s[:-1]) | (t[1:] != t[:-1])
+    return s[keep], t[keep]
+
+
+def tile_index(src, w, tile_first, tile_e: int, n_src: int) -> TileIndex:
+    """Build the :class:`TileIndex` of a tile-aligned slab set (numpy).
+
+    ``src`` holds the source ids the kernels index with (global ids of a
+    :class:`BlockedGraph`, shard-local ones of a shard), below ``n_src``.
+    Slots are visited in tile order, so each source's tiles come out
+    ascending; repeats within a tile are dropped before the one sort."""
+    live = np.flatnonzero(np.isfinite(np.asarray(w)))
+    s, t = _drop_repeats(np.asarray(src)[live].astype(np.int32),
+                         (live // tile_e).astype(np.int32))
+    order = np.argsort(s, kind="stable")
+    s, t = _drop_repeats(s[order], t[order])
+    counts = np.bincount(s, minlength=n_src)
+    if counts.size > n_src:
+        raise ValueError(f"source ids outside [0, {n_src})")
+    if s.size >= 2 ** 31:
+        raise ValueError("the tile index has 2^31 entries or more")
+    vt_ptr = np.zeros(n_src + 1, np.int32)
+    np.cumsum(counts, out=vt_ptr[1:])
+    forced = np.flatnonzero(np.asarray(tile_first)).astype(np.int32)
+    return TileIndex(vt_ptr=vt_ptr, vt_tile=t, forced=forced)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlockedGraph:
     """2-D blocked edge layout: edges bucketed by (src block x dst block).
@@ -175,6 +226,7 @@ class BlockedGraph:
     tile_first: torch.Tensor         # [NT] bool forced first tiles
     bucket_nonempty: torch.Tensor    # [n_blocks, n_dst_blocks] bool
     deg: torch.Tensor                # [n_blocks * block_v] int32, 0-padded
+    index: TileIndex                 # vertex->tile index over [0, n_pad)
 
     @property
     def n_pad(self) -> int:
@@ -209,7 +261,8 @@ def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
     the slab's last real destination block (the reference's
     ``bucket_edges(..., n_tiles=)``).
     Returns numpy ``(src, dst, w, tile_dst, tile_first, nonempty,
-    tiles_per, slab_ptr)``.
+    tiles_per, slab_ptr, index)``, ``index`` the :class:`TileIndex` over
+    the ``n_src_blocks * block_v`` source ids.
     """
     db = dst // block_v
     if db.size and (db.min() < 0 or db.max() >= n_dst_blocks):
@@ -261,8 +314,10 @@ def _bucket(sb, src, dst, w, *, n_src_blocks, n_dst_blocks, block_v, tile_e,
     tile_first[bucket_tile0[counts > 0]] = True
     tile_first[slab_ptr[:-1]] = True          # >= 1 scheduled tile per slab
     nonempty = (counts > 0).reshape(n_src_blocks, n_dst_blocks)
+    index = tile_index(s_out, w_out, tile_first, tile_e,
+                       n_src_blocks * block_v)
     return (s_out, d_out, w_out, tile_dst, tile_first, nonempty,
-            tiles_per.reshape(n_src_blocks, n_dst_blocks), slab_ptr)
+            tiles_per.reshape(n_src_blocks, n_dst_blocks), slab_ptr, index)
 
 
 def bucket_edges(src_local, dst, w, *, n_dst_blocks: int, block_v: int,
@@ -276,7 +331,7 @@ def bucket_edges(src_local, dst, w, *, n_dst_blocks: int, block_v: int,
     src_local = np.asarray(src_local, np.int32)
     dst = np.asarray(dst, np.int32)
     w = np.asarray(w, np.float32)
-    s, d, ww, td, tf, ne, tiles_per, _ = _bucket(
+    s, d, ww, td, tf, ne, tiles_per, _, _ = _bucket(
         np.zeros(src_local.shape, np.int64), src_local, dst, w,
         n_src_blocks=1, n_dst_blocks=n_dst_blocks, block_v=block_v,
         tile_e=tile_e)
@@ -324,7 +379,7 @@ def build_blocked(g, *, block_v: int | None = None,
     deg = as_np(g.deg)
     n = int(deg.shape[0])
     n_blocks = max(-(-n // block_v), 1)
-    s, d, ww, td, tf, ne, _, slab_ptr = _bucket(
+    s, d, ww, td, tf, ne, _, slab_ptr, index = _bucket(
         src // block_v, src, dst, w, n_src_blocks=n_blocks,
         n_dst_blocks=n_blocks, block_v=block_v, tile_e=tile_e,
         src_base=block_v)
@@ -340,7 +395,7 @@ def build_blocked(g, *, block_v: int | None = None,
         tile_e=tile_e, dense_grid_tiles=dense,
         slab_ptr=tuple(int(x) for x in slab_ptr), src=t(s), dst=t(d),
         w=t(ww), tile_dst=t(td), tile_first=t(tf), bucket_nonempty=t(ne),
-        deg=t(deg_pad))
+        deg=t(deg_pad), index=index.to(dev))
 
 
 def shard_block_v(block: int, block_v: int) -> int:
@@ -395,6 +450,7 @@ class ShardSlice:
     tile_first: np.ndarray           # [NT] bool forced first tiles
     bucket_nonempty: np.ndarray      # [n_blocks, n_dst_blocks] bool
     deg: np.ndarray                  # [n_blocks * block_v] int32, 0-padded
+    index: TileIndex                 # vertex->tile index over [0, block)
 
     @property
     def n_out(self) -> int:
@@ -439,7 +495,7 @@ def slice_for_shard(g, shard: int, n_shards: int, *,
     lo = shard * block
     mine = (src >= lo) & (src < lo + block)
     local = (src[mine] - lo).astype(np.int32)
-    s, d, ww, td, tf, ne, _, slab_ptr = _bucket(
+    s, d, ww, td, tf, ne, _, slab_ptr, index = _bucket(
         local // bv, local, dst[mine], w[mine], n_src_blocks=n_src_blocks,
         n_dst_blocks=n_dst_blocks, block_v=bv, tile_e=tile_e, src_base=bv,
         n_tiles=n_tiles)
@@ -453,7 +509,8 @@ def slice_for_shard(g, shard: int, n_shards: int, *,
         n=n, block_v=bv, n_blocks=n_src_blocks, n_dst_blocks=n_dst_blocks,
         src_base=lo, tile_e=tile_e, dense_grid_tiles=dense,
         slab_ptr=tuple(int(x) for x in slab_ptr), src=s, dst=d, w=ww,
-        tile_dst=td, tile_first=tf, bucket_nonempty=ne, deg=deg_pad)
+        tile_dst=td, tile_first=tf, bucket_nonempty=ne, deg=deg_pad,
+        index=index)
 
 
 def degree_bucket_np(deg: np.ndarray) -> np.ndarray:

@@ -301,28 +301,22 @@ def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub,
 
     # one call over all source blocks' slabs (global source ids): the
     # per-block (min, min-id) partials of the reference combine by the
-    # same rule, so the result is the same
-    best, winner, n_tiles = relax_bucket(
-        dist_p, paths, bg.src, bg.dst, bg.w, bg.tile_first, lb, ub,
-        alt_p, prune_bound, tile_e=bg.tile_e, n_out=bg.n_out)
-
-    # the traversal counters are torch reductions over the slab (the
-    # kernel owns only the scatter-min); padding slots carry w=+inf and
-    # are never in the window
-    src = bg.src
-    cand, in_window, active = edge_candidates(
-        dist_p[src], paths[src], parent_p[src], bg.dst, bg.w, lb, ub)
-    n_pruned = torch.zeros((), dtype=torch.int32, device=dist.device)
-    if alt_p is not None:
-        active, pruned = alt_prune(cand, active, alt_p[bg.dst], prune_bound)
-        n_pruned = count(pruned)
+    # same rule, so the result is the same.  The call also counts the
+    # traversal (in-window slots, those not back along the parent edge,
+    # those the ALT cut drops) and the scheduled tiles, as the
+    # reference's pass over every slot does.
+    best, winner, cnt = relax_bucket(
+        dist_p, paths, parent_p, bg.src, bg.dst, bg.w, bg.tile_first, lb,
+        ub, alt_p, prune_bound, tile_e=bg.tile_e, n_out=bg.n_out,
+        index=bg.index)
+    n_trav, n_relax, n_tiles, n_pruned = cnt.unbind()
 
     new_dist, new_parent, improved = apply_updates(dist_p, parent_p, best,
                                                    winner)
     n = bg.n
     improved = improved[:n]
     rm = RoundMetrics(
-        improved=improved, n_trav=count(in_window), n_relax=count(active),
+        improved=improved, n_trav=n_trav, n_relax=n_relax,
         n_updates=count(improved),
         n_extended=count(improved & (bg.deg[:n] > 1)), n_pruned=n_pruned,
         n_tiles_scanned=n_tiles.to(torch.float32),
@@ -381,23 +375,25 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
 
 def blocked_shard_partials_fused(src, dst, w, tile_first, dist_src,
                                  paths_src, parent_src, src_base: int, lb,
-                                 ub, *, tile_e: int, n_out: int,
+                                 ub, *, tile_e: int, n_out: int, index=None,
                                  alt_lb=None, prune_bound=None):
     """One relaxation round over all of a shard's slabs in one kernel call.
 
     ``src`` (shard-local ids, the slabs' offsets already added), ``dst``,
     ``w`` and ``tile_first`` are the shard's concatenated slabs;
     ``dist_src``/``paths_src``/``parent_src`` its slice of the replicated
-    state.  With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d
-    f32) the kernel cuts candidates that cannot improve the p2p target
-    (its ALT branch).  Returns ``(best, winner, n_tiles, n_trav, n_relax,
-    n_pruned)`` over ``n_out`` destinations, with *global* winner ids
+    state; ``index`` its :class:`~repro_torch.core.graph.TileIndex`
+    (needed on the card).  With ``alt_lb`` (f32 ``[n_out]``) and
+    ``prune_bound`` (0-d f32) the kernel cuts candidates that cannot
+    improve the p2p target (its ALT branch).  Returns ``(best, winner,
+    n_tiles, n_trav, n_relax, n_pruned)`` over ``n_out`` destinations,
+    with *global* winner ids
     (``src_base`` added, ``INT_MAX`` kept); the counters are 0-d int32
     device tensors.
     """
     best, win_local, cnt = relax_partials(
         dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
-        alt_lb, prune_bound, tile_e=tile_e, n_out=n_out)
+        alt_lb, prune_bound, tile_e=tile_e, n_out=n_out, index=index)
     winner = torch.where(win_local == INT_MAX, win_local,
                          win_local + src_base)
     return best, winner, cnt[2], cnt[0], cnt[1], cnt[3]

@@ -1,13 +1,25 @@
 """Wrappers of the edge_relax kernels.
 
-:func:`relax_bucket` runs one relaxation round over a slab,
-:func:`relax_fused` up to ``fused_rounds`` rounds in one call, and
-:func:`relax_partials` one round over a shard's slabs for the sharded
-engines.  All take the tensors where they lie.  CPU tensors go to the
-plain versions in :mod:`.ref`; CUDA tensors go to the hand-written
-kernels in ``csrc/edge_relax.cu``, ``csrc/edge_relax_fused.cu`` and
-``csrc/edge_relax_partials.cu`` (built on first use), or the call raises.
-There is no fallback from one to the other.
+:func:`relax_bucket` runs one relaxation round over a device's slabs,
+:func:`relax_partials` the same round over a shard's slabs for the
+sharded engines (shard-local source ids), and :func:`relax_fused` up to
+``fused_rounds`` rounds in one call.  All take the tensors where they
+lie.  CPU tensors go to the plain versions in :mod:`.ref`; CUDA tensors
+go to the hand-written kernels in ``csrc/edge_relax.cu`` (both one-round
+entry points) and ``csrc/edge_relax_fused.cu`` (built on first use), or
+the call raises.  There is no fallback from one to the other.
+
+The one-round kernels schedule their tiles from the layout's
+vertex->tile index (``index=``, a
+:class:`~repro_torch.core.graph.TileIndex`) and keep three scratch
+buffers between calls, cached per (device, tile count, destination
+count) for the life of the process: a flag word per tile and the packed
+keys, which every call leaves cleared, and the schedule.  Calls on one
+device must therefore be ordered on one stream.  A call may be captured
+in a CUDA graph only after an eager call of the same sizes has made its
+scratch; the graph then holds that scratch's addresses, which stay valid
+because the cache never evicts (about 8 B a tile and 8 B a destination
+per layout size) and drops an entry only when a launch on it failed.
 """
 from __future__ import annotations
 
@@ -15,14 +27,14 @@ import ctypes
 
 import torch
 
-from .ref import (FUSED_COUNTERS, INT_MAX, PARTIAL_COUNTERS,
+from .ref import (EMPTY_KEY, FUSED_COUNTERS, INT_MAX, PARTIAL_COUNTERS,
                   edge_relax_fused_ref, edge_relax_partials_ref,
-                  edge_relax_ref, schedule_tiles)
+                  edge_relax_ref, frontier_schedule, schedule_tiles)
 
 __all__ = ["relax_bucket", "relax_fused", "relax_partials",
            "edge_relax_ref", "edge_relax_fused_ref",
-           "edge_relax_partials_ref", "schedule_tiles", "FUSED_COUNTERS",
-           "PARTIAL_COUNTERS", "INT_MAX", "LAUNCHES"]
+           "edge_relax_partials_ref", "schedule_tiles", "frontier_schedule",
+           "FUSED_COUNTERS", "PARTIAL_COUNTERS", "INT_MAX", "LAUNCHES"]
 
 
 class _Counter:
@@ -48,8 +60,10 @@ class _Counter:
 LAUNCHES = _Counter()
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int64,
-             ctypes.c_int, ctypes.c_int64, _P, _P, _P, _P, _P, _P]
+_I64 = ctypes.c_int64
+# edge_relax_launch and edge_relax_partials_launch
+_ROUND_ARGTYPES = [_P] * 9 + [_I64] + [_P] * 4 + [_I64, _I64, ctypes.c_int,
+                                                  _I64] + [_P] * 7
 
 
 _FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -57,19 +71,39 @@ _FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                    _P, _P, _P, _P, _P, _P, _P, _P]
 
 
-_PARTIALS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      ctypes.c_int64, ctypes.c_int, ctypes.c_int64, _P, _P,
-                      _P, _P, _P, _P]
-
-
-def _library(name="edge_relax", argtypes=_ARGTYPES):
+def _library(name, argtypes, source="edge_relax"):
+    """The C entry point ``<name>_launch`` of the library built from
+    ``csrc/<source>.cu``."""
     from .. import _build
-    lib = _build.load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(_build.load(source), f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+# (device, tiles, destinations) -> (flags, sched, keys): the one-round
+# kernels' scratch, never evicted (see the module's docstring)
+_SCRATCH: dict = {}
+
+
+def _scratch(dev, nt: int, n_out: int):
+    """The cached scratch of a one-round call: ``flags`` int32 ``[nt +
+    1]`` (a word per tile, then the schedule's append counter; all 0),
+    ``sched`` int32 ``[nt]`` and ``keys`` int64 ``[n_out]`` (all
+    ``EMPTY_KEY``).  Returns ``(cache key, buffers)``."""
+    key = (dev, nt, n_out)
+    bufs = _SCRATCH.get(key)
+    if bufs is not None:
+        return key, bufs
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("edge_relax scratch of these sizes does not exist "
+                           "yet: make one eager call before capturing")
+    bufs = (torch.zeros(nt + 1, dtype=torch.int32, device=dev),
+            torch.empty(nt, dtype=torch.int32, device=dev),
+            torch.full((n_out,), EMPTY_KEY, dtype=torch.int64, device=dev))
+    _SCRATCH[key] = bufs
+    return key, bufs
 
 
 def _check(name, t, dtype, shape, device):
@@ -100,71 +134,92 @@ def _check_alt(names, tensors, shapes, dtypes, device):
     return all(given)
 
 
-def _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb, ub,
-                     alt_lb, prune_bound, *, tile_e: int, n_out: int):
+def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
+                      lb, ub, alt_lb, prune_bound, index, *, tile_e: int,
+                      n_out: int):
+    """Launch ``<name>_launch`` (``edge_relax`` or
+    ``edge_relax_partials``): the same round, counted apart."""
     dev = dist.device
     e = src.shape[0]
     nt = tile_first.shape[0]
     if e != nt * tile_e or nt == 0:
         raise ValueError(f"slab of {e} slots is not {nt} tiles of {tile_e}")
+    if index is None:
+        raise ValueError(f"{name} on the card needs the layout's TileIndex "
+                         "(index=)")
+    vt_ptr, vt_tile, forced = index
     n_src = dist.shape[0]
-    for name, t, dtype, shape in (
+    for what, t, dtype, shape in (
             ("dist", dist, torch.float32, (n_src,)),
-            ("frontier", frontier, torch.bool, (n_src,)),
+            ("paths", paths, torch.bool, (n_src,)),
+            ("parent", parent, torch.int32, (n_src,)),
             ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
             ("w", w, torch.float32, (e,)),
             ("tile_first", tile_first, torch.bool, (nt,)),
-            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
-        _check(name, t, dtype, shape, dev)
+            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ()),
+            ("vt_ptr", vt_ptr, torch.int32, (n_src + 1,)),
+            ("vt_tile", vt_tile, torch.int32, vt_tile.shape[:1]),
+            ("forced", forced, torch.int32, forced.shape[:1])):
+        _check(what, t, dtype, shape, dev)
     alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
                      ((n_out,), ()), (torch.float32,) * 2, dev)
-    fn = _library()
-    sched = torch.empty(nt, dtype=torch.int32, device=dev)
-    sched_n = torch.empty((), dtype=torch.int32, device=dev)
-    keys = torch.empty(n_out, dtype=torch.int64, device=dev)
-    vals = torch.empty(n_out, dtype=torch.float32, device=dev)
-    wins = torch.empty(n_out, dtype=torch.int32, device=dev)
+    fn = _library(name, _ROUND_ARGTYPES)
+    key, (flags, sched, keys) = _scratch(dev, nt, n_out)
+    empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
+    vals = empty(n_out, torch.float32)
+    wins = empty(n_out, torch.int32)
+    counts = empty(4, torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dist.data_ptr(), frontier.data_ptr(), src.data_ptr(),
-                 dst.data_ptr(), w.data_ptr(), tile_first.data_ptr(),
-                 lb.data_ptr(), ub.data_ptr(), _ptr(alt_lb),
-                 _ptr(prune_bound), nt, tile_e, n_out, sched.data_ptr(),
-                 sched_n.data_ptr(), keys.data_ptr(), vals.data_ptr(),
-                 wins.data_ptr(), stream)
+        err = fn(dist.data_ptr(), paths.data_ptr(), parent.data_ptr(),
+                 src.data_ptr(), dst.data_ptr(), w.data_ptr(),
+                 vt_ptr.data_ptr(), vt_tile.data_ptr(), forced.data_ptr(),
+                 forced.shape[0], lb.data_ptr(), ub.data_ptr(),
+                 _ptr(alt_lb), _ptr(prune_bound), n_src, nt, tile_e, n_out,
+                 flags.data_ptr(), sched.data_ptr(), keys.data_ptr(),
+                 vals.data_ptr(), wins.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"edge_relax launch failed: cudaError {err}")
-    if alt:
-        LAUNCHES.edge_relax_alt += 1
-    else:
-        LAUNCHES.edge_relax += 1
-    return vals, wins, sched_n
+        _SCRATCH.pop(key, None)        # a flag or key may be left set
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    counter = f"{name}_alt" if alt else name
+    setattr(LAUNCHES, counter, getattr(LAUNCHES, counter) + 1)
+    return vals, wins, counts
 
 
-def relax_bucket(dist, frontier, src, dst, w, tile_first, lb, ub,
-                 alt_lb=None, prune_bound=None, *, tile_e: int, n_out: int):
-    """Relax a tile-aligned slab (or a concatenation of slabs) once.
+def _plain_round(name, dist, *args, tile_e: int, n_out: int):
+    if dist.device.type != "cpu":
+        raise ValueError(f"{name} runs on CUDA or CPU, not {dist.device}")
+    return edge_relax_partials_ref(dist, *args, tile_e=tile_e, n_out=n_out)
 
-    ``dist`` f32 / ``frontier`` bool ``[n_src]`` are indexed by ``src``;
-    ``src``/``dst`` int32 and ``w`` f32 ``[NT * tile_e]`` (padding slots
-    carry ``w=+inf``); ``tile_first`` bool ``[NT]``; ``lb``/``ub`` 0-d f32.
+
+def relax_bucket(dist, paths, parent, src, dst, w, tile_first, lb, ub,
+                 alt_lb=None, prune_bound=None, *, tile_e: int, n_out: int,
+                 index=None):
+    """Relax a device's tile-aligned slabs (concatenated, global source
+    ids) once.
+
+    ``dist`` f32, ``paths`` bool (the leaf-pruned frontier) and
+    ``parent`` i32 ``[n_src]`` are indexed by ``src``; ``src``/``dst``
+    int32 and ``w`` f32 ``[NT * tile_e]`` (padding slots carry
+    ``w=+inf``); ``tile_first`` bool ``[NT]``; ``lb``/``ub`` 0-d f32.
     With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d f32), the
     ALT cut: a candidate enters only if ``cand + alt_lb[dst] <=
-    prune_bound``.  Returns ``(vals, winners, n_tiles)`` over ``n_out``
-    destinations: the minimum candidate, the smallest source id achieving
-    it (``(inf, INT_MAX)`` where none), and the number of tiles the
-    frontier-compacted schedule keeps (0-d int32, on the device).
+    prune_bound``.  ``index`` is the slabs' :class:`TileIndex`, which
+    the kernel schedules from (the plain version finds the same tiles
+    with ``schedule_tiles``).  Returns ``(vals, winners, counts)`` over
+    ``n_out`` destinations: the minimum kept candidate, the smallest
+    source id achieving it (``(inf, INT_MAX)`` where none), and the int32
+    ``PARTIAL_COUNTERS`` (``n_trav``, ``n_relax``, ``n_tiles``,
+    ``n_pruned``; on the device) -- exactly what :func:`relax_partials`
+    returns for a shard.
     """
     if dist.is_cuda:
-        return _edge_relax_cuda(dist, frontier, src, dst, w, tile_first, lb,
-                                ub, alt_lb, prune_bound, tile_e=tile_e,
-                                n_out=n_out)
-    if dist.device.type != "cpu":
-        raise ValueError(f"edge_relax runs on CUDA or CPU, not {dist.device}")
-    vals, wins = edge_relax_ref(dist, frontier, src, dst, w, lb, ub, alt_lb,
-                                prune_bound, n_out=n_out)
-    _, n_tiles = schedule_tiles(frontier, src, w, tile_first, tile_e)
-    return vals, wins, n_tiles
+        return _relax_round_cuda("edge_relax", dist, paths, parent, src, dst,
+                                 w, tile_first, lb, ub, alt_lb, prune_bound,
+                                 index, tile_e=tile_e, n_out=n_out)
+    return _plain_round("edge_relax", dist, paths, parent, src, dst, w,
+                        tile_first, lb, ub, alt_lb, prune_bound,
+                        tile_e=tile_e, n_out=n_out)
 
 
 def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
@@ -190,7 +245,7 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
                      (alt_lb, prune_ub, prune_infl, prune_tgt),
                      ((n_out,), (), (), ()),
                      (torch.float32,) * 3 + (torch.int32,), dev)
-    fn = _library("edge_relax_fused", _FUSED_ARGTYPES)
+    fn = _library("edge_relax_fused", _FUSED_ARGTYPES, "edge_relax_fused")
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     dist_out = empty(n_out, torch.float32)
     parent_out = empty(n_out, torch.int32)
@@ -264,54 +319,9 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
                                 fused_rounds=fused_rounds)
 
 
-def _edge_relax_partials_cuda(dist_src, paths_src, parent_src, src, dst, w,
-                              tile_first, lb, ub, alt_lb, prune_bound, *,
-                              tile_e: int, n_out: int):
-    dev = dist_src.device
-    e = src.shape[0]
-    nt = tile_first.shape[0]
-    if e != nt * tile_e or nt == 0:
-        raise ValueError(f"slab of {e} slots is not {nt} tiles of {tile_e}")
-    n_src = dist_src.shape[0]
-    for name, t, dtype, shape in (
-            ("dist_src", dist_src, torch.float32, (n_src,)),
-            ("paths_src", paths_src, torch.bool, (n_src,)),
-            ("parent_src", parent_src, torch.int32, (n_src,)),
-            ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
-            ("w", w, torch.float32, (e,)),
-            ("tile_first", tile_first, torch.bool, (nt,)),
-            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
-        _check(name, t, dtype, shape, dev)
-    alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
-                     ((n_out,), ()), (torch.float32,) * 2, dev)
-    fn = _library("edge_relax_partials", _PARTIALS_ARGTYPES)
-    empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
-    sched = empty(nt, torch.int32)
-    keys = empty(n_out, torch.int64)
-    val = empty(n_out, torch.float32)
-    win = empty(n_out, torch.int32)
-    counts = empty(4, torch.int32)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(dist_src.data_ptr(), paths_src.data_ptr(),
-                 parent_src.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                 w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
-                 ub.data_ptr(), _ptr(alt_lb), _ptr(prune_bound), nt, tile_e,
-                 n_out, sched.data_ptr(), keys.data_ptr(), val.data_ptr(),
-                 win.data_ptr(), counts.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"edge_relax_partials launch failed: cudaError "
-                           f"{err}")
-    if alt:
-        LAUNCHES.edge_relax_partials_alt += 1
-    else:
-        LAUNCHES.edge_relax_partials += 1
-    return val, win, counts
-
-
 def relax_partials(dist_src, paths_src, parent_src, src, dst, w, tile_first,
                    lb, ub, alt_lb=None, prune_bound=None, *, tile_e: int,
-                   n_out: int):
+                   n_out: int, index=None):
     """One relaxation round over all of a shard's slabs (the sharded
     engines' per-shard partials).
 
@@ -323,18 +333,17 @@ def relax_partials(dist_src, paths_src, parent_src, src, dst, w, tile_first,
     f32.  With ``alt_lb`` (f32 ``[n_out]``) and ``prune_bound`` (0-d f32),
     the ALT cut: a candidate enters only if ``cand + alt_lb[dst] <=
     prune_bound``, and the cut ones not back along the parent edge count
-    in ``n_pruned``.  Returns ``(val, win, counts)`` over ``n_out``
-    destinations: the minimum kept candidate, the smallest shard-local
-    source id achieving it (``(inf, INT_MAX)`` where none), and the int32
-    ``PARTIAL_COUNTERS`` (on the device).
+    in ``n_pruned``.  ``index`` is the shard's :class:`TileIndex` over its
+    local sources (needed on the card).  Returns ``(val, win, counts)``
+    over ``n_out`` destinations: the minimum kept candidate, the smallest
+    shard-local source id achieving it (``(inf, INT_MAX)`` where none),
+    and the int32 ``PARTIAL_COUNTERS`` (on the device).
     """
     if dist_src.is_cuda:
-        return _edge_relax_partials_cuda(
-            dist_src, paths_src, parent_src, src, dst, w, tile_first, lb, ub,
-            alt_lb, prune_bound, tile_e=tile_e, n_out=n_out)
-    if dist_src.device.type != "cpu":
-        raise ValueError(f"edge_relax_partials runs on CUDA or CPU, not "
-                         f"{dist_src.device}")
-    return edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst,
-                                   w, tile_first, lb, ub, alt_lb,
-                                   prune_bound, tile_e=tile_e, n_out=n_out)
+        return _relax_round_cuda(
+            "edge_relax_partials", dist_src, paths_src, parent_src, src, dst,
+            w, tile_first, lb, ub, alt_lb, prune_bound, index, tile_e=tile_e,
+            n_out=n_out)
+    return _plain_round("edge_relax_partials", dist_src, paths_src,
+                        parent_src, src, dst, w, tile_first, lb, ub, alt_lb,
+                        prune_bound, tile_e=tile_e, n_out=n_out)

@@ -2,9 +2,12 @@
 
 ``edge_relax_ref`` is the one-round kernel's contract written with
 ``scatter_reduce``; ``schedule_tiles`` is the reference's
-frontier-compaction prepass; ``edge_relax_fused_ref`` is the multi-round
-fused kernel's contract; ``edge_relax_partials_ref`` is the sharded
-engines' one-round partials kernel's contract.  Every kernel takes the
+frontier-compaction prepass, and the oracle of ``frontier_schedule``, the
+CUDA kernels' frontier-driven prepass written plainly;
+``edge_relax_fused_ref`` is the multi-round fused kernel's contract;
+``edge_relax_partials_ref`` is the one-round round with its counters,
+which both one-round kernels (``edge_relax`` on a device's slabs,
+``edge_relax_partials`` on a shard's) compute.  Every kernel takes the
 ALT cut as an option.  The wrappers in :mod:`.ops` run them for
 CPU tensors, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
@@ -15,6 +18,8 @@ from __future__ import annotations
 import torch
 
 INT_MAX = 2 ** 31 - 1
+# the packed (value bits, source id) key of no candidate: (+inf, INT_MAX)
+EMPTY_KEY = (0x7F800000 << 32) | INT_MAX
 
 # counter slots of the fused kernel's int32[8] result
 FUSED_COUNTERS = ("n_trav", "n_relax", "n_updates", "n_extended",
@@ -45,6 +50,24 @@ def schedule_tiles(frontier_block, src_local, w, tile_first, tile_e: int):
                               .reshape(1))
     sched = torch.where(idx < sched_n, sched, last)
     return sched, sched_n
+
+
+def frontier_schedule(paths, index, n_tiles: int):
+    """The CUDA kernels' prepass, plainly: the tiles listed in ``index``
+    (a :class:`~repro_torch.core.graph.TileIndex`) for every source with
+    ``paths`` set, and the forced tiles, each once.  Returns ``(tiles,
+    n)``: the scheduled tiles ascending (the kernel appends them in no
+    fixed order) and their count (0-d int32), which must be exactly
+    ``schedule_tiles``' active set and count."""
+    vt_ptr, vt_tile, forced = index
+    span = (vt_ptr[1:] - vt_ptr[:-1]).long()
+    entry_live = torch.repeat_interleave(paths.bool(), span)
+    flags = torch.zeros(n_tiles, dtype=torch.bool, device=paths.device)
+    flags[vt_tile[:entry_live.shape[0]][entry_live].long()] = True
+    flags[forced.long()] = True
+    tiles = torch.nonzero(flags).reshape(-1).to(torch.int32)
+    return tiles, torch.tensor(tiles.shape[0], dtype=torch.int32,
+                               device=paths.device)
 
 
 def edge_relax_ref(dist_block, frontier_block, src_local, dst_local, w,
@@ -149,7 +172,8 @@ def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
                             tile_first, lb, ub, alt_lb=None,
                             prune_bound=None, *, tile_e: int, n_out: int):
     """One round over all of a shard's slabs against its local source
-    range.
+    range (or over a device's slabs against the whole range: the plain
+    version of both one-round kernels).
 
     ``dist_src`` f32, ``paths_src`` bool and ``parent_src`` i32 span the
     shard's source range, which ``src`` (the slabs concatenated, slab

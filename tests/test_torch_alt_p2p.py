@@ -343,7 +343,7 @@ def _alt_lb(rng, n_out):
 def test_edge_relax_alt_branch_matches_reference(bound):
     # integer weights and dists: many candidates land exactly on the
     # bound, which `<=` keeps
-    dist, front, (se, de, we, td, tf, bne, _) = _slab(
+    dist, front, parent, (se, de, we, td, tf, bne, _) = _slab(
         seed=2, n_src=128, n_dst_blocks=2, m=600, ties=True)
     nb, n_out = 2, 2 * BV
     alt_lb = _alt_lb(np.random.default_rng(4), n_out)
@@ -362,20 +362,19 @@ def test_edge_relax_alt_branch_matches_reference(bound):
                                n_dst_blocks=nb)
     t = torch.from_numpy
     f32 = lambda x: t(np.array(x, np.float32))
-    vals, wins, n_tiles = ops.relax_bucket(
-        t(dist), t(front.astype(bool)), t(se), t(de), t(we), t(tf), f32(lb),
-        f32(ub), t(alt_lb), f32(bound), tile_e=TE, n_out=n_out)
+    slab = (t(dist), t(front.astype(bool)), t(parent), t(se), t(de), t(we),
+            t(tf), f32(lb), f32(ub))
+    vals, wins, counts = ops.relax_bucket(*slab, t(alt_lb), f32(bound),
+                                          tile_e=TE, n_out=n_out)
     for want in (kernel, twin):
         np.testing.assert_array_equal(np.asarray(want[0]).view(np.int32),
                                       vals.numpy().view(np.int32))
         np.testing.assert_array_equal(np.asarray(want[1]), wins.numpy())
-    assert int(kernel[2]) == int(n_tiles)
+    assert int(kernel[2]) == int(counts[2])
     if bound == 0.0:
         assert not torch.isfinite(vals).any()
     if bound == np.inf:
-        plain = ops.relax_bucket(
-            t(dist), t(front.astype(bool)), t(se), t(de), t(we), t(tf),
-            f32(lb), f32(ub), tile_e=TE, n_out=n_out)
+        plain = ops.relax_bucket(*slab, tile_e=TE, n_out=n_out)
         finite_lb = np.isfinite(alt_lb)
         assert torch.equal(vals[finite_lb], plain[0][finite_lb])
 

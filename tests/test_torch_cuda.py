@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.core.distributed import (shard_blocked, shard_graph,
                                           sssp_distributed)
-from repro_torch.core.graph import build_blocked, build_csr
+from repro_torch.core.graph import TileIndex, build_blocked, build_csr
 from repro_torch.core.landmarks import build_landmarks
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from repro_torch.data.generators import kronecker, road_grid
@@ -66,19 +66,22 @@ def test_cuda_kernel_matches_plain_version(card):
     dist = rng.integers(0, 5, bg.n_out).astype(np.float32)
     dist[rng.random(bg.n_out) < 0.2] = np.inf
     front = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, bg.n_out,
+                                                      bg.n_out), -1)
     t = lambda a: torch.from_numpy(a).to(card)
-    args = (t(dist), t(front), bg.src, bg.dst, bg.w, bg.tile_first,
-            _f32(0.0, card), _f32(np.inf, card))
+    args = (t(dist), t(front), t(parent.astype(np.int32)), bg.src, bg.dst,
+            bg.w, bg.tile_first, _f32(0.0, card), _f32(np.inf, card))
     kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
     before = ops.LAUNCHES.edge_relax
-    vals, wins, n = ops.relax_bucket(*args, **kw)
+    vals, wins, cnt = ops.relax_bucket(*args, index=bg.index, **kw)
     torch.cuda.synchronize()
     assert ops.LAUNCHES.edge_relax == before + 1
-    pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
-    _, pn = ref.schedule_tiles(args[1], args[2], args[4], args[5],
+    pv, pw, pc = ref.edge_relax_partials_ref(*args, **kw)
+    _, pn = ref.schedule_tiles(args[1], args[3], args[5], args[6],
                                kw["tile_e"])
     assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
-    assert torch.equal(wins, pw) and int(n) == int(pn)
+    assert torch.equal(wins, pw) and int(cnt[2]) == int(pn)
+    assert cnt.tolist() == pc.tolist()
 
 
 def test_cuda_fused_kernel_matches_plain_version(card):
@@ -137,7 +140,9 @@ def test_cuda_partials_kernel_matches_plain_version(card, ties, window):
                 t(parent[lo:lo + block]), t(arrays.src[q]), t(arrays.dst[q]),
                 t(arrays.w[q]), t(arrays.tile_first[q]))
         before = ops.LAUNCHES.edge_relax_partials
-        val, win, cnt = ops.relax_partials(*args, lb, ub, **kw)
+        val, win, cnt = ops.relax_partials(*args, lb, ub, **kw,
+                                           index=_shard_index(arrays, q,
+                                                              card))
         torch.cuda.synchronize()
         assert ops.LAUNCHES.edge_relax_partials == before + 1
         pv, pw, pc = ref.edge_relax_partials_ref(*args, lb, ub, **kw)
@@ -147,6 +152,12 @@ def test_cuda_partials_kernel_matches_plain_version(card, ties, window):
         assert int(cnt[3]) == 0
         trav += int(cnt[0])
     assert trav > 0
+
+
+def _shard_index(arrays, q, card):
+    """Shard ``q``'s TileIndex of a stacked shard layout, on the card."""
+    return TileIndex(arrays.vt_ptr[q], arrays.vt_tile[q],
+                     arrays.forced[q]).to(card)
 
 
 def _alt_lb(rng, n_out, n, card):
@@ -181,10 +192,12 @@ def test_cuda_partials_alt_kernel_matches_plain_version(card, bound):
                 t(parent[lo:lo + block]), t(arrays.src[q]), t(arrays.dst[q]),
                 t(arrays.w[q]), t(arrays.tile_first[q]), lb, ub)
         pv, pw, pc = ref.edge_relax_partials_ref(*args, *alt, **kw)
+        index = _shard_index(arrays, q, card)
         for _ in range(2):
             before = (ops.LAUNCHES.edge_relax_partials,
                       ops.LAUNCHES.edge_relax_partials_alt)
-            val, win, cnt = ops.relax_partials(*args, *alt, **kw)
+            val, win, cnt = ops.relax_partials(*args, *alt, **kw,
+                                               index=index)
             torch.cuda.synchronize()
             assert (ops.LAUNCHES.edge_relax_partials,
                     ops.LAUNCHES.edge_relax_partials_alt) == \
@@ -193,7 +206,7 @@ def test_cuda_partials_alt_kernel_matches_plain_version(card, bound):
                                pv.view(torch.int32)), q
             assert torch.equal(win, pw), q
             assert cnt.tolist() == pc.tolist(), q
-        free = ops.relax_partials(*args, **kw)[2].tolist()
+        free = ops.relax_partials(*args, **kw, index=index)[2].tolist()
         trav, rlx, tiles, prn = cnt.tolist()
         assert [trav, rlx + prn, tiles, 0] == free, q
         kept, pruned = kept + rlx, pruned + prn
@@ -216,24 +229,180 @@ def test_cuda_alt_kernel_matches_plain_version(card, bound):
     dist = rng.integers(0, 5, bg.n_out).astype(np.float32)
     dist[rng.random(bg.n_out) < 0.2] = np.inf
     front = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, bg.n_out,
+                                                      bg.n_out), -1)
     t = lambda a: torch.from_numpy(a).to(card)
-    args = (t(dist), t(front), bg.src, bg.dst, bg.w, bg.tile_first,
-            _f32(0.0, card), _f32(6.0, card), _alt_lb(rng, bg.n_out, 900,
-                                                      card),
-            _f32(bound, card))
+    args = (t(dist), t(front), t(parent.astype(np.int32)), bg.src, bg.dst,
+            bg.w, bg.tile_first, _f32(0.0, card), _f32(6.0, card),
+            _alt_lb(rng, bg.n_out, 900, card), _f32(bound, card))
     kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
     before = (ops.LAUNCHES.edge_relax, ops.LAUNCHES.edge_relax_alt)
-    vals, wins, n = ops.relax_bucket(*args, **kw)
+    vals, wins, cnt = ops.relax_bucket(*args, index=bg.index, **kw)
     torch.cuda.synchronize()
     assert (ops.LAUNCHES.edge_relax,
             ops.LAUNCHES.edge_relax_alt) == (before[0], before[1] + 1)
-    pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
+    pv, pw, pc = ref.edge_relax_partials_ref(*args, **kw)
     assert torch.equal(vals.view(torch.int32), pv.view(torch.int32))
-    assert torch.equal(wins, pw)
+    assert torch.equal(wins, pw) and cnt.tolist() == pc.tolist()
     if bound == 0.0:
         assert not torch.isfinite(vals).any()
     else:
         assert torch.isfinite(vals).any()
+
+
+# ---------------------------------------------------------------------------
+# edge_relax and edge_relax_partials: the frontier-driven schedule
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py's ALT_BOUNDS: a bound between the candidates, +inf, below
+# every candidate, and one that integer sums meet exactly
+ALT_BOUNDS = (("mid", 2.0), ("inf", np.inf), ("below-all", 0.0),
+              ("ties", 3.0))
+
+
+def _state(rng, bg, n_front, card, *, lb=1.0, ub=6.0):
+    """Integer dists on the real vertices (+inf on a fifth and on the
+    padding), ``n_front`` path sources among the reached ones (all of
+    them for -1), random parents, and the window [lb, ub)."""
+    n, n_out = bg.n, bg.n_out
+    dist = rng.integers(0, 5, n_out).astype(np.float32)
+    dist[(rng.random(n_out) < 0.2) | (np.arange(n_out) >= n)] = np.inf
+    reached = np.flatnonzero(np.isfinite(dist))
+    paths = np.zeros(n_out, bool)
+    pick = reached if n_front < 0 else rng.choice(
+        reached, min(n_front, reached.size), replace=False)
+    paths[pick] = True
+    parent = np.where(np.isfinite(dist), rng.integers(0, n, n_out),
+                      -1).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(card)
+    return (t(dist), t(paths), t(parent), _f32(lb, card), _f32(ub, card))
+
+
+def _check_round(bg, state, alt=(), what=""):
+    """Both one-round kernels, each called twice, against the plain
+    version on one layout: vals, wins, the scheduled-tile count and the
+    counters bitwise; the cached scratch left clean.  Returns the plain
+    version's counters."""
+    dist, paths, parent, lb, ub = state
+    args = (dist, paths, parent, bg.src, bg.dst, bg.w, bg.tile_first, lb,
+            ub, *alt)
+    kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
+    pv, pw, pc = ref.edge_relax_partials_ref(*args, **kw)
+    _, pn = ref.schedule_tiles(paths, bg.src, bg.w, bg.tile_first,
+                               bg.tile_e)
+    assert int(pc[2]) == int(pn), what
+    for name, fn in (("edge_relax", ops.relax_bucket),
+                     ("edge_relax_partials", ops.relax_partials)):
+        counter = name + ("_alt" if alt else "")
+        for _ in range(2):
+            before = getattr(ops.LAUNCHES, counter)
+            val, win, cnt = fn(*args, index=bg.index, **kw)
+            torch.cuda.synchronize()
+            assert getattr(ops.LAUNCHES, counter) == before + 1
+            assert torch.equal(val.view(torch.int32),
+                               pv.view(torch.int32)), (what, name)
+            assert torch.equal(win, pw), (what, name)
+            assert cnt.tolist() == pc.tolist(), (what, name)
+    for flags, _, keys in ops._SCRATCH.values():
+        assert not bool(flags.any()), what
+        assert bool((keys == ref.EMPTY_KEY).all()), what
+    return pc.tolist()
+
+
+def _star(n, rng, *, inf_frac=0.0):
+    """Vertex 0 joined to every other vertex both ways, plus a sparse
+    random graph: vertex 0's slots span many tiles."""
+    u = rng.integers(0, n, 2 * n)
+    v = rng.integers(0, n, 2 * n)
+    keep = u != v
+    src = np.concatenate([np.zeros(n - 1, np.int64), u[keep]])
+    dst = np.concatenate([np.arange(1, n), v[keep]])
+    w = rng.integers(1, 4, src.size).astype(np.float64)
+    w[rng.random(w.size) < inf_frac] = np.inf
+    return build_csr(n, src, dst, w)
+
+
+def test_cuda_frontier_schedule_road(card):
+    rng = np.random.default_rng(21)
+    bg = build_blocked(road_grid(64, seed=3), device=card)
+    assert bg.n_blocks == 1 and bg.tile_e == 256       # the card's layout
+    for n_front in (3, 40, -1):
+        counts = _check_round(bg, _state(rng, bg, n_front, card),
+                              what=f"road frontier {n_front}")
+        assert counts[2] < bg.tile_first.shape[0] or n_front < 0
+
+
+def test_cuda_frontier_schedule_empty_frontier(card):
+    rng = np.random.default_rng(22)
+    for block_v, tile_e in ((None, None), (64, 64)):
+        bg = build_blocked(road_grid(40, seed=4), block_v=block_v,
+                           tile_e=tile_e, device=card)
+        counts = _check_round(bg, _state(rng, bg, 0, card),
+                              what=f"empty frontier {block_v}")
+        assert counts == [0, 0, int(bg.tile_first.sum()), 0]
+
+
+@pytest.mark.parametrize("inf_frac", [0.0, 0.2], ids=["finite", "inf"])
+def test_cuda_frontier_schedule_hub(card, inf_frac):
+    rng = np.random.default_rng(23)
+    g = _star(40000, rng, inf_frac=inf_frac)
+    for block_v, tile_e in ((None, None), (1024, 256)):
+        bg = build_blocked(g, block_v=block_v, tile_e=tile_e, device=card)
+        ptr = bg.index.vt_ptr
+        assert int(ptr[1] - ptr[0]) > 100          # the hub's tiles
+        state = _state(rng, bg, 200, card)
+        state[1][0] = True                         # the hub on a path
+        state[0][0] = 0.0
+        _check_round(bg, state, what=f"hub {block_v} inf {inf_frac}")
+
+
+def test_cuda_frontier_schedule_inf_weights_multi_bucket(card):
+    rng = np.random.default_rng(24)
+    g = _graph(rng, ties=True)
+    n = g.n
+    w = g.w.copy()
+    w[rng.random(w.size) < 0.25] = np.inf
+    g = build_csr(n, g.src, g.dst, w, symmetrize=False)
+    for block_v, tile_e in ((64, 32), (256, 64), (1024, 256),
+                            (None, None)):
+        bg = build_blocked(g, block_v=block_v, tile_e=tile_e, device=card)
+        for n_front in (5, -1):
+            _check_round(bg, _state(rng, bg, n_front, card, lb=0.0,
+                                    ub=np.inf),
+                         what=f"inf weights {block_v}/{tile_e}")
+
+
+@pytest.mark.parametrize("bound", [b for _, b in ALT_BOUNDS],
+                         ids=[k for k, _ in ALT_BOUNDS])
+def test_cuda_frontier_schedule_alt(card, bound):
+    rng = np.random.default_rng(25)
+    for block_v, tile_e in ((None, None), (256, 64)):
+        bg = build_blocked(_graph(rng, ties=True), block_v=block_v,
+                           tile_e=tile_e, device=card)
+        alt = (_alt_lb(rng, bg.n_out, bg.n, card), _f32(bound, card))
+        trav, rlx, _, prn = _check_round(
+            bg, _state(rng, bg, -1, card), alt,
+            what=f"alt {bound} {block_v}")
+        if bound == 0.0:
+            assert rlx == 0 and prn > 0
+        elif bound == np.inf:
+            assert prn == 0 and rlx > 0
+
+
+def test_cuda_frontier_schedule_layouts_in_turn(card):
+    # A, B (the sizes of A: the same cached scratch), C (other sizes),
+    # then A again: a flag or key left set by one call shows in the next
+    rng = np.random.default_rng(26)
+    ga = _graph(rng, ties=True)
+    a = build_blocked(ga, block_v=256, tile_e=64, device=card)
+    c = build_blocked(road_grid(48, seed=6), device=card)
+    sa = _state(rng, a, -1, card)
+    sb = _state(rng, a, 7, card, lb=0.0, ub=np.inf)
+    sc = _state(rng, c, 30, card)
+    first = _check_round(a, sa, what="A")
+    _check_round(a, sb, what="B")
+    _check_round(c, sc, what="C")
+    assert _check_round(a, sa, what="A again") == first
 
 
 @pytest.mark.parametrize("case", ["mid", "inf", "below-all", "tightens"])

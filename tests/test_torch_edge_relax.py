@@ -2,8 +2,9 @@
 
 On the CPU the wrapper ``relax_bucket`` runs the plain PyTorch version;
 it must be bitwise equal to the reference Pallas kernel run in interpret
-mode on the same slabs (values, winners and the active-tile count), and
-the port's ``schedule_tiles`` to the reference's.  The CUDA kernel
+mode on the same slabs (values, winners and the active-tile count, the
+third of the counters it returns), and the port's ``schedule_tiles`` to
+the reference's.  The CUDA kernel
 itself is held against the plain version by ``tests/test_torch_cuda.py``
 (on the card only; that file imports no jax) and by ``chip_smoke.py``.
 """
@@ -35,9 +36,11 @@ def _slab(seed, *, n_src, n_dst_blocks, m, ties=False, empty_every=0):
             else rng.random(n_src) * 3).astype(np.float32)
     dist[rng.random(n_src) < 0.2] = np.inf
     front = ((rng.random(n_src) < 0.4) & np.isfinite(dist)).astype(np.int8)
+    parent = np.where(np.isfinite(dist), rng.integers(0, n_dst_blocks * BV,
+                                                      n_src), -1)
     slab = ref_bucket_edges(src, dst, w, n_dst_blocks=n_dst_blocks,
                             block_v=BV, tile_e=TE)
-    return dist, front, slab
+    return dist, front, parent.astype(np.int32), slab
 
 
 CASES = [
@@ -53,7 +56,7 @@ WINDOWS = [(0.0, np.inf), (1.0, 3.5)]      # lb <= 0 and a mid window
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"seed{c['seed']}")
 @pytest.mark.parametrize("window", WINDOWS)
 def test_relax_bucket_matches_reference_kernel(case, window):
-    dist, front, (se, de, we, td, tf, bne, _) = _slab(**case)
+    dist, front, parent, (se, de, we, td, tf, bne, _) = _slab(**case)
     lb, ub = np.float32(window[0]), np.float32(window[1])
     nb = case["n_dst_blocks"]
     rv, rw, rn = ref_kernel(
@@ -61,18 +64,18 @@ def test_relax_bucket_matches_reference_kernel(case, window):
                                                     (se, de, we, td, tf, bne)),
         lb, ub, block_v=BV, tile_e=TE, n_dst_blocks=nb, interpret=True)
     t = torch.from_numpy
-    vals, wins, n_tiles = ops.relax_bucket(
-        t(dist), t(front.astype(bool)), t(se), t(de), t(we), t(tf),
-        t(np.array(lb)), t(np.array(ub)), tile_e=TE, n_out=nb * BV)
+    vals, wins, counts = ops.relax_bucket(
+        t(dist), t(front.astype(bool)), t(parent), t(se), t(de), t(we),
+        t(tf), t(np.array(lb)), t(np.array(ub)), tile_e=TE, n_out=nb * BV)
     np.testing.assert_array_equal(np.asarray(rv).view(np.int32),
                                   vals.numpy().view(np.int32))
     np.testing.assert_array_equal(np.asarray(rw), wins.numpy())
-    assert int(rn) == int(n_tiles)
+    assert int(rn) == int(counts[2])
 
 
 @pytest.mark.parametrize("case", CASES[:3], ids=lambda c: f"seed{c['seed']}")
 def test_schedule_tiles_matches_reference(case):
-    dist, front, (se, de, we, td, tf, bne, _) = _slab(**case)
+    dist, front, _, (se, de, we, td, tf, bne, _) = _slab(**case)
     rs, rn = ref_sched(jnp.asarray(front), jnp.asarray(se), jnp.asarray(we),
                        jnp.asarray(tf), TE)
     ts, tn = ref.schedule_tiles(torch.from_numpy(front.astype(bool)),
@@ -93,24 +96,32 @@ def _layout_case(device):
     dist = rng.integers(0, 5, bg.n_out).astype(np.float32)
     dist[rng.random(bg.n_out) < 0.2] = np.inf
     front = (rng.random(bg.n_out) < 0.3) & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, bg.n_out, bg.n_out),
+                      -1).astype(np.int32)
     t = lambda a: torch.from_numpy(a).to(device)
     f = lambda x: torch.full((), x, dtype=torch.float32, device=device)
-    return (t(dist), t(front), bg.src, bg.dst, bg.w, bg.tile_first, f(0.0),
-            f(np.inf)), dict(tile_e=bg.tile_e, n_out=bg.n_out)
+    return (t(dist), t(front), t(parent), bg.src, bg.dst, bg.w,
+            bg.tile_first, f(0.0), f(np.inf)), dict(tile_e=bg.tile_e,
+                                                     n_out=bg.n_out,
+                                                     index=bg.index)
 
 
 def test_cpu_tensors_take_the_plain_version():
     args, kw = _layout_case("cpu")
     ops.LAUNCHES.reset()
-    vals, wins, n = ops.relax_bucket(*args, **kw)
+    vals, wins, counts = ops.relax_bucket(*args, **kw)
     assert ops.LAUNCHES.edge_relax == 0
-    pv, pw = ref.edge_relax_ref(*args[:5], *args[6:], n_out=kw["n_out"])
+    dist, paths, _, src, dst, w, _, lb, ub = args
+    pv, pw = ref.edge_relax_ref(dist, paths, src, dst, w, lb, ub,
+                                n_out=kw["n_out"])
     assert torch.equal(vals, pv) and torch.equal(wins, pw)
-    assert n.dtype == torch.int32 and 1 <= int(n) <= args[5].shape[0]
+    n = counts[2]
+    assert counts.dtype == torch.int32 and 1 <= int(n) <= args[6].shape[0]
 
 
 def test_other_devices_raise():
     args, kw = _layout_case("cpu")
+    kw["index"] = kw["index"].to("meta")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         ops.relax_bucket(*[a.to("meta") for a in args], **kw)
 

@@ -4,9 +4,10 @@
 
 ``--parent DIR`` (a checkout of another commit, e.g. ``git archive`` of
 the parent unpacked into an ignored directory) also times that checkout's
-``edge_relax`` and ``edge_relax_partials`` kernels on the same inputs as
-this tree's, in turns (parent, this, this, parent).  Run with no
-argument, the script needs one card and nothing else.
+``edge_relax``, ``edge_relax_partials`` and ``edge_relax_fused`` kernels
+on the same inputs as this tree's, in turns (parent, this, this,
+parent).  Run with no argument, the script needs one card and nothing
+else.
 
 Phases, in order; any failure exits non-zero:
 
@@ -18,8 +19,9 @@ Phases, in order; any failure exits non-zero:
    equal, the scheduled-tile count also equal to ``schedule_tiles``') and
    ``edge_relax_fused`` (ties, ``lb <= 0``, ``fused_rounds`` 1, 4 and 8,
    a call that stops after its first round, then 40 seeded cases over
-   geometries and round caps; each kernel call made twice; ``dist``,
-   ``parent``, ``frontier`` and the eight counters bitwise equal), and
+   geometries and round caps; each kernel call made twice, scheduled
+   from the layout's vertex->tile index; ``dist``, ``parent``,
+   ``frontier`` and the eight counters bitwise equal), and
    ``flash_attention`` on seeded cases in float32 (at 2e-5) and bfloat16
    (at 2e-2), each call launching once, of the design ``ops.variant``
    names ("tc" bf16 tensor cores, "split" split-KV decode, "simt" CUDA
@@ -100,7 +102,9 @@ Phases, in order; any failure exits non-zero:
    launch "split" (launches counted by design), and no plain attention
    run (``_sdpa_dense``, ``_sdpa_blockwise``, ``_sdpa_decode`` are
    counted).  Then one 2048-token prefill and one 8-slot decode step
-   timed and profiled (device time by kernel).  Then the whole path in
+   timed and profiled (device time by kernel; every profiled pass, here
+   and in phase 5, fails if its trace holds no CUDA kernel).  Then the
+   whole path in
    float32 (TF32 off), a
    2048-token prefill and 16 teacher-forced decode steps, once through
    the kernel and once through the plain attention: the logits must
@@ -142,7 +146,11 @@ Phases, in order; any failure exits non-zero:
    ALT query, unfused and fused, captured by solving that query again,
    with their launches over the p2p queries; ``edge_relax_partials``'
    ALT row at the middle call of each graph's first v1 ALT query,
-   captured in that query, with its launches over the v1 queries), each
+   captured in that query, with its launches over the v1 queries;
+   ``edge_relax_fused`` at the tree window and its ALT branch at the
+   middle call of the fused ALT query, by :func:`graph_ms` and eager,
+   with the parent design's times under ``--parent``, the bound as the
+   kernel reads (:func:`fused_bytes`) and the old count), each
    solve's and query's
    seconds, rounds, iterations (one host sync each), kernel invocations,
    and the seconds its step transitions and relaxation calls took (CUDA
@@ -172,6 +180,7 @@ import dataclasses
 import importlib
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -376,7 +385,7 @@ def fused_vs_plain(device, seed: int = 1, n_random: int = 40) -> int:
         kw = dict(tile_e=bg.tile_e, fused_rounds=rounds)
         want = ref.edge_relax_fused_ref(*args, **kw)
         for _ in range(2):
-            out = ops.relax_fused(*args, **kw)
+            out = ops.relax_fused(*args, **kw, index=bg.index)
             same = bitwise_equal(out[0], want[0]) and all(
                 a.equal(b) for a, b in zip(out[1:], want[1:]))
             if not same or (stop and int(out[3][names.index("n_exec")])
@@ -477,7 +486,7 @@ def alt_vs_plain(device, seed: int = 4, n_random: int = 20) -> int:
         kw = dict(tile_e=bg.tile_e, fused_rounds=rounds)
         want = ref.edge_relax_fused_ref(*args, **kw)
         for _ in range(2):
-            out = ops.relax_fused(*args, **kw)
+            out = ops.relax_fused(*args, **kw, index=bg.index)
             if not (bitwise_equal(out[0], want[0])
                     and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
                 raise AssertionError(
@@ -948,12 +957,11 @@ def load_parent(root: str):
 
 
 def parent_call(fn: str, args, kw):
-    """The parent design's call on the same inputs: its ``relax_bucket``
-    took no ``parent`` and no index, its ``relax_partials`` no index."""
-    plain_kw = {k: v for k, v in kw.items() if k != "index"}
-    if fn == "relax_bucket":
-        args = args[:2] + args[3:]
-    return lambda: getattr(PARENT, fn)(*args, **plain_kw)
+    """The parent design's call on the same inputs: its ``relax_fused``
+    takes no index (the fused kernel before the frontier-list design)."""
+    if fn == "relax_fused":
+        kw = {k: v for k, v in kw.items() if k != "index"}
+    return lambda: getattr(PARENT, fn)(*args, **kw)
 
 
 def scheduled_slots(args, kw):
@@ -1052,6 +1060,27 @@ def library_round(args, kw, slots, want):
     return graph_ms(whole), scatter_ms, n_window, int(ok.sum())
 
 
+def turn_times(fn: str, args, kw) -> dict:
+    """Device ms (:func:`graph_ms`) and eager ms (:func:`cuda_ms`, the
+    host's launch cost included) of ``ops.<fn>(*args, **kw)`` and, with
+    ``--parent``, of the parent design's call on the same inputs, timed
+    in turns: parent, this, this, parent.  Returns the means and the
+    turns."""
+    from repro_torch.kernels.edge_relax import ops
+    call = lambda: getattr(ops, fn)(*args, **kw)
+    times = dict(ms=[], eager_ms=[], parent_ms=[], parent_eager_ms=[])
+    turns = ((PARENT is not None, "parent_"), (True, ""), (True, ""),
+             (PARENT is not None, "parent_"))
+    for on, tag in turns:
+        if not on:
+            continue
+        f = parent_call(fn, args, kw) if tag else call
+        times[f"{tag}ms"].append(graph_ms(f))
+        times[f"{tag}eager_ms"].append(cuda_ms(f))
+    mean = lambda xs: sum(xs) / len(xs) if xs else None
+    return dict({k: mean(v) for k, v in times.items()}, turns=times)
+
+
 def round_numbers(fn: str, args, kw, what: str):
     """One one-round kernel call (``fn`` is ``relax_bucket``, row 1, or
     ``relax_partials``, row 3; ALT when ``args`` carry ``alt_lb`` and the
@@ -1066,15 +1095,7 @@ def round_numbers(fn: str, args, kw, what: str):
     from repro_torch.kernels.edge_relax import ops, ref
     out, want = round_pair(args, kw, what, fn)
     err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
-    call = lambda: getattr(ops, fn)(*args, **kw)
-    times = dict(ms=[], eager_ms=[], parent_ms=[], parent_eager_ms=[])
-    turns = ((PARENT is not None, "parent_"), (True, ""), (True, ""),
-             (PARENT is not None, "parent_"))
-    for on, tag in turns:
-        if on:
-            f = parent_call(fn, args, kw) if tag else call
-            times[f"{tag}ms"].append(graph_ms(f))
-            times[f"{tag}eager_ms"].append(cuda_ms(f))
+    times = turn_times(fn, args, kw)
     plain_kw = {k: v for k, v in kw.items() if k != "index"}
     plain_ms = cuda_ms(lambda: ref.edge_relax_partials_ref(*args,
                                                            **plain_kw))
@@ -1082,12 +1103,8 @@ def round_numbers(fn: str, args, kw, what: str):
     library_ms, scatter_ms, n_window, n_kept = library_round(args, kw, slots,
                                                              want)
     new_b, slots_b, old_b, seen = bound_bytes(args, kw, slots, fn)
-    mean = lambda xs: sum(xs) / len(xs) if xs else None
     return dict(
-        ms=mean(times["ms"]), eager_ms=mean(times["eager_ms"]),
-        parent_ms=mean(times["parent_ms"]),
-        parent_eager_ms=mean(times["parent_eager_ms"]), turns=times,
-        plain_ms=plain_ms, library_ms=library_ms,
+        **times, plain_ms=plain_ms, library_ms=library_ms,
         library_scatter_ms=scatter_ms,
         bound_ms=new_b / HBM_BYTES_PER_S * 1e3,
         bound_ms_12b_slots=slots_b / HBM_BYTES_PER_S * 1e3,
@@ -1125,42 +1142,109 @@ def fused_window_inputs(res, device):
             lb.reshape(()), ub.reshape(()))
 
 
-def measure_fused(res, device):
+def fused_bytes(args, kw, n_exec: int, want):
+    """Least bytes of one fused call, counted as ``edge_relax_fused.cu``
+    reads them, over the ``n_exec`` rounds it ran (the plain version
+    stepped one round at a time from the call's inputs; the stepped state
+    must end at ``want``'s).  Per round: 8 B of ``vt_ptr``, 4 B of
+    ``dist`` and 5 B per index entry (``vt_tile``, ``tile_first``) of each
+    path source, 4 B per forced tile, ``src`` of every scheduled slot,
+    ``w`` of each slot of a path source, ``dst`` of each in-window
+    candidate and ``parent`` of each source with one (4 B each), with ALT
+    ``alt_lb`` of each distinct in-window destination (4 B), per touched
+    destination its key read and reset and its dist read (20 B), per
+    improved one dist and parent written, deg read and its list entry
+    (16 B).  Once a call: dist, parent and front read and written (18 B a
+    vertex), deg and the list entry of each frontier vertex (8 B).
+    Returns ``(bytes, the old count's bytes, seen)``: the old count is
+    the parent design's (``src`` of every slot and ``tile_first`` each
+    round, 26 B a vertex a round, 12 B a vertex a call, 8 B per
+    scheduled slot and the ALT destinations)."""
+    from repro_torch.kernels.edge_relax import ref
+    dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt = args
+    vt_ptr, vt_tile, forced = kw["index"]
+    tile_e = kw["tile_e"]
+    n_out, e, nt = dist.shape[0], src.shape[0], tile_first.shape[0]
+    steps = torch.arange(tile_e, device=w.device)
+    total = 18 * n_out + 8 * int(front.sum())
+    old = 12 * n_out
+    seen = dict(path_sources=0, index_entries=0, sched_tiles=0,
+                path_slots=0, candidates=0, touched=0, improved=0,
+                destinations=0)
+    for _ in range(n_exec):
+        paths = front & ((dist <= 0.0) | (deg > 1))
+        sched, sched_n = ref.schedule_tiles(paths, src, w, tile_first,
+                                            tile_e)
+        slots = (sched[:int(sched_n)].long()[:, None] * tile_e
+                 + steps[None, :]).reshape(-1)
+        s, d = src[slots].long(), dst[slots].long()
+        on = paths[s]
+        c = dist[s] + w[slots]
+        ok = on & (c >= lb) & (c < ub)
+        kept = ok
+        if alt:
+            bound = torch.minimum(alt[1], dist[alt[3].long()] * alt[2])
+            kept = ok & (c + alt[0][d] <= bound)
+        n = dict(
+            path_sources=int(paths.sum()),
+            index_entries=int((vt_ptr[1:] - vt_ptr[:-1])[paths].sum()),
+            sched_tiles=int(sched_n), path_slots=int(on.sum()),
+            candidates=int(ok.sum()),
+            touched=int(torch.unique(d[kept]).numel()),
+            destinations=int(torch.unique(d[ok]).numel()) if alt else 0,
+            sources=int(torch.unique(s[ok]).numel()))
+        dist, parent, front, _ = ref.edge_relax_fused_ref(
+            dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt,
+            tile_e=tile_e, fused_rounds=1)
+        n["improved"] = int(front.sum())
+        total += (12 * n["path_sources"] + 5 * n["index_entries"]
+                  + 4 * forced.shape[0] + 4 * slots.shape[0]
+                  + 4 * n["path_slots"] + 4 * n["candidates"]
+                  + 4 * n["sources"] + 4 * n["destinations"]
+                  + 20 * n["touched"] + 16 * n["improved"])
+        old += (4 * e + nt + 26 * n_out + 8 * slots.shape[0]
+                + 4 * n["destinations"])
+        for k in seen:
+            seen[k] += n[k]
+    if not (bitwise_equal(dist, want[0]) and parent.equal(want[1])
+            and front.equal(want[2])):
+        raise AssertionError("the fused call's rounds stepped one at a time "
+                             "end elsewhere than the call")
+    return total, old, seen
+
+
+def fused_numbers(args, kw, what: str):
+    """One ``relax_fused`` call (ALT when ``args`` carry its operands) on
+    the main path's inputs: the check against the plain version, the
+    kernel's device time by CUDA-graph replay and eager time, with
+    ``--parent`` the parent design's on the same inputs in turns
+    (:func:`turn_times`), the plain version's time, and the bound as the
+    kernel reads (:func:`fused_bytes`) beside the old count."""
     from repro_torch.kernels.edge_relax import ops, ref
-    bg = res["layout"]
-    args = fused_window_inputs(res, device)
-    kw = dict(tile_e=bg.tile_e, fused_rounds=FUSED_ROUNDS)
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
     out = ops.relax_fused(*args, **kw)
-    want = ref.edge_relax_fused_ref(*args, **kw)
+    want = ref.edge_relax_fused_ref(*args, **plain_kw)
     if not (bitwise_equal(out[0], want[0])
             and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
-        raise AssertionError("edge_relax_fused disagrees with its plain "
-                             "version on the main path's layout")
+        raise AssertionError(f"edge_relax_fused disagrees with its plain "
+                             f"version {what}")
     err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
-    kernel_ms = cuda_ms(lambda: ops.relax_fused(*args, **kw))
-    plain_ms = cuda_ms(lambda: ref.edge_relax_fused_ref(*args, **kw))
-    # least bytes for this call's data, per executed round: src of every
-    # slot and tile_first (the flag pass), dst and w of the scheduled
-    # slots, and per vertex the key written and read back (16), dist read
-    # (4), front read and written (2), deg (4); once per call, per vertex,
-    # dist written and parent read and written (12)
+    times = turn_times("relax_fused", args, kw)
+    plain_ms = cuda_ms(lambda: ref.edge_relax_fused_ref(*args, **plain_kw))
     cnt = dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
-    e, nt, n_out = bg.src.shape[0], bg.tile_first.shape[0], bg.n_out
-    bytes_ = (cnt["n_exec"] * (4 * e + nt + 26 * n_out) + 12 * n_out
-              + 8 * cnt["n_tiles"] * bg.tile_e)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                bytes=bytes_, counts=cnt, window=[float(args[8]),
-                                                  float(args[9])])
+    bytes_, old, seen = fused_bytes(args, kw, cnt["n_exec"], want)
+    return dict(**times, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+                bound_ms_old=old / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
+                bytes=bytes_, bytes_old=old, counts=cnt, **seen,
+                window=[float(args[8]), float(args[9])])
 
 
-def window_destinations(dist, paths, src, dst, w, lb, ub) -> int:
-    """Distinct destinations among a round's in-window candidates (path
-    sources only): the ``alt_lb`` entries an ALT round must read."""
-    s = src.long()
-    cand = dist[s] + w
-    ok = paths[s].bool() & (cand >= lb) & (cand < ub)
-    return int(torch.unique(dst[ok]).numel())
+def measure_fused(res, device):
+    bg = res["layout"]
+    return fused_numbers(fused_window_inputs(res, device),
+                         dict(tile_e=bg.tile_e, fused_rounds=FUSED_ROUNDS,
+                              index=bg.index), "at the tree window")
 
 
 class MiddleCall:
@@ -1228,55 +1312,18 @@ def measure_alt(res, lm, query, device):
     return m
 
 
-def fused_round_destinations(args, tile_e: int, n_exec: int, want):
-    """Distinct in-window destinations summed over the ``n_exec`` rounds
-    a fused call ran, found by stepping the plain version one round at a
-    time from its inputs; the stepped state must end at ``want``'s."""
-    from repro_torch.kernels.edge_relax import ref
-    dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt = args
-    total = 0
-    for _ in range(n_exec):
-        paths = front & ((dist <= 0.0) | (deg > 1))
-        total += window_destinations(dist, paths, src, dst, w, lb, ub)
-        dist, parent, front, _ = ref.edge_relax_fused_ref(
-            dist, parent, front, deg, src, dst, w, tile_first, lb, ub, *alt,
-            tile_e=tile_e, fused_rounds=1)
-    if not (bitwise_equal(dist, want[0]) and parent.equal(want[1])
-            and front.equal(want[2])):
-        raise AssertionError("the fused call's rounds stepped one at a time "
-                             "end elsewhere than the call")
-    return total
-
-
 def measure_fused_alt(res, lm, query, device):
     """``edge_relax_fused``'s ALT branch at the middle call of the fused
-    ALT query of the p2p phase, against its plain version there;
-    ``ms_without_alt`` is the kernel on the same state without the cut."""
-    from repro_torch.kernels.edge_relax import ops, ref
-    bg = res["layout"]
+    ALT query of the p2p phase (:func:`fused_numbers`);
+    ``ms_without_alt`` is the kernel's device time on the same state
+    without the cut."""
+    from repro_torch.kernels.edge_relax import ops
     args, kw, k, calls = mid_query_call(res, query, lm, True, device)
-    out = ops.relax_fused(*args, **kw)
-    want = ref.edge_relax_fused_ref(*args, **kw)
-    if not (bitwise_equal(out[0], want[0])
-            and all(a.equal(b) for a, b in zip(out[1:], want[1:]))):
-        raise AssertionError("edge_relax_fused[alt] disagrees with its "
-                             "plain version at the query's middle call")
-    err = float((out[0] - want[0]).abs().nan_to_num(0.0).max())
-    kernel_ms = cuda_ms(lambda: ops.relax_fused(*args, **kw))
-    no_alt_ms = cuda_ms(lambda: ops.relax_fused(*args[:10], **kw))
-    plain_ms = cuda_ms(lambda: ref.edge_relax_fused_ref(*args, **kw))
-    # row 2's least bytes, plus 4 B of alt_lb per distinct destination of
-    # each executed round's in-window candidates
-    cnt = dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
-    n_dst = fused_round_destinations(args, kw["tile_e"], cnt["n_exec"], want)
-    e, nt, n_out = bg.src.shape[0], bg.tile_first.shape[0], bg.n_out
-    bytes_ = (cnt["n_exec"] * (4 * e + nt + 26 * n_out) + 12 * n_out
-              + 8 * cnt["n_tiles"] * bg.tile_e + 4 * n_dst)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, max_abs_err=err,
-                ms_without_alt=no_alt_ms, bytes=bytes_, counts=cnt,
-                destinations=n_dst, query=[query["source"], query["target"]],
-                call=[k, calls], window=[float(args[8]), float(args[9])])
+    m = fused_numbers(args, kw, "[alt] at the query's middle call")
+    m.update(ms_without_alt=graph_ms(lambda: ops.relax_fused(*args[:10],
+                                                             **kw)),
+             query=[query["source"], query["target"]], call=[k, calls])
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -1955,13 +2002,24 @@ def lm_serve(cfg, params, device):
         plain_calls=plain.calls)
 
 
+def trace_kernels(events, what: str):
+    """The CUDA kernel entries of a profiled pass (its ``key_averages()``).
+    A pass of work on the card whose trace holds none recorded nothing,
+    which must not pass as an idle device: raises, naming the pass."""
+    from torch.autograd import DeviceType
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not kern:
+        raise AssertionError(f"{what}: the profiler's trace holds no CUDA "
+                             "kernel")
+    return kern
+
+
 def lm_profile(cfg, params, device):
     """Where a served request's time goes: one 2048-token prefill and one
     decode step of 8 slots at position 2048 of a 4096-slot cache, each
     timed on the host clock (mean of 3, ending in a synchronize) and once
     under ``torch.profiler`` for the device time by kernel (the
     profiler's own host overhead is left out of the wall time)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
     tokens = torch.from_numpy(np.random.default_rng(5).integers(
@@ -1986,7 +2044,7 @@ def lm_profile(cfg, params, device):
             fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        kern = [e for e in events if e.device_type == DeviceType.CUDA]
+        kern = trace_kernels(events, f"lm_profile {name}")
         ms = lambda es: sum(e.self_device_time_total for e in es) / 1e3
         device_ms = ms(kern)
         flash = [e for e in kern if "flash_fwd" in e.key]
@@ -2503,7 +2561,6 @@ def recsys_profile(cfg, params, batches, device):
     clock (mean of 3, ending in a synchronize) and once under
     ``torch.profiler``: device time, its share of the wall time, the
     kernels launched and the four costliest by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.recsys.embedding import embedding_bag_batched
     from repro_torch.models.recsys.mind import (retrieval_scores,
@@ -2532,8 +2589,7 @@ def recsys_profile(cfg, params, batches, device):
                      acc_events=True) as prof:
             fn()
             torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
+        kern = trace_kernels(prof.key_averages(), f"recsys_profile {name}")
         device_ms = sum(e.self_device_time_total for e in kern) / 1e3
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
         out[name] = dict(
@@ -2619,6 +2675,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # Kineto tears CUPTI down after each profiled pass and sets it up again
+    # lazily at the next; with CUDA graphs captured in between (graph_ms)
+    # that re-init is what PyTorch's own profiler turns off
+    # (torch/profiler/profiler.py, "CUDA Graph does not work well with
+    # CUPTI teardown"), and a later pass can then record no kernel.
+    os.environ["TEARDOWN_CUPTI"] = "0"
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import tempfile
 
@@ -2745,12 +2807,16 @@ def report(graphs, device):
     per_query = lambda kind: {n: [q["solves"][kind]["launches"]
                                   for q in p2p[n]["queries"]]
                               for n in results}
-    def by_graph(numbers):
-        """Each graph's times and bounds of a one-round kernel row."""
-        keys = ("ms", "eager_ms", "parent_ms", "parent_eager_ms", "plain_ms",
-                "library_ms", "library_scatter_ms", "bound_ms",
-                "bound_ms_12b_slots", "bound_ms_old", "sched_tiles")
+    def by_graph(numbers, keys=("ms", "eager_ms", "parent_ms",
+                                "parent_eager_ms", "plain_ms", "library_ms",
+                                "library_scatter_ms", "bound_ms",
+                                "bound_ms_12b_slots", "bound_ms_old",
+                                "sched_tiles")):
+        """Each graph's times and bounds of a kernel row."""
         return {n: {k: m[k] for k in keys} for n, m in numbers.items()}
+    fused_keys = ("ms", "eager_ms", "parent_ms", "parent_eager_ms",
+                  "plain_ms", "bound_ms", "bound_ms_old", "sched_tiles",
+                  "touched", "improved")
     kernels = [{
         "name": "edge_relax", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
@@ -2787,6 +2853,7 @@ def report(graphs, device):
         "library_ms": None,
         "launches_per_solve": {n: r["fused_launches"]
                                for n, r in results.items()},
+        "per_graph": by_graph(fused, fused_keys),
     }, {
         "name": "edge_relax_fused[alt]", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/"
@@ -2797,6 +2864,7 @@ def report(graphs, device):
         "ms": fahead["ms"], "plain_ms": fahead["plain_ms"],
         "bound_ms": fahead["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
+        "per_graph": by_graph(fused_alt, fused_keys),
         "launches_per_graph": fused_alt_per_graph,
         "launches_per_query": per_query("alt fused"),
     }, {

@@ -364,7 +364,8 @@ def blocked_fused_rounds(bg: BlockedGraph, dist, parent, frontier, lb, ub,
         _pad(frontier, bg.n_out, False), bg.deg, bg.src, bg.dst, bg.w,
         bg.tile_first, lb, ub,
         None if alt_lb is None else _pad(alt_lb, bg.n_out, INF), prune_ub,
-        prune_infl, prune_tgt, tile_e=bg.tile_e, fused_rounds=fused_rounds)
+        prune_infl, prune_tgt, tile_e=bg.tile_e, fused_rounds=fused_rounds,
+        index=bg.index)
     return dist2[:n], parent2[:n], front2[:n], cnt
 
 

@@ -52,6 +52,9 @@
 //   3. unpack: keys -> (vals f32, wins i32), two destinations a thread,
 //      resetting each key it finds touched and the append counter.
 //
+// The key, the index walk and the resident-grid query live in
+// schedule.cuh, which edge_relax_fused.cu shares.
+//
 // The ALT branch is the template flag kAlt of relax_tiles, chosen by the
 // launcher from a non-null `alt_lb`: an in-window candidate c to
 // destination d enters only if __fadd_rn(c, alt_lb[d]) <= *prune_bound
@@ -72,27 +75,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "schedule.cuh"
+
 namespace {
-
-constexpr unsigned long long kEmptyKey =
-    (0x7F800000ull << 32) | 0x7FFFFFFFull;   // (+inf, INT_MAX)
-constexpr int kMaxWarps = 8;                 // tile_threads() <= 256
-constexpr int kWarpTiles = 8;                // more tiles: the warp walks
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ unsigned long long pack_key(float c, int32_t s) {
-  return ((unsigned long long)__float_as_uint(c) << 32) | (unsigned int)s;
-}
-
-// Schedule tile t unless this call has scheduled it already.  The plain
-// read (bypassing L1) skips the atomic for a tile already set.
-__device__ __forceinline__ void schedule_tile(int32_t t,
-                                              unsigned int* flags,
-                                              int32_t* sched,
-                                              int32_t* sched_n) {
-  if (__ldcg(&flags[t]) == 0u && atomicExch(&flags[t], 1u) == 0u)
-    sched[atomicAdd(sched_n, 1)] = t;
-}
 
 __global__ void schedule_frontier(const uint8_t* __restrict__ paths,
                                   int64_t n_src,
@@ -117,18 +102,7 @@ __global__ void schedule_frontier(const uint8_t* __restrict__ paths,
       lo = vt_ptr[s];
       hi = vt_ptr[s + 1];
     }
-    const bool wide = hi - lo > kWarpTiles;
-    if (!wide)
-      for (int32_t k = lo; k < hi; ++k)
-        schedule_tile(vt_tile[k], flags, sched, sched_n);
-    for (unsigned todo = __ballot_sync(kFull, wide); todo;
-         todo &= todo - 1) {
-      const int owner = __ffs(todo) - 1;
-      const int32_t wlo = __shfl_sync(kFull, lo, owner);
-      const int32_t whi = __shfl_sync(kFull, hi, owner);
-      for (int32_t k = wlo + lane; k < whi; k += 32)
-        schedule_tile(vt_tile[k], flags, sched, sched_n);
-    }
+    schedule_entries(lo, hi, vt_tile, nullptr, flags, sched, sched_n);
   }
 }
 
@@ -203,14 +177,6 @@ __global__ void relax_tiles(const float* __restrict__ dist,
   }
 }
 
-__device__ __forceinline__ float key_val(unsigned long long k) {
-  return __uint_as_float((unsigned int)(k >> 32));
-}
-
-__device__ __forceinline__ int32_t key_win(unsigned long long k) {
-  return (int32_t)(k & 0xFFFFFFFFull);
-}
-
 // Destinations 2j and 2j+1 per thread (16-byte key loads; the buffers
 // come from the caching allocator, so they are 16-byte aligned).
 __global__ void unpack(unsigned long long* __restrict__ keys, int64_t n_out,
@@ -238,36 +204,6 @@ __global__ void unpack(unsigned long long* __restrict__ keys, int64_t n_out,
 // Threads per block for a tile of `tile_e` slots.
 inline int tile_threads(int tile_e) {
   return tile_e >= 256 ? 256 : ((tile_e + 31) / 32) * 32;
-}
-
-// Blocks the card holds at once for `kernel` at `threads` (a multiple of
-// 32, at most 256) a block; 0 if the query failed or no block fits (see
-// no_blocks).  Asked once per kernel and block size (the process's cards
-// are taken to be alike).
-template <auto kKernel>
-int resident_blocks(int threads) {
-  static int known[kMaxWarps + 1] = {};
-  int& got = known[threads / 32];
-  if (got == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
-                                                      threads, 0) !=
-            cudaSuccess)
-      return 0;
-    got = sms * per_sm;
-  }
-  return got;
-}
-
-// The error to return when resident_blocks gave 0: the query's own, or
-// cudaErrorInvalidConfiguration when the query succeeded and no block fits,
-// so that a launcher never reports success having launched nothing.
-inline int no_blocks() {
-  const cudaError_t err = cudaGetLastError();
-  return (int)(err != cudaSuccess ? err : cudaErrorInvalidConfiguration);
 }
 
 template <typename T>

@@ -9,21 +9,26 @@ go to the hand-written kernels in ``csrc/edge_relax.cu`` (both one-round
 entry points) and ``csrc/edge_relax_fused.cu`` (built on first use), or
 the call raises.  There is no fallback from one to the other.
 
-The one-round kernels schedule their tiles from the layout's
-vertex->tile index (``index=``, a
-:class:`~repro_torch.core.graph.TileIndex`) and keep three scratch
-buffers between calls, cached per (device, tile count, destination
-count) for the life of the process: a flag word per tile and the packed
-keys, which every call leaves cleared, and the schedule.  Calls on one
-device must therefore be ordered on one stream.  A call may be captured
-in a CUDA graph only after an eager call of the same sizes has made its
+All three kernels schedule their tiles from the layout's vertex->tile
+index (``index=``, a :class:`~repro_torch.core.graph.TileIndex`) and
+keep scratch buffers between calls, cached per (device, tile count,
+destination count) for the life of the process: for the one-round
+kernels a flag word per tile and the packed keys, which every call
+leaves cleared, and the schedule; for the fused kernel the same plus the
+touched list, two frontier lists, two planes of path marks and the round
+scalars (:class:`_FusedScratch`), also left clean.  Calls on one device
+must therefore be ordered on one stream.  A call may be captured in a
+CUDA graph only after an eager call of the same sizes has made its
 scratch; the graph then holds that scratch's addresses, which stay valid
 because the cache never evicts (about 8 B a tile and 8 B a destination
-per layout size) and drops an entry only when a launch on it failed.
+per layout size for a one-round kernel, 8 B a tile and 22 B a
+destination for the fused one) and drops an entry only when a launch on
+it failed.  Each wrapper allocates only its outputs.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -66,9 +71,9 @@ _ROUND_ARGTYPES = [_P] * 9 + [_I64] + [_P] * 4 + [_I64, _I64, ctypes.c_int,
                                                   _I64] + [_P] * 7
 
 
-_FUSED_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
-                   _P, _P, _P, _P, _P, _P, _P, _P]
+# edge_relax_fused_launch
+_FUSED_ARGTYPES = ([_P] * 11 + [_I64] + [_P] * 6
+                   + [ctypes.c_int, _I64, ctypes.c_int] + [_P] * 12)
 
 
 def _library(name, argtypes, source="edge_relax"):
@@ -87,23 +92,29 @@ def _library(name, argtypes, source="edge_relax"):
 _SCRATCH: dict = {}
 
 
+def _cached(cache: dict, key, what: str, make):
+    """``cache[key]``, made by ``make()`` on first use.  A graph capture
+    cannot make it: its buffers must outlive the capture."""
+    bufs = cache.get(key)
+    if bufs is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what} scratch of these sizes does not "
+                               "exist yet: make one eager call before "
+                               "capturing")
+        bufs = cache[key] = make()
+    return bufs
+
+
 def _scratch(dev, nt: int, n_out: int):
     """The cached scratch of a one-round call: ``flags`` int32 ``[nt +
     1]`` (a word per tile, then the schedule's append counter; all 0),
     ``sched`` int32 ``[nt]`` and ``keys`` int64 ``[n_out]`` (all
     ``EMPTY_KEY``).  Returns ``(cache key, buffers)``."""
     key = (dev, nt, n_out)
-    bufs = _SCRATCH.get(key)
-    if bufs is not None:
-        return key, bufs
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("edge_relax scratch of these sizes does not exist "
-                           "yet: make one eager call before capturing")
-    bufs = (torch.zeros(nt + 1, dtype=torch.int32, device=dev),
-            torch.empty(nt, dtype=torch.int32, device=dev),
-            torch.full((n_out,), EMPTY_KEY, dtype=torch.int64, device=dev))
-    _SCRATCH[key] = bufs
-    return key, bufs
+    return key, _cached(_SCRATCH, key, "edge_relax", lambda: (
+        torch.zeros(nt + 1, dtype=torch.int32, device=dev),
+        torch.empty(nt, dtype=torch.int32, device=dev),
+        torch.full((n_out,), EMPTY_KEY, dtype=torch.int64, device=dev)))
 
 
 def _check(name, t, dtype, shape, device):
@@ -222,14 +233,58 @@ def relax_bucket(dist, paths, parent, src, dst, w, tile_first, lb, ub,
                         tile_e=tile_e, n_out=n_out)
 
 
+class _FusedScratch(NamedTuple):
+    """The fused kernel's scratch for one (device, tiles, destinations):
+    ``keys`` int64 ``[n_out]`` (all ``EMPTY_KEY`` between calls),
+    ``flags`` int32 ``[nt]`` (0), ``sched`` int32 ``[nt]``, ``touched``
+    int32 ``[n_out]``, ``lists`` int32 ``[2, n_out]`` (the frontier
+    lists), ``marks`` uint8 ``[2, n_out]`` (0) and ``scal`` int32 ``[8]``
+    (the round scalars, 0)."""
+    keys: torch.Tensor
+    flags: torch.Tensor
+    sched: torch.Tensor
+    touched: torch.Tensor
+    lists: torch.Tensor
+    marks: torch.Tensor
+    scal: torch.Tensor
+
+
+# (device, tiles, destinations) -> _FusedScratch, never evicted (see the
+# module's docstring)
+_FUSED_SCRATCH: dict = {}
+
+
+def _fused_scratch(dev, nt: int, n_out: int):
+    """The cached scratch of a fused call; returns ``(cache key,
+    _FusedScratch)``."""
+    key = (dev, nt, n_out)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def make():
+        return _FusedScratch(
+            keys=torch.full((n_out,), EMPTY_KEY, dtype=torch.int64,
+                            device=dev),
+            flags=torch.zeros(nt, **i32), sched=torch.empty(nt, **i32),
+            touched=torch.empty(n_out, **i32),
+            lists=torch.empty(2, n_out, **i32),
+            marks=torch.zeros(2, n_out, dtype=torch.uint8, device=dev),
+            scal=torch.zeros(8, **i32))
+    return key, _cached(_FUSED_SCRATCH, key, "edge_relax_fused", make)
+
+
 def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
                            tile_first, lb, ub, alt_lb, prune_ub, prune_infl,
-                           prune_tgt, *, tile_e: int, fused_rounds: int):
+                           prune_tgt, index, *, tile_e: int,
+                           fused_rounds: int):
     dev = dist.device
     e = src.shape[0]
     nt = tile_first.shape[0]
     if e != nt * tile_e or nt == 0:
         raise ValueError(f"slab of {e} slots is not {nt} tiles of {tile_e}")
+    if index is None:
+        raise ValueError("edge_relax_fused on the card needs the layout's "
+                         "TileIndex (index=)")
+    vt_ptr, vt_tile, forced = index
     n_out = dist.shape[0]
     for name, t, dtype, shape in (
             ("dist", dist, torch.float32, (n_out,)),
@@ -239,33 +294,35 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
             ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
             ("w", w, torch.float32, (e,)),
             ("tile_first", tile_first, torch.bool, (nt,)),
-            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ())):
+            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ()),
+            ("vt_ptr", vt_ptr, torch.int32, (n_out + 1,)),
+            ("vt_tile", vt_tile, torch.int32, vt_tile.shape[:1]),
+            ("forced", forced, torch.int32, forced.shape[:1])):
         _check(name, t, dtype, shape, dev)
     alt = _check_alt(("alt_lb", "prune_ub", "prune_infl", "prune_tgt"),
                      (alt_lb, prune_ub, prune_infl, prune_tgt),
                      ((n_out,), (), (), ()),
                      (torch.float32,) * 3 + (torch.int32,), dev)
     fn = _library("edge_relax_fused", _FUSED_ARGTYPES, "edge_relax_fused")
+    key, s = _fused_scratch(dev, nt, n_out)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     dist_out = empty(n_out, torch.float32)
     parent_out = empty(n_out, torch.int32)
     front_out = empty(n_out, torch.bool)
     counts = empty(8, torch.int32)
-    keys = empty(n_out, torch.int64)
-    sched = empty(nt, torch.int32)
-    scalars = empty(3, torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dist.data_ptr(), parent.data_ptr(), frontier.data_ptr(),
                  deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                 w.data_ptr(), tile_first.data_ptr(), lb.data_ptr(),
-                 ub.data_ptr(), _ptr(alt_lb), _ptr(prune_ub),
-                 _ptr(prune_infl), _ptr(prune_tgt), nt, tile_e, n_out,
-                 fused_rounds,
-                 dist_out.data_ptr(), parent_out.data_ptr(),
-                 front_out.data_ptr(), counts.data_ptr(), keys.data_ptr(),
-                 sched.data_ptr(), scalars.data_ptr(), stream)
+                 w.data_ptr(), tile_first.data_ptr(), vt_ptr.data_ptr(),
+                 vt_tile.data_ptr(), forced.data_ptr(), forced.shape[0],
+                 lb.data_ptr(), ub.data_ptr(), _ptr(alt_lb),
+                 _ptr(prune_ub), _ptr(prune_infl), _ptr(prune_tgt), tile_e,
+                 n_out, fused_rounds, dist_out.data_ptr(),
+                 parent_out.data_ptr(), front_out.data_ptr(),
+                 counts.data_ptr(), *(b.data_ptr() for b in s), stream)
     if err != 0:
+        _FUSED_SCRATCH.pop(key, None)  # a key, flag or mark may be left set
         raise RuntimeError(f"edge_relax_fused launch failed: {_error(err)}")
     if alt:
         LAUNCHES.edge_relax_fused_alt += 1
@@ -285,7 +342,8 @@ def _error(code: int) -> str:
 
 def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
                 ub, alt_lb=None, prune_ub=None, prune_infl=None,
-                prune_tgt=None, *, tile_e: int, fused_rounds: int):
+                prune_tgt=None, *, tile_e: int, fused_rounds: int,
+                index=None):
     """Up to ``fused_rounds`` relaxation rounds over a whole-graph slab in
     one call (one round while ``lb <= 0``; it stops after the first round
     that improves nothing).
@@ -297,10 +355,12 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
     ``lb``/``ub`` 0-d f32 on the device.  With ``alt_lb`` (f32
     ``[n_out]``), ``prune_ub``/``prune_infl`` (0-d f32) and ``prune_tgt``
     (0-d int32), the ALT cut with the bound ``min(prune_ub,
-    dist[prune_tgt] * prune_infl)`` taken afresh each round.  Returns
-    ``(dist, parent, frontier, counts)``: the state after the last
-    executed round, in new tensors, and the int32 ``FUSED_COUNTERS``
-    summed over those rounds.
+    dist[prune_tgt] * prune_infl)`` taken afresh each round.  ``index``
+    is the slab's :class:`TileIndex`, which the kernel schedules each
+    round from (needed on the card; the plain version reads every slot).
+    Returns ``(dist, parent, frontier, counts)``: the state after the
+    last executed round, in new tensors, and the int32
+    ``FUSED_COUNTERS`` summed over those rounds.
     """
     if fused_rounds < 1:
         raise ValueError(f"fused_rounds must be >= 1, got {fused_rounds}")
@@ -308,7 +368,7 @@ def relax_fused(dist, parent, frontier, deg, src, dst, w, tile_first, lb,
         return _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst,
                                       w, tile_first, lb, ub, alt_lb,
                                       prune_ub, prune_infl, prune_tgt,
-                                      tile_e=tile_e,
+                                      index, tile_e=tile_e,
                                       fused_rounds=fused_rounds)
     if dist.device.type != "cpu":
         raise ValueError(f"edge_relax_fused runs on CUDA or CPU, not "

@@ -4,7 +4,10 @@
 ``scatter_reduce``; ``schedule_tiles`` is the reference's
 frontier-compaction prepass, and the oracle of ``frontier_schedule``, the
 CUDA kernels' frontier-driven prepass written plainly;
-``edge_relax_fused_ref`` is the multi-round fused kernel's contract;
+``edge_relax_fused_ref`` is the multi-round fused kernel's contract and
+``edge_relax_fused_steps`` the CUDA fused kernel's steps written plainly
+(frontier list, index schedule, touched list, commit over it; tests
+only);
 ``edge_relax_partials_ref`` is the one-round round with its counters,
 which both one-round kernels (``edge_relax`` on a device's slabs,
 ``edge_relax_partials`` on a shard's) compute.  Every kernel takes the
@@ -166,6 +169,79 @@ def edge_relax_fused_ref(dist, parent, frontier, deg, src, dst, w,
         if not bool(improved.any()):
             break
     return dist, parent, frontier, cnt
+
+
+def edge_relax_fused_steps(dist, parent, frontier, deg, src, dst, w,
+                           tile_first, lb, ub, alt_lb=None, prune_ub=None,
+                           prune_infl=None, prune_tgt=None, *, tile_e: int,
+                           fused_rounds: int, index):
+    """The CUDA fused kernel's steps, plainly (tests only): the same
+    function as :func:`edge_relax_fused_ref`, computed as
+    ``csrc/edge_relax_fused.cu`` computes it.
+
+    One pass lists the frontier.  Each round then schedules the forced
+    tiles and, for each path source of the list, the tiles of its
+    ``index`` entry that are not forced (each once); relaxes the
+    scheduled tiles' slots into packed (value bits, source id) keys; lists
+    the touched destinations (those whose key left ``EMPTY_KEY``); and
+    commits over that list only, whose improved vertices are the next
+    round's frontier list.  Returns ``(dist, parent, frontier,
+    counts)``."""
+    vt_ptr, vt_tile, forced = (a.long() for a in index)
+    dev = dist.device
+    n_out = dist.shape[0]
+    max_r = 1 if bool(lb <= 0.0) else fused_rounds
+    dist, parent = dist.clone(), parent.clone()
+    front_list = torch.nonzero(frontier).reshape(-1)
+    cnt = torch.zeros(8, dtype=torch.int32, device=dev)
+    steps = torch.arange(tile_e, device=dev)
+    for r in range(max_r):
+        fl = front_list
+        live = fl[(dist[fl] <= 0.0) | (deg[fl] > 1)]
+        mark = torch.zeros(n_out, dtype=torch.bool, device=dev)
+        mark[live] = True
+        span = vt_ptr[live + 1] - vt_ptr[live]
+        at = torch.repeat_interleave(vt_ptr[live], span) + (
+            torch.arange(int(span.sum()), device=dev)
+            - torch.repeat_interleave(torch.cumsum(span, 0) - span, span))
+        tiles = torch.unique(vt_tile[at])
+        tiles = tiles[~tile_first[tiles]]
+        sched = torch.cat([forced, tiles])
+        slots = (sched[:, None] * tile_e + steps[None, :]).reshape(-1)
+        s = src[slots].long()
+        d = dst[slots].long()
+        c = dist[s] + w[slots]
+        ok = mark[s] & (c >= lb) & (c < ub)
+        notpar = d != parent[s].long()
+        fail = torch.zeros_like(ok)
+        if alt_lb is not None:
+            bound = torch.minimum(prune_ub, dist[prune_tgt.long()]
+                                  * prune_infl)
+            fail = ok & ~(c + alt_lb[d] <= bound)
+        kept = ok & ~fail
+        keys = torch.full((n_out,), EMPTY_KEY, dtype=torch.int64,
+                          device=dev)
+        keys.scatter_reduce_(0, d[kept], (c[kept].view(torch.int32).long()
+                                          << 32) | s[kept], "amin")
+        touched = torch.unique(d[kept])      # the keys that left EMPTY_KEY
+        key = keys[touched]
+        val = (key >> 32).to(torch.int32).view(torch.float32)
+        imp = val < dist[touched]
+        improved = touched[imp]
+        dist[improved] = val[imp]
+        parent[improved] = (key[imp] & 0xFFFFFFFF).to(torch.int32)
+        cnt += torch.stack([
+            _count(ok), _count(kept & notpar), _count(imp),
+            _count(deg[improved] > 1),
+            torch.tensor(int(fl.numel() > 0), dtype=torch.int32, device=dev),
+            torch.tensor(sched.numel(), dtype=torch.int32, device=dev),
+            cnt.new_ones(()), _count(fail & notpar)])
+        front_list = improved
+        if improved.numel() == 0:
+            break
+    front = torch.zeros(n_out, dtype=torch.bool, device=dev)
+    front[front_list] = True
+    return dist, parent, front, cnt
 
 
 def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,

@@ -101,7 +101,7 @@ def test_cuda_fused_kernel_matches_plain_version(card):
                 bg.tile_first, _f32(1.0, card), _f32(6.0, card))
         kw = dict(tile_e=bg.tile_e, fused_rounds=4)
         before = ops.LAUNCHES.edge_relax_fused
-        out = ops.relax_fused(*args, **kw)
+        out = ops.relax_fused(*args, **kw, index=bg.index)
         torch.cuda.synchronize()
         assert ops.LAUNCHES.edge_relax_fused == before + 1
         want = ref.edge_relax_fused_ref(*args, **kw)
@@ -432,7 +432,7 @@ def test_cuda_fused_alt_kernel_matches_plain_version(card, case):
     want = ref.edge_relax_fused_ref(*args, **kw)
     for _ in range(2):
         before = ops.LAUNCHES.edge_relax_fused_alt
-        out = ops.relax_fused(*args, **kw)
+        out = ops.relax_fused(*args, **kw, index=bg.index)
         torch.cuda.synchronize()
         assert ops.LAUNCHES.edge_relax_fused_alt == before + 1
         assert torch.equal(out[0].view(torch.int32),
@@ -444,6 +444,177 @@ def test_cuda_fused_alt_kernel_matches_plain_version(card, case):
         assert cnt["n_relax"] == 0 and cnt["n_pruned"] > 0
     if case == "tightens":
         assert torch.isfinite(out[0][tgt]) and cnt["n_exec"] > 1
+
+
+# ---------------------------------------------------------------------------
+# edge_relax_fused: frontier lists, the index schedule, cached scratch
+# ---------------------------------------------------------------------------
+
+def _fused_alt(rng, bg, card, prune_ub=np.inf, tgt=None):
+    """ALT operands for a fused call: ``_alt_lb``'s quarters, the prune
+    bound, chip_smoke.py's inflation and the target (by default a random
+    one, reached or not, so that the bound may tighten within the
+    call)."""
+    tgt = int(rng.integers(0, bg.n)) if tgt is None else tgt
+    return (_alt_lb(rng, bg.n_out, bg.n, card), _f32(prune_ub, card),
+            _f32(1.0 + 4.0 * 2.0 ** -24 * 100, card),
+            torch.tensor(tgt, dtype=torch.int32, device=card))
+
+
+def _assert_fused_scratch_clean(what=""):
+    for s in ops._FUSED_SCRATCH.values():
+        assert bool((s.keys == ref.EMPTY_KEY).all()), what
+        assert not bool(s.flags.any()), what
+        assert not bool(s.marks.any()), what
+        assert not bool(s.scal.any()), what
+
+
+def _check_fused(bg, state, alt=(), *, rounds=4, what=""):
+    """``relax_fused``, called twice, against the plain version and the
+    kernel's steps written plainly on one layout: dist, parent, frontier
+    and the eight counters bitwise, the launch counted, the cached
+    scratch left clean.  Returns the counters by name."""
+    dist, front, parent, lb, ub = state
+    args = (dist, parent, front, bg.deg, bg.src, bg.dst, bg.w,
+            bg.tile_first, lb, ub, *alt)
+    kw = dict(tile_e=bg.tile_e, fused_rounds=rounds)
+    want = ref.edge_relax_fused_ref(*args, **kw)
+    steps = ref.edge_relax_fused_steps(*args, **kw, index=bg.index)
+    counter = "edge_relax_fused" + ("_alt" if alt else "")
+    for _ in range(2):
+        before = getattr(ops.LAUNCHES, counter)
+        out = ops.relax_fused(*args, **kw, index=bg.index)
+        torch.cuda.synchronize()
+        assert getattr(ops.LAUNCHES, counter) == before + 1, what
+        for plain in (want, steps):
+            assert torch.equal(out[0].view(torch.int32),
+                               plain[0].view(torch.int32)), what
+            for a, b in zip(out[1:], plain[1:]):
+                assert torch.equal(a, b), what
+        _assert_fused_scratch_clean(what)
+    return dict(zip(ops.FUSED_COUNTERS, out[3].tolist()))
+
+
+@pytest.mark.parametrize("alt", [False, True], ids=["plain", "alt"])
+@pytest.mark.parametrize("n_front", [0, 3, 40, -1, "every"])
+def test_cuda_fused_frontier_sizes(card, n_front, alt):
+    # the card's one-bucket road layout and a multi-bucket one with +inf
+    # edges; rounds 1, 4, 8 and a window with lb <= 0 (one round)
+    rng = np.random.default_rng(27)
+    g = _graph(rng, ties=True)
+    w = g.w.copy()
+    w[rng.random(w.size) < 0.1] = np.inf
+    layouts = (build_blocked(road_grid(64, seed=3), device=card),
+               build_blocked(build_csr(g.n, g.src, g.dst, w,
+                                       symmetrize=False), block_v=64,
+                             tile_e=32, device=card))
+    for bg in layouts:
+        for rounds, lb in ((1, 1.0), (4, 1.0), (8, 1.0), (4, 0.0)):
+            dist, front, parent, lbt, ub = _state(
+                rng, bg, 0 if n_front == "every" else n_front, card, lb=lb,
+                ub=9.0)
+            if n_front == "every":
+                front = torch.ones_like(front)
+            extra = _fused_alt(rng, bg, card, 6.0) if alt else ()
+            cnt = _check_fused(bg, (dist, front, parent, lbt, ub), extra,
+                               rounds=rounds,
+                               what=f"{n_front} {bg.tile_e} {rounds} {lb}")
+            assert 1 <= cnt["n_exec"] <= (1 if lb <= 0 else rounds)
+            assert cnt["n_rounds"] == (0 if n_front == 0 else
+                                       cnt["n_exec"])
+            if n_front == 0:
+                forced = int(bg.tile_first.sum())
+                assert [cnt[k] for k in ("n_trav", "n_tiles", "n_exec")] \
+                    == [0, forced, 1]
+
+
+def test_cuda_fused_vertex_improves_in_consecutive_rounds(card):
+    # a -> v (5), b -> c (1), c -> v (1): v improves in round 0 (via a)
+    # and again in round 1 (via c), while it is on round 1's frontier
+    rng = np.random.default_rng(28)
+    n = 400
+    u = rng.integers(4, n, 1500)
+    x = rng.integers(4, n, 1500)
+    keep = u != x
+    src = np.concatenate([[0, 1, 2], u[keep]])
+    dst = np.concatenate([[3, 2, 3], x[keep]])
+    w = np.concatenate([[5.0, 1.0, 1.0], rng.integers(1, 4, keep.sum())])
+    bg = build_blocked(build_csr(n, src, dst, w), block_v=64, tile_e=32,
+                       device=card)
+    dist = np.full(bg.n_out, np.inf, np.float32)
+    dist[[0, 1]] = 0.0               # sources of degree 1: on a path
+    front = np.zeros(bg.n_out, bool)
+    front[[0, 1]] = True
+    parent = np.full(bg.n_out, -1, np.int32)
+    t = lambda a: torch.from_numpy(a).to(card)
+    state = (t(dist), t(front), t(parent), _f32(0.5, card),
+             _f32(10.0, card))
+    one = ops.relax_fused(state[0], state[2], state[1], bg.deg, bg.src,
+                          bg.dst, bg.w, bg.tile_first, *state[3:],
+                          tile_e=bg.tile_e, fused_rounds=1, index=bg.index)
+    assert float(one[0][3]) == 5.0 and bool(one[2][3])
+    cnt = _check_fused(bg, state, rounds=4, what="twice")
+    out = ops.relax_fused(state[0], state[2], state[1], bg.deg, bg.src,
+                          bg.dst, bg.w, bg.tile_first, *state[3:],
+                          tile_e=bg.tile_e, fused_rounds=4, index=bg.index)
+    assert float(out[0][3]) == 2.0 and int(out[1][3]) == 2
+    assert cnt["n_exec"] == 3 and cnt["n_updates"] == 3
+
+
+def test_cuda_fused_scratch_clean_over_layouts_in_turn(card):
+    # A, B (other sizes), A again, both branches: a key, flag, mark or
+    # round scalar left set by one call shows in the next
+    rng = np.random.default_rng(29)
+    a = build_blocked(_graph(rng, ties=True), block_v=256, tile_e=64,
+                      device=card)
+    b = build_blocked(road_grid(48, seed=6), device=card)
+    sa = _state(rng, a, -1, card)
+    first = _check_fused(a, sa, what="A")
+    _check_fused(b, _state(rng, b, 30, card), what="B")
+    _check_fused(a, _state(rng, a, 7, card), _fused_alt(rng, a, card, 5.0),
+                 what="A alt")
+    _check_fused(b, _state(rng, b, -1, card), _fused_alt(rng, b, card),
+                 what="B alt")
+    assert _check_fused(a, sa, what="A again") == first
+
+
+@pytest.mark.parametrize("alt", [False, True], ids=["plain", "alt"])
+def test_cuda_fused_graph_replay_matches_eager(card, alt):
+    # one eager call makes the scratch; a captured call then replays
+    # bitwise equal to it, and leaves the scratch clean
+    rng = np.random.default_rng(30)
+    bg = build_blocked(road_grid(64, seed=3), device=card)
+    dist, front, parent, lb, ub = _state(rng, bg, 200, card, ub=4.0)
+    # an unreached target and a bound above every candidate: the call
+    # runs several rounds with ALT too
+    far = int(torch.nonzero(torch.isinf(dist[:bg.n]))[0])
+    extra = _fused_alt(rng, bg, card, 9.0, far) if alt else ()
+    call = lambda: ops.relax_fused(
+        dist, parent, front, bg.deg, bg.src, bg.dst, bg.w, bg.tile_first,
+        lb, ub, *extra, tile_e=bg.tile_e, fused_rounds=4, index=bg.index)
+    eager = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed[0].view(torch.int32),
+                           eager[0].view(torch.int32))
+        for x, y in zip(replayed[1:], eager[1:]):
+            assert torch.equal(x, y)
+        _assert_fused_scratch_clean("replay")
+    assert eager[3][ops.FUSED_COUNTERS.index("n_exec")] > 1
+
+
+def test_cuda_fused_needs_the_index(card):
+    rng = np.random.default_rng(31)
+    bg = build_blocked(road_grid(16, seed=3), device=card)
+    dist, front, parent, lb, ub = _state(rng, bg, 10, card)
+    with pytest.raises(ValueError, match="TileIndex"):
+        ops.relax_fused(dist, parent, front, bg.deg, bg.src, bg.dst, bg.w,
+                        bg.tile_first, lb, ub, tile_e=bg.tile_e,
+                        fused_rounds=4)
 
 
 def test_cuda_alt_p2p_matches_segment_min(card):

@@ -4,15 +4,18 @@
 
 ``--parent DIR`` (a checkout of another commit, e.g. ``git archive`` of
 the parent unpacked into an ignored directory) also times that checkout's
-``edge_relax``, ``edge_relax_partials`` and ``edge_relax_fused`` kernels
-on the same inputs as this tree's, in turns (parent, this, this,
-parent).  Run with no argument, the script needs one card and nothing
+``edge_relax``, ``edge_relax_partials``, ``edge_relax_fused`` and
+``embedding_bag`` kernels, and its embedding layer, on the same inputs as
+this tree's, in turns (parent, this, this, parent).  Run with no argument, the script needs one card and nothing
 else.
 
 Phases, in order; any failure exits non-zero:
 
 1. Device: the card's name and power limit; build every CUDA kernel from
    the sources in this checkout (one ``nvcc`` per source, in parallel).
+   Then phase 5's profiled passes (:func:`recsys_profiled`): run late,
+   after the other phases, the embedding layer's pass came back with an
+   empty trace.
 2. Kernels vs plain versions on seeded random slabs: ``edge_relax``
    (empty buckets, an all-padding slab, ``lb <= 0``, forced ties; each
    call made twice; ``vals``, ``wins`` and the four counters bitwise
@@ -116,21 +119,34 @@ Phases, in order; any failure exits non-zero:
    float32 item table drawn on the card from a ``torch.Generator`` seeded
    with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
    the ``serve_p99`` (512 users) and ``serve_bulk`` (262,144) shapes).
-   First ``embedding_bag`` against its plain version, bitwise, each
-   kernel call made twice: the reference kernel test's 12 shapes x modes
-   x weights, L = 1, a bag of zero weights under mean, ids -1, -V, V and
-   2V (wrapped or clamped), a bfloat16 table, and both serve batches over
-   the full table.  Then the embedding layer: ``embedding_bag_batched``
-   over the full table at both shapes, sum and mean, and a serve_p99
-   batch with ids injected outside ``[-V, V)``; each call must launch
-   the kernel once and never the plain version (counted), equal the
-   plain version on the card bit for bit, and give NaN bags exactly where
-   the reference's ``jnp.take`` would.  Then MIND: ``serve_interests`` at
+   First both entries of ``embedding_bag`` against their plain
+   versions, bitwise, each case through the wrapper twice and once with
+   each staging (``ops.STAGINGS``): the weighted entry on the reference
+   kernel test's 12 shapes x modes x weights, L = 1, a bag of zero
+   weights under mean, ids -1, -V, V and 2V (wrapped or clamped), a
+   bfloat16 table and both serve batches (``bag_inputs``' ids and
+   weights) over the full table; the masked entry on Zipf ids under
+   random masks (L from 0 to 200, D from 16 to 512, f32 and bf16; a
+   masked-in id outside ``[-V, V)``, wrapping ids, masked-out ids outside
+   it, an all-masked bag; B up to 6,000, which takes the persistent grid),
+   a table whose rows 0 and 7 hold inf and NaN,
+   no mask, and both serve batches' raw ids and mask.  Then the embedding
+   layer: ``embedding_bag_batched`` over the full table at both shapes,
+   sum and mean, a serve_p99 batch with ids injected outside ``[-V, V)``,
+   and the serve_p99 batch with inf and NaN written into row 0 (restored
+   after); each call must launch the masked entry once, the weighted
+   entry never and never a plain version (counted), equal the masked
+   entry's plain version on the card bit for bit (on the finite table
+   also the weighted entry over ``bag_inputs``, the parent's layer), give
+   NaN bags exactly where the reference's ``jnp.take`` would, and with
+   the non-finite row 0 inf and NaN only in the two columns of the bags
+   that look row 0 up masked in.  Then MIND: ``serve_interests`` at
    both shapes and ``retrieval_scores`` of user 0 over 10^6 candidate
    ids (numpy seed 1); every output finite, every interest's norm below
    1, and the first 64 users' interests and first 65,536 scores within
    1e-5 (relative, and of the largest magnitude) of the same functions
-   on the CPU, in float32 with TF32 off.
+   on the CPU, in float32 with TF32 off.  The profiled pass of the layer
+   at serve_bulk fails if it launches more than one kernel.
 6. Numbers: one JSON ``kernels`` line (kernel, plain-version and
    library-call times from CUDA events, the bound, launches on the main
    path; ``edge_relax`` and ``edge_relax_partials``, with and without
@@ -164,9 +180,12 @@ Phases, in order; any failure exits non-zero:
    ``scaled_dot_product_attention``, the kernel called eagerly, and at S
    = 2048 the CUDA-core design on the same call, beside its bound, with
    TFLOP/s or GB/s, the bound's share and the design; ``embedding_bag``'s
-   at both serve shapes in sum and mean (kernel, plain version,
-   ``torch.nn.functional.embedding_bag``) beside
-   its byte bound, which charges each distinct row once, and MIND's
+   two entries at both serve shapes in sum and mean (:func:`measure_bag`:
+   graph replay and eager, with ``--parent`` the parent's design on the
+   same inputs in turns, the plain version,
+   ``torch.nn.functional.embedding_bag`` by graph replay) beside the
+   byte bound, which charges each distinct row once, the two stagings
+   (``[embedding_bag design]`` lines, :func:`bag_design`), and MIND's
    ``serve_interests`` and ``retrieval_scores`` milliseconds, users/s and
    candidates/s (``[recsys]`` lines).
 
@@ -956,14 +975,6 @@ def load_parent(root: str):
     return importlib.import_module("parent_repro_torch.kernels.edge_relax.ops")
 
 
-def parent_call(fn: str, args, kw):
-    """The parent design's call on the same inputs: its ``relax_fused``
-    takes no index (the fused kernel before the frontier-list design)."""
-    if fn == "relax_fused":
-        kw = {k: v for k, v in kw.items() if k != "index"}
-    return lambda: getattr(PARENT, fn)(*args, **kw)
-
-
 def scheduled_slots(args, kw):
     """The slots of the tiles ``schedule_tiles`` schedules for a round."""
     from repro_torch.kernels.edge_relax import ref
@@ -1060,25 +1071,28 @@ def library_round(args, kw, slots, want):
     return graph_ms(whole), scatter_ms, n_window, int(ok.sum())
 
 
-def turn_times(fn: str, args, kw) -> dict:
+def in_turns(call, parent=None) -> dict:
     """Device ms (:func:`graph_ms`) and eager ms (:func:`cuda_ms`, the
-    host's launch cost included) of ``ops.<fn>(*args, **kw)`` and, with
-    ``--parent``, of the parent design's call on the same inputs, timed
-    in turns: parent, this, this, parent.  Returns the means and the
-    turns."""
-    from repro_torch.kernels.edge_relax import ops
-    call = lambda: getattr(ops, fn)(*args, **kw)
+    host's launch cost included) of ``call`` and, if given, of ``parent``
+    (the parent design's call on the same inputs), timed in turns: parent,
+    this, this, parent.  Returns the means and the turns."""
     times = dict(ms=[], eager_ms=[], parent_ms=[], parent_eager_ms=[])
-    turns = ((PARENT is not None, "parent_"), (True, ""), (True, ""),
-             (PARENT is not None, "parent_"))
-    for on, tag in turns:
-        if not on:
-            continue
-        f = parent_call(fn, args, kw) if tag else call
-        times[f"{tag}ms"].append(graph_ms(f))
-        times[f"{tag}eager_ms"].append(cuda_ms(f))
+    for f, tag in ((parent, "parent_"), (call, ""), (call, ""),
+                   (parent, "parent_")):
+        if f is not None:
+            times[f"{tag}ms"].append(graph_ms(f))
+            times[f"{tag}eager_ms"].append(cuda_ms(f))
     mean = lambda xs: sum(xs) / len(xs) if xs else None
     return dict({k: mean(v) for k, v in times.items()}, turns=times)
+
+
+def turn_times(fn: str, args, kw) -> dict:
+    """:func:`in_turns` of ``ops.<fn>(*args, **kw)`` and, with
+    ``--parent``, of the parent design's call on the same inputs."""
+    from repro_torch.kernels.edge_relax import ops
+    return in_turns(lambda: getattr(ops, fn)(*args, **kw),
+                    None if PARENT is None
+                    else lambda: getattr(PARENT, fn)(*args, **kw))
 
 
 def round_numbers(fn: str, args, kw, what: str):
@@ -2327,31 +2341,41 @@ def same_bits(out, want) -> bool:
 
 
 class PlainBagCalls:
-    """Counts calls of ``embedding_bag``'s plain version through the
-    wrapper (``ops.embedding_bag_ref``) while open."""
+    """Counts calls of ``embedding_bag``'s plain versions through the
+    wrapper (``ops.embedding_bag_ref``, ``ops.embedding_bag_masked_ref``)
+    while open."""
+
+    NAMES = ("embedding_bag_ref", "embedding_bag_masked_ref")
 
     def __enter__(self):
         from repro_torch.kernels.embedding_bag import ops
-        self.ops, self.saved, self.calls = ops, ops.embedding_bag_ref, 0
+        self.ops, self.calls = ops, 0
+        self.saved = {n: getattr(ops, n) for n in self.NAMES}
 
-        def counted(*args, **kw):
-            self.calls += 1
-            return self.saved(*args, **kw)
-        ops.embedding_bag_ref = counted
+        def counted(fn):
+            def call(*args, **kw):
+                self.calls += 1
+                return fn(*args, **kw)
+            return call
+        for n, fn in self.saved.items():
+            setattr(ops, n, counted(fn))
         return self
 
     def __exit__(self, *exc):
-        self.ops.embedding_bag_ref = self.saved
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
 
 
 def bag_vs_plain(table, batches, device, seed: int = 5) -> int:
-    """``embedding_bag`` against its plain version, bitwise, each kernel
-    call made twice; returns the number of cases."""
+    """Both entries of ``embedding_bag`` against their plain versions,
+    bitwise: each case through the wrapper twice (the default staging)
+    and once with every staging; returns the number of cases."""
     from repro_torch.kernels.embedding_bag import ops, ref
     rng = np.random.default_rng(seed)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
-    cases = []
+    bmask = lambda a: torch.from_numpy(np.asarray(a, bool)).to(device)
+    cases = []          # (what, table, ids, weights or mask, mode, masked)
     # the reference kernel test's 12 shapes x modes x weights
     for (v, d, b, l), mode, weighted in itertools.product(
             ((64, 16, 4, 3), (300, 32, 8, 7), (1000, 64, 2, 20)),
@@ -2359,45 +2383,98 @@ def bag_vs_plain(table, batches, device, seed: int = 5) -> int:
         t = f32(rng.normal(0, 1, (v, d)))
         w = f32(rng.random((b, l))) if weighted else None
         cases.append((f"V={v} D={d} B={b} L={l} {mode} w={weighted}", t,
-                      i32(rng.integers(0, v, (b, l))), w, mode))
+                      i32(rng.integers(0, v, (b, l))), w, mode, False))
     t = f32(rng.normal(0, 1, (300, 64)))
     w0 = rng.random((6, 9))
     w0[2] = 0.0
-    cases += [("L=1", t, i32(rng.integers(0, 300, (40, 1))), None, "sum"),
+    cases += [("L=1", t, i32(rng.integers(0, 300, (40, 1))), None, "sum",
+               False),
               ("L=1 mean", t, i32(rng.integers(0, 300, (40, 1))),
-               f32(rng.random((40, 1))), "mean"),
+               f32(rng.random((40, 1))), "mean", False),
               ("zero-weight bag, mean", t,
-               i32(rng.integers(0, 300, (6, 9))), f32(w0), "mean"),
+               i32(rng.integers(0, 300, (6, 9))), f32(w0), "mean", False),
               ("ids -1, -V, V, 2V", t,
                i32([[-1, -300, 300, 600], [5, -1, 600, -301]]),
-               f32(rng.random((2, 4))), "mean")]
+               f32(rng.random((2, 4))), "mean", False)]
     tb = t.to(torch.bfloat16)
     for mode in ("sum", "mean"):
         cases.append((f"bf16 table {mode}", tb,
-                      i32(rng.integers(0, 300, (33, 17))), None, mode))
+                      i32(rng.integers(0, 300, (33, 17))), None, mode, False))
     for name in RECSYS_SHAPES:
         hist, mask = batches[name]
         for mode in ("sum", "mean"):
             cases.append((f"MIND {name} {mode}", table, hist, mask.float(),
-                          mode))
-    for what, t, ids, w, mode in cases:
-        first = ops.embedding_bag(t, ids, w, mode=mode)
-        again = ops.embedding_bag(t, ids, w, mode=mode)
-        want = ref.embedding_bag_ref(t, ids, w, mode=mode)
+                          mode, False))
+    # the masked entry: Zipf ids (rows repeat within a chunk of 32), a
+    # masked-in id outside [-V, V) in bag 0, ids -1 and -V (wrap), masked-out
+    # ids outside [-V, V) (not read), an all-masked bag; L from 0 to 200
+    # (0 to 7 chunks), rows of 64 B to 2 KB (one to eight 256-byte slices)
+    for (v, d, b, l), mode in itertools.product(
+            ((64, 16, 4, 3), (300, 32, 8, 7), (1000, 64, 2, 20),
+             (500, 64, 512, 50), (2000, 128, 100, 65), (3000, 512, 64, 200),
+             (50, 16, 9, 0), (70, 64, 40, 1), (4000, 64, 6000, 130),
+             (900, 512, 3000, 65)), ("sum", "mean")):
+        ids = (rng.zipf(1.2, (b, l)) - 1) % v
+        ids[rng.random((b, l)) < 0.05] = -1
+        ids[rng.random((b, l)) < 0.02] = -v
+        mask = rng.random((b, l)) < 0.75
+        ids = np.where(mask, ids, 2 * v + 1)
+        if l:
+            ids[0, l // 2], mask[0, l // 2] = v + 5, True
+        mask[b - 1] = False
+        for dt in ((torch.float32, torch.bfloat16) if d in (64, 512)
+                   else (torch.float32,)):
+            cases.append((f"masked V={v} D={d} B={b} L={l} {mode} {dt}",
+                          f32(rng.normal(0, 1, (v, d))).to(dt), i32(ids),
+                          bmask(mask), mode, True))
+    t = f32(rng.normal(0, 1, (80, 64)))
+    t[0, 3], t[0, 5], t[7, ::2] = float("inf"), float("nan"), float("nan")
+    ids = rng.integers(1, 80, (50, 30))
+    ids[ids == 7] = 8
+    mask = rng.random((50, 30)) < 0.7
+    ids = np.where(mask, ids, rng.choice([0, 7], (50, 30)))
+    ids[3, 4], mask[3, 4] = 0, True
+    for mode in ("sum", "mean"):
+        cases += [(f"masked, rows 0 and 7 not finite {mode}", t, i32(ids),
+                   bmask(mask), mode, True),
+                  (f"masked, no mask {mode}", t[8:].contiguous(),
+                   i32(rng.integers(-72, 72, (30, 50))), None, mode, True)]
+    for name in RECSYS_SHAPES:
+        hist, mask = batches[name]
+        for mode in ("sum", "mean"):
+            cases.append((f"masked MIND {name} {mode}", table, hist, mask,
+                          mode, True))
+    for what, t, ids, aux, mode, masked in cases:
+        wrapper = ops.embedding_bag_masked if masked else ops.embedding_bag
+        plain = (ref.embedding_bag_masked_ref if masked
+                 else ref.embedding_bag_ref)
+        outs = [wrapper(t, ids, aux, mode=mode), wrapper(t, ids, aux,
+                                                        mode=mode)]
+        outs += [ops.launch(t, ids, aux, mode, masked=masked, staging=s)
+                 for s in ops.STAGINGS]
+        want = plain(t, ids, aux, mode=mode)
         torch.cuda.synchronize()
-        if not (same_bits(first, want) and same_bits(again, want)):
-            err = float((first - want).abs().max())
-            raise AssertionError(f"embedding_bag {what}: kernel and plain "
-                                 f"version differ (max |err| {err!r})")
+        for got in outs:
+            if not same_bits(got, want):
+                err = float((got - want).abs().max())
+                raise AssertionError(f"embedding_bag {what}: kernel and "
+                                     f"plain version differ (max |err| "
+                                     f"{err!r})")
     return len(cases)
 
 
 def recsys_layer(table, batches, device):
     """The embedding layer's main path: ``embedding_bag_batched`` over the
     full table at both serve shapes, sum and mean, then a batch with ids
-    outside ``[-V, V)``; one kernel launch a call and no plain-version
-    call, each output bitwise equal to the plain version on the card, NaN
-    bags exactly where the reference has them.  Returns the launches."""
+    outside ``[-V, V)``, then the serve_p99 batch with row 0 holding inf
+    and NaN; one launch of the kernel's masked entry a call, none of the
+    weighted entry and no plain-version call.  Each output bitwise equal
+    to the masked entry's plain version on the card, and on the finite
+    table to the parent's layer (the weighted entry over ``bag_inputs``'
+    ids and weights, plain); NaN bags exactly where the reference has
+    them; with the non-finite row 0, inf and NaN exactly in the bags that
+    look row 0 up masked in, every other value finite.  Returns the
+    launches."""
     from repro_torch.kernels.embedding_bag import ref
     from repro_torch.kernels.embedding_bag.ops import LAUNCHES
     from repro_torch.models.recsys.embedding import (bag_inputs,
@@ -2413,26 +2490,41 @@ def recsys_layer(table, batches, device):
             for n in RECSYS_SHAPES for mode in ("sum", "mean")]
     runs += [(f"serve_p99 with ids outside [-V, V) {mode}", bad_h, bad_m,
               mode) for mode in ("sum", "mean")]
-    outs = []
+
+    def layer(what, h, m, mode):
+        before = (LAUNCHES.embedding_bag, LAUNCHES.embedding_bag_masked)
+        out = embedding_bag_batched(table, h, m, mode=mode)
+        after = (LAUNCHES.embedding_bag, LAUNCHES.embedding_bag_masked)
+        if after != (before[0], before[1] + 1):
+            raise AssertionError(f"embedding layer {what}: launches of the "
+                                 f"weighted and masked entries went from "
+                                 f"{before} to {after}, expected one masked")
+        return out
     LAUNCHES.reset()
     with PlainBagCalls() as plain:
-        for what, h, m, mode in runs:
-            before = LAUNCHES.embedding_bag
-            outs.append(embedding_bag_batched(table, h, m, mode=mode))
-            if LAUNCHES.embedding_bag != before + 1:
-                raise AssertionError(f"embedding layer {what}: "
-                                     f"{LAUNCHES.embedding_bag - before} "
-                                     f"kernel launches, expected 1")
-        torch.cuda.synchronize()
-    launches = LAUNCHES.embedding_bag
-    if plain.calls:
-        raise AssertionError(f"the embedding layer ran the plain version "
-                             f"{plain.calls} times on the card")
+        outs = [layer(*run) for run in runs]
+        saved = table[0].clone()
+        table[0, 3], table[0, 5] = float("inf"), float("nan")
+        try:
+            inf_runs = [(mode, layer(f"row 0 not finite {mode}", hist, mask,
+                                     mode),
+                         ref.embedding_bag_masked_ref(table, hist, mask,
+                                                      mode=mode))
+                        for mode in ("sum", "mean")]
+            torch.cuda.synchronize()
+        finally:
+            table[0] = saved
+    launches = LAUNCHES.embedding_bag_masked
+    if plain.calls or LAUNCHES.embedding_bag:
+        raise AssertionError(f"the embedding layer ran the plain versions "
+                             f"{plain.calls} times and the weighted entry "
+                             f"{LAUNCHES.embedding_bag} times on the card")
     for (what, h, m, mode), out in zip(runs, outs):
-        want = ref.embedding_bag_ref(table, *bag_inputs(v, h, m), mode=mode)
-        if not same_bits(out, want):
+        want = ref.embedding_bag_masked_ref(table, h, m, mode=mode)
+        old = ref.embedding_bag_ref(table, *bag_inputs(v, h, m), mode=mode)
+        if not (same_bits(out, want) and same_bits(out, old)):
             raise AssertionError(f"embedding layer {what}: differs from the "
-                                 f"plain version on the card")
+                                 f"plain versions on the card")
     # the reference: a bag is NaN iff a masked-in id lies outside [-V, V)
     hn, mn = bad_h.cpu().numpy().astype(np.int64), bad_m.cpu().numpy()
     want_nan = (mn & ((hn < -v) | (hn >= v))).any(1)
@@ -2446,8 +2538,24 @@ def recsys_layer(table, batches, device):
         if not bool(out[torch.from_numpy(~want_nan).to(device)].isfinite().all()):
             raise AssertionError("embedding layer: a non-finite bag where "
                                  "the reference has none")
-    return dict(launches=launches, plain_calls=plain.calls, calls=len(runs),
-                nan_bags=np.flatnonzero(want_nan).tolist())
+    # the reference with inf at row 0, column 3 and NaN at column 5: those
+    # two columns of a bag that looks row 0 up masked in, nothing else
+    row0 = ((torch.where(hist < 0, hist + v, hist) == 0) & mask).any(1)
+    want_bad = torch.zeros_like(inf_runs[0][1], dtype=torch.bool)
+    want_bad[row0, 3] = want_bad[row0, 5] = True
+    for mode, out, want in inf_runs:
+        if not (same_bits(out, want)
+                and bool(torch.isnan(out[:, 5]).equal(row0))
+                and bool(torch.isinf(out[:, 3]).equal(row0))
+                and bool((~out.isfinite()).equal(want_bad))):
+            raise AssertionError(f"embedding layer, row 0 not finite, {mode}: "
+                                 f"{int((~out.isfinite()).any(1).sum())} "
+                                 f"bags not finite, the reference has "
+                                 f"{int(row0.sum())}")
+    return dict(launches=launches, weighted_launches=LAUNCHES.embedding_bag,
+                plain_calls=plain.calls, calls=len(runs) + len(inf_runs),
+                nan_bags=np.flatnonzero(want_nan).tolist(),
+                row0_bags=int(row0.sum()))
 
 
 def mind_serving(cfg, params, batches, device):
@@ -2510,48 +2618,111 @@ def mind_serving(cfg, params, batches, device):
 
 
 def measure_bag(table, hist, mask):
-    """The kernel at a serve shape, as the embedding layer calls it (its
-    ids and 0/1 weights from ``bag_inputs``), in sum and mean: its time,
-    its plain version's, ``torch.nn.functional.embedding_bag``'s (timed
-    only: the port never calls it; the mean as its weighted sum and a
-    divide), and the byte bound, which charges each distinct row once."""
+    """Both entries at a serve shape, in sum and mean.  The weighted entry
+    (row 5, the Pallas kernel's counterpart) as the parent's layer called
+    it, on ``bag_inputs``' ids and 0/1 weights; the masked entry as the
+    layer calls it now, on the raw ids and mask.  For each: its device
+    time by CUDA-graph replay and eager (:func:`in_turns`, with
+    ``--parent`` beside the parent's design on the same inputs in turns:
+    the parent's kernel for the weighted entry, the parent's whole layer
+    for the masked one), its plain version's (eager),
+    ``torch.nn.functional.embedding_bag``'s by graph replay (timed only:
+    the port never calls it; the mean as its weighted sum and a divide,
+    the masked entry's mask as f32 weights made beforehand) and the byte
+    bound: each distinct row once (masked: each distinct masked-in row),
+    8 B a lookup (masked: 5), the f32 output."""
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import ops, ref
     from repro_torch.models.recsys.embedding import bag_inputs
-    kid, w = bag_inputs(table.shape[0], hist, mask)
+    v, d = table.shape
+    kid, w = bag_inputs(v, hist, mask)
     b, l = kid.shape
-    d = table.shape[1]
-    distinct = int(torch.unique(kid).numel())
-    bytes_ = distinct * d * table.element_size() + b * l * 8 + b * d * 4
-    res = dict(bags=b, lookups=b * l, distinct_rows=distinct,
-               bytes=bytes_)
-    for mode in ("sum", "mean"):
-        flops = 2 * b * l * d + (b * d if mode == "mean" else 0)
-        byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        op_ms = flops / F32_FLOPS * 1e3
+    live = torch.where(hist < 0, hist + v, hist)[mask]
+    live = live[(live >= 0) & (live < v)]
+    parent_bag = parent_layer = None
+    if PARENT is not None:
+        parent_bag = importlib.import_module(
+            "parent_repro_torch.kernels.embedding_bag.ops").embedding_bag
+        parent_layer = importlib.import_module(
+            "parent_repro_torch.models.recsys.embedding").embedding_bag_batched
 
-        def library(mode=mode):
-            s = F.embedding_bag(kid, table, per_sample_weights=w, mode="sum")
+    def library(ids, weights, mode):
+        def call():
+            s = F.embedding_bag(ids, table, per_sample_weights=weights,
+                                mode="sum")
             return s if mode == "sum" else \
-                s / w.sum(1, keepdim=True).clamp_min(1e-9)
-        calls = dict(kernel=lambda: ops.embedding_bag(table, kid, w,
-                                                      mode=mode),
-                     plain=lambda: ref.embedding_bag_ref(table, kid, w,
-                                                         mode=mode),
-                     library=library)
-        got, want = calls["kernel"](), calls["plain"]()
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            raise AssertionError(f"embedding_bag {mode} at B={b}: kernel "
-                                 f"and plain version differ")
-        res[mode] = dict(
-            ms=cuda_ms(calls["kernel"]), plain_ms=cuda_ms(calls["plain"]),
-            library_ms=cuda_ms(calls["library"]),
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms >= op_ms else "operations",
-            flops=flops, max_abs_err=float((got - want).abs().max()),
-            library_max_abs_err=float((calls["library"]() - want).abs().max()))
+                s / weights.sum(1, keepdim=True).clamp_min(1e-9)
+        return call
+
+    def weighted(mode):
+        return dict(
+            kernel=lambda: ops.embedding_bag(table, kid, w, mode=mode),
+            plain=lambda: ref.embedding_bag_ref(table, kid, w, mode=mode),
+            parent=parent_bag and (lambda: parent_bag(table, kid, w,
+                                                      mode=mode)),
+            library=library(kid, w, mode))
+
+    def masked(mode):
+        return dict(
+            kernel=lambda: ops.embedding_bag_masked(table, hist, mask,
+                                                    mode=mode),
+            plain=lambda: ref.embedding_bag_masked_ref(table, hist, mask,
+                                                       mode=mode),
+            parent=parent_layer and (lambda: parent_layer(table, hist, mask,
+                                                          mode=mode)),
+            library=library(hist, mask.float(), mode))
+    # entry: (its calls by mode, distinct rows read, bytes a lookup)
+    entries = {"weighted": (weighted, int(torch.unique(kid).numel()), 8),
+               "masked": (masked, int(torch.unique(live).numel()), 5)}
+    res = dict(bags=b, lookups=b * l, live_lookups=int(mask.sum()))
+    for name, (calls, distinct, per_lookup) in entries.items():
+        bytes_ = distinct * d * table.element_size() + b * l * per_lookup \
+            + b * d * 4
+        out = res[name] = dict(distinct_rows=distinct, bytes=bytes_)
+        for mode in ("sum", "mean"):
+            flops = 2 * b * l * d + (b * d if mode == "mean" else 0)
+            byte_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+            op_ms = flops / F32_FLOPS * 1e3
+            c = calls(mode)
+            got, want = c["kernel"](), c["plain"]()
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                raise AssertionError(f"embedding_bag {name} {mode} at B={b}: "
+                                     f"kernel and plain version differ")
+            if c["parent"] is not None and not same_bits(c["parent"](), want):
+                raise AssertionError(f"embedding_bag {name} {mode} at B={b}: "
+                                     f"the parent's design differs")
+            times = in_turns(c["kernel"], c["parent"])
+            out[mode] = dict(
+                times, graph_ms=times["ms"], plain_ms=cuda_ms(c["plain"]),
+                library_ms=graph_ms(c["library"]),
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                flops=flops, max_abs_err=float((got - want).abs().max()),
+                library_max_abs_err=float(
+                    (c["library"]() - want).abs().max()))
     return res
+
+
+def bag_design(table, hist, mask):
+    """The two stagings of the kernel (``ops.STAGINGS``) on the same
+    inputs as :func:`measure_bag`, both entries, sum and mean: device ms
+    by graph replay, timed in turns (cp.async, bulk, bulk, cp.async)."""
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models.recsys.embedding import bag_inputs
+    kid, w = bag_inputs(table.shape[0], hist, mask)
+    args = {"weighted": (kid, w), "masked": (hist, mask)}
+    out = {}
+    for (entry, (ids, aux)), mode in itertools.product(args.items(),
+                                                       ("sum", "mean")):
+        times = {s: [] for s in ops.STAGINGS}
+        for s in (*ops.STAGINGS, *reversed(ops.STAGINGS)):
+            times[s].append(graph_ms(lambda: ops.launch(
+                table, ids, aux, mode, masked=entry == "masked",
+                staging=s)))
+        out[f"{entry} {mode}"] = {s: sum(t) / len(t)
+                                  for s, t in times.items()}
+    return out
 
 
 def recsys_profile(cfg, params, batches, device):
@@ -2560,7 +2731,8 @@ def recsys_profile(cfg, params, batches, device):
     ``retrieval_scores`` over ``N_CANDIDATES``, each timed on the host
     clock (mean of 3, ending in a synchronize) and once under
     ``torch.profiler``: device time, its share of the wall time, the
-    kernels launched and the four costliest by device time."""
+    kernels launched and the four costliest by device time.  The layer's
+    pass fails if it launches more than one kernel."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.recsys.embedding import embedding_bag_batched
     from repro_torch.models.recsys.mind import (retrieval_scores,
@@ -2597,12 +2769,18 @@ def recsys_profile(cfg, params, batches, device):
             device_busy_share=device_ms / wall_ms,
             kernels=sum(e.count for e in kern),
             top=[(e.key[:60], e.self_device_time_total / 1e3) for e in top])
+        if name.startswith("layer") and out[name]["kernels"] > 1:
+            raise AssertionError(f"recsys_profile {name}: "
+                                 f"{out[name]['kernels']} kernels, expected "
+                                 f"one launch of the masked entry: "
+                                 f"{out[name]['top']}")
     return out
 
 
-def recsys_phases(device):
-    """Phase 5 and its numbers; returns the ``embedding_bag`` entry of the
-    ``kernels`` line and the recsys numbers."""
+def recsys_inputs(device):
+    """MIND's config, its parameters drawn on ``device`` from a generator
+    seeded with 0, and ``{shape: (hist, hist_mask)}`` for
+    ``RECSYS_SHAPES`` from ``RecsysStream(seed=0)`` at step 0."""
     from repro_torch.configs import get
     from repro_torch.data.synthetic import RecsysStream
     from repro_torch.models.recsys.mind import init_params
@@ -2621,45 +2799,89 @@ def recsys_phases(device):
         b = stream.batch(0, mind.SHAPES[name]["batch"])
         batches[name] = (torch.from_numpy(b["hist"]).to(device),
                          torch.from_numpy(b["hist_mask"]).to(device))
+    return cfg, params, batches
+
+
+def recsys_profiled(device):
+    """The recsys path's profiled passes (:func:`recsys_profile`), run
+    right after the build: late in the run, after the other phases, the
+    layer's pass (one kernel, under a millisecond) came back with no
+    kernel in its trace three times, though it records its kernel when
+    it comes first."""
+    cfg, params, batches = recsys_inputs(device)
+    profiled = recsys_profile(cfg, params, batches, device)
+    for name, m in profiled.items():
+        log(f"[profile] {name}: " + json.dumps(m))
+    del params, batches
+    torch.cuda.empty_cache()
+    return profiled
+
+
+def recsys_phases(device, profiled):
+    """Phase 5 and its numbers, with the profiled passes' results
+    (:func:`recsys_profiled`); returns the ``embedding_bag`` entry of the
+    ``kernels`` line and the recsys numbers."""
+    from repro_torch.kernels.embedding_bag import ops
+    cfg, params, batches = recsys_inputs(device)
+    table = params["item_embed"]
     n_cases = bag_vs_plain(table, batches, device)
-    log(f"[kernel-vs-plain] embedding_bag: {n_cases} seeded cases bitwise "
-        f"equal (each call twice)")
+    log(f"[kernel-vs-plain] embedding_bag and embedding_bag_masked: "
+        f"{n_cases} seeded cases bitwise equal (each through the wrapper "
+        f"twice and with every staging)")
     layer = recsys_layer(table, batches, device)
     log(f"[recsys] embedding layer: {layer['calls']} calls of "
         f"embedding_bag_batched over the full table, {layer['launches']} "
-        f"kernel launches, {layer['plain_calls']} plain-version calls, "
-        f"bitwise equal to the plain version; NaN bags {layer['nan_bags']} "
-        f"as the reference")
+        f"launches of the masked entry, {layer['weighted_launches']} of the "
+        f"weighted, {layer['plain_calls']} plain-version calls, bitwise "
+        f"equal to both plain versions; NaN bags {layer['nan_bags']} as the "
+        f"reference; row 0 not finite: {layer['row0_bags']} bags with inf "
+        f"and NaN where the reference has them, the rest finite")
     serving = mind_serving(cfg, params, batches, device)
+    serving["profile"] = profiled
     for key in (*RECSYS_SHAPES, "retrieval_cand"):
         log(f"[recsys] MIND {key}: " + json.dumps(serving[key]))
     numbers = {name: measure_bag(table, *batches[name])
                for name in RECSYS_SHAPES}
     for name, m in numbers.items():
         log(f"[embedding_bag] {name}: " + json.dumps(m))
-    serving["profile"] = recsys_profile(cfg, params, batches, device)
-    for name, m in serving["profile"].items():
-        log(f"[profile] {name}: " + json.dumps(m))
+    design = {name: bag_design(table, *batches[name])
+              for name in RECSYS_SHAPES}
+    for name, m in design.items():
+        log(f"[embedding_bag design] {name} (graph ms by staging; default "
+            f"{ops.STAGING}): " + json.dumps(m))
     del params, table, batches
     torch.cuda.empty_cache()
     bulk = numbers["serve_bulk"]
+    keys = ("ms", "graph_ms", "eager_ms", "parent_ms", "parent_eager_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    row = lambda m: {k: m[k] for k in keys}
+    entry = lambda name: dict(
+        row(bulk[name]["sum"]), distinct_rows=bulk[name]["distinct_rows"],
+        mean=row(bulk[name]["mean"]),
+        serve_p99={mode: row(numbers["serve_p99"][name][mode])
+                   for mode in ("sum", "mean")})
     kernel = {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:48",
-        "launches": layer["launches"],
-        "max_abs_err": max(m[mode]["max_abs_err"] for m in numbers.values()
+        "launches": layer["launches"] + layer["weighted_launches"],
+        "launches_by_entry": {
+            "embedding_bag_launch": layer["weighted_launches"],
+            "embedding_bag_masked_launch": layer["launches"]},
+        "max_abs_err": max(m[e][mode]["max_abs_err"]
+                           for m in numbers.values()
+                           for e in ("weighted", "masked")
                            for mode in ("sum", "mean")),
-        "ms": bulk["sum"]["ms"], "plain_ms": bulk["sum"]["plain_ms"],
-        "bound_ms": bulk["sum"]["bound_ms"],
-        "bound_by": bulk["sum"]["bound_by"],
-        "library_ms": bulk["sum"]["library_ms"],
+        **entry("weighted"),
         "shape": "serve_bulk: B = 262,144 bags of L = 50 over the 10^7 x 64 "
-                 "f32 MIND table, mask weights, sum",
-        "lookups": bulk["lookups"], "distinct_rows": bulk["distinct_rows"],
-        "mean": bulk["mean"],
-        "serve_p99": numbers["serve_p99"],
+                 "f32 MIND table, the weighted entry on bag_inputs' ids and "
+                 "0/1 weights, sum",
+        "lookups": bulk["lookups"],
+        "staging": ops.STAGING, "design": design,
+        "masked": dict(entry("masked"), entry="embedding_bag_masked_launch",
+                       launches=layer["launches"],
+                       shape="serve_bulk, the layer's raw ids and mask, sum"),
     }
     return dict(kernel=kernel, layer=layer, serving=serving)
 
@@ -2669,8 +2891,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: time its "
-                    "edge_relax and edge_relax_partials on the same inputs "
-                    "as this tree's")
+                    "edge-relax and embedding_bag kernels on the same "
+                    "inputs as this tree's")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2701,6 +2923,8 @@ def main() -> int:
         PARENT = load_parent(opts.parent)
         log(f"[build] the parent's kernels from {opts.parent} in "
             f"{time.perf_counter() - t0:.2f} s")
+    profiled = recsys_profiled(device)
+    mark("recsys profiled passes")
 
     log(f"[kernel-vs-plain] edge_relax: {kernel_vs_plain(device)} random "
         "slab cases bitwise equal")
@@ -2731,7 +2955,7 @@ def main() -> int:
     mark("phase 4 (language model)")
     kernels.append(lm["kernel"])
     torch.cuda.empty_cache()
-    recsys = recsys_phases(device)
+    recsys = recsys_phases(device, profiled)
     mark("phase 5 (recsys)")
     kernels.append(recsys["kernel"])
     print(json.dumps({"kernels": kernels}), flush=True)

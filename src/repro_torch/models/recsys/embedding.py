@@ -8,7 +8,8 @@ reproduces that, and MIND uses it too.
 
 * :func:`embedding_bag_batched` (dense bags ``[B, L]``) is the layer's
   hot loop, and on the card every call is one launch of the
-  ``embedding_bag`` kernel (on the CPU, its plain version).
+  ``embedding_bag`` kernel's masked entry, which reads the raw ids and
+  mask (on the CPU, its plain version).
 * :func:`embedding_bag` (ragged bags) stays on plain torch: the reference
   computes it with ``segment_sum``, outside any kernel.
 """
@@ -37,11 +38,15 @@ def take_rows(table, ids):
 
 
 def bag_inputs(n_rows: int, ids, mask=None):
-    """The kernel's ids and weights for dense bags ``ids`` ``[B, L]``
-    under ``mask``, by ``jnp.take``'s index rule (:func:`_wrap`).  Weights
-    are 1.0 where masked in and ok, NaN where masked in and not ok (the
-    reference's NaN row), 0.0 where masked out; ids are ``idx`` where
-    masked in and ok, else 0."""
+    """The weighted entry's ids and weights for dense bags ``ids``
+    ``[B, L]`` under ``mask``, by ``jnp.take``'s index rule (:func:`_wrap`).
+    Weights are 1.0 where masked in and ok, NaN where masked in and not ok
+    (the reference's NaN row), 0.0 where masked out; ids are ``idx`` where
+    masked in and ok, else 0.  The layer does not call the weighted entry
+    on these (a masked-out lookup would add ``row(0) * 0``, NaN when row 0
+    is not finite); they are the weighted entry's form of the layer's
+    inputs, and on a finite table ``embedding_bag(table,
+    *bag_inputs(...))`` equals the masked entry bit for bit."""
     idx, ok = _wrap(ids, n_rows)
     keep = ok if mask is None else ok & mask
     live = torch.ones_like(ok) if mask is None else mask
@@ -54,18 +59,25 @@ def embedding_bag_batched(table, ids, mask=None, mode: str = "sum"):
     """Dense bags: ids ``[B, L]`` -> ``[B, D]`` in the table's dtype
     (``mask`` ``[B, L]`` bool marks the real lookups; None means all).
 
-    One call of the ``embedding_bag`` kernel (its plain version on the
-    CPU) with :func:`bag_inputs`' ids and weights.  The result is the
-    reference's: masked-out lookups add ``row(0) * 0`` = 0 (for a finite
-    table), a masked-in id outside ``[-V, V)`` makes its bag NaN, and for
-    ``mode="mean"`` the kernel's divisor ``max(sum of weights, 1e-9)``
-    equals the reference's ``max(mask count, 1)`` on every bag: the count
-    is an exact integer in f32, and a bag with none gives 0 either way.
-    The sum runs in f32 in lookup order, so it may differ from the
-    reference's ``sum(-2)`` in the last bits; a bf16 table's result is
-    rounded back to bf16, as the reference returns it."""
-    kid, w = bag_inputs(table.shape[0], ids, mask)
-    return ops.embedding_bag(table, kid, w, mode=mode).to(table.dtype)
+    One call of ``ops.embedding_bag_masked`` (the kernel's masked entry on
+    the card, its plain version on the CPU) on the raw ids and mask.  The
+    result is the reference's: a masked-out lookup adds nothing, whatever
+    its row holds (the reference's ``where(mask, row, 0)``); a masked-in
+    id in ``[-V, -1]`` wraps and one outside ``[-V, V)`` makes its bag NaN
+    (``jnp.take``'s NaN row); for ``mode="mean"`` the divisor is the mask
+    count, or 1e-9 where the reference takes ``max(count, 1)``: a bag with
+    none is 0 either way.  The sum runs in f32 in lookup order, so it may
+    differ from the reference's ``sum(-2)`` in the last bits; a bf16
+    table's result is rounded back to bf16, as the reference returns it.
+    Ids of another integer dtype are clamped into int32 first, which
+    keeps an id outside ``[-V, V)`` outside for any table of fewer than
+    2^31 rows."""
+    if ids.dtype != torch.int32:
+        ids = ids.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+    out = ops.embedding_bag_masked(table, ids.contiguous(),
+                                   None if mask is None else mask.contiguous(),
+                                   mode=mode)
+    return out.to(table.dtype)
 
 
 def embedding_bag(table, ids, bag_ids, n_bags: int, weights=None,

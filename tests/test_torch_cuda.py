@@ -907,8 +907,9 @@ def test_cuda_embedding_bag_out_of_range_ids(card, mode):
 
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 def test_cuda_embedding_layer_matches_cpu(card, mode):
-    """The recsys layer through the kernel equals the same call on the
-    CPU (its plain version), NaN bags included."""
+    """The recsys layer through the kernel (one launch of its masked
+    entry) equals the same call on the CPU (its plain version), NaN bags
+    included."""
     rng = np.random.default_rng(16)
     v, b, l = 5000, 300, 50
     table = rng.normal(0, 0.02, (v, 64)).astype(np.float32)
@@ -919,10 +920,11 @@ def test_cuda_embedding_layer_matches_cpu(card, mode):
     ids[6, 8], mask[6, 8] = 2 * v, False           # masked out: no effect
     ids[7, 0] = -1                                 # wraps
     args = [torch.from_numpy(a) for a in (table, ids, mask)]
-    before = eops.LAUNCHES.embedding_bag
+    before = (eops.LAUNCHES.embedding_bag, eops.LAUNCHES.embedding_bag_masked)
     out = remb.embedding_bag_batched(*(a.to(card) for a in args), mode=mode)
     torch.cuda.synchronize()
-    assert eops.LAUNCHES.embedding_bag == before + 1
+    assert (eops.LAUNCHES.embedding_bag,
+            eops.LAUNCHES.embedding_bag_masked) == (before[0], before[1] + 1)
     want = remb.embedding_bag_batched(*args, mode=mode)
     assert _bits(out, want)
     assert torch.isnan(out[5]).all() and bool(out[6].isfinite().all())
@@ -946,3 +948,139 @@ def test_cuda_embedding_bag_wrapper_refuses(card):
     before = eops.LAUNCHES.embedding_bag
     empty = eops.embedding_bag(table, ids[:0])
     assert empty.shape == (0, 16) and eops.LAUNCHES.embedding_bag == before
+
+
+# the masked entry: bag lengths across the list of 64 lookups and the
+# ring of slots, rows narrower and wider than one pass of 32 chunks; B =
+# 4000 takes the persistent grid and its pipeline, smaller B one group a bag
+_MASKED_L = (0, 1, 7, 50, 65, 200)
+_MASKED_D = (16, 64, 128, 512)
+_MASKED_B = (1, 512, 4000)
+
+
+def _masked_case(rng, v, b, l, device):
+    """Zipf ids (rows repeat within a chunk) with some outside [-V, V) and
+    some wrapping, a mask with an all-masked bag."""
+    ids = (rng.zipf(1.2, (b, l)) - 1) % v
+    ids = np.where(rng.random((b, l)) < 0.05, -1 - ids, ids)
+    ids[rng.random((b, l)) < 0.01] = v + 3
+    mask = rng.random((b, l)) < 0.75
+    if b > 1:
+        mask[1] = False
+    return (torch.from_numpy(ids.astype(np.int32)).to(device),
+            torch.from_numpy(mask).to(device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_embedding_bag_masked_matches_plain_version(card, dtype):
+    """Bitwise against ``embedding_bag_masked_ref`` on the card, through
+    the wrapper (one launch of the masked entry, none of the weighted) and
+    with each staging, at B = 1, 512 and 4000; without a mask too."""
+    rng = np.random.default_rng(17)
+    v = 3000
+    for d in _MASKED_D:
+        table = _normal(rng, (v, d), dtype, card)
+        for l, b, mode in itertools.product(_MASKED_L, _MASKED_B,
+                                            ("sum", "mean")):
+            ids, mask = _masked_case(rng, v, b, l, card)
+            ids = torch.where(mask, ids, 2 * v)     # masked out: not read
+            before = (eops.LAUNCHES.embedding_bag,
+                      eops.LAUNCHES.embedding_bag_masked)
+            out = eops.embedding_bag_masked(table, ids, mask, mode=mode)
+            torch.cuda.synchronize()
+            assert (eops.LAUNCHES.embedding_bag,
+                    eops.LAUNCHES.embedding_bag_masked) == (before[0],
+                                                            before[1] + 1)
+            want = eops.embedding_bag_masked_ref(table, ids, mask, mode=mode)
+            assert out.dtype == torch.float32 and out.shape == (b, d)
+            assert _bits(out, want), (d, l, b, mode, dtype)
+            for staging in eops.STAGINGS:
+                got = eops.launch(table, ids, mask, mode, masked=True,
+                                  staging=staging)
+                assert _bits(got, want), (d, l, b, mode, dtype, staging)
+        # masked-out lookups of a row of inf and NaN add nothing
+        ids, mask = _masked_case(rng, v, 512, 50, card)
+        used = torch.where(ids < 0, ids + v, ids)[mask]
+        free = int(torch.isin(torch.arange(v, device=card), used,
+                              invert=True).nonzero()[0])
+        table[free, ::2], table[free, 1::2] = float("inf"), float("nan")
+        ids = torch.where(mask, ids, free)
+        for mode in ("sum", "mean"):
+            out = eops.embedding_bag_masked(table, ids, mask, mode=mode)
+            want = eops.embedding_bag_masked_ref(table, ids, mask, mode=mode)
+            assert _bits(out, want), (d, mode, dtype, "non-finite row")
+            nan_bags = ((ids < -v) | (ids >= v)) & mask
+            assert bool(out[~nan_bags.any(1)].isfinite().all())
+        out = eops.embedding_bag_masked(table, torch.where(mask, ids, 0))
+        assert _bits(out, eops.embedding_bag_masked_ref(
+            table, torch.where(mask, ids, 0)))      # no mask: all in
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_embedding_bag_stagings_match_plain_version(card, dtype):
+    """The weighted entry with each staging, bitwise, at the masked
+    entry's bag lengths, widths and batches (weights with zeros and a NaN;
+    runs of a repeated row, which are staged once)."""
+    rng = np.random.default_rng(18)
+    v = 2000
+    for d in _MASKED_D:
+        table = _normal(rng, (v, d), dtype, card)
+        for l, b, mode in itertools.product(_MASKED_L, _MASKED_B,
+                                            ("sum", "mean")):
+            ids, _ = _masked_case(rng, v, b, l, card)
+            ids[:, l // 2:] = 0                  # the parent layer's padding
+            w = torch.from_numpy(rng.random((b, l)).astype(
+                np.float32)).to(card)
+            if l:
+                w[0] = 0.0
+                w[-1, l // 2] = float("nan")
+            want = eops.embedding_bag_ref(table, ids, w, mode=mode)
+            for staging in eops.STAGINGS:
+                got = eops.launch(table, ids, w, mode, masked=False,
+                                  staging=staging)
+                assert _bits(got, want), (d, l, b, mode, dtype, staging)
+
+
+def test_cuda_embedding_bag_graph_replay_equals_eager(card):
+    """Both entries captured in a CUDA graph and replayed give the eager
+    call's bits."""
+    rng = np.random.default_rng(19)
+    table = _normal(rng, (5000, 64), torch.float32, card)
+    ids, mask = _masked_case(rng, 5000, 700, 50, card)
+    w = mask.float()
+    calls = (lambda: eops.embedding_bag_masked(table, ids, mask, mode="mean"),
+             lambda: eops.embedding_bag(table, ids, w, mode="sum"))
+    for call in calls:
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bits(out, eager)
+
+
+def test_cuda_embedding_bag_masked_wrapper_refuses(card):
+    table = torch.zeros((10, 16), device=card)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    mask = torch.ones((2, 3), dtype=torch.bool, device=card)
+    with pytest.raises(TypeError, match="mask must be torch.bool"):
+        eops.embedding_bag_masked(table, ids, mask.float())
+    with pytest.raises(ValueError, match="do not match"):
+        eops.embedding_bag_masked(table, ids, mask[:1])
+    with pytest.raises(ValueError, match="is on cpu"):
+        eops.embedding_bag_masked(table, ids, mask.cpu())
+    with pytest.raises(ValueError, match="is on cpu"):
+        eops.embedding_bag_masked(table, ids.cpu(), mask)
+    before = eops.LAUNCHES.embedding_bag_masked
+    empty = eops.embedding_bag_masked(table, ids[:0], mask[:0])
+    assert empty.shape == (0, 16)
+    assert eops.LAUNCHES.embedding_bag_masked == before

@@ -166,7 +166,8 @@ def test_unported_architectures_raise():
 
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py",
-                                  "tools/edge_relax_ablation.py"])
+                                  "tools/edge_relax_ablation.py",
+                                  "tools/embedding_bag_grid.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there
     tree = ast.parse((SRC.parent / path).read_text())

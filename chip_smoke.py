@@ -120,15 +120,15 @@ Phases, in order; any failure exits non-zero:
    with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
    the ``serve_p99`` (512 users) and ``serve_bulk`` (262,144) shapes).
    First both entries of ``embedding_bag`` against their plain
-   versions, bitwise, each case through the wrapper twice and once with
-   each staging (``ops.STAGINGS``): the weighted entry on the reference
+   versions, bitwise, each case through the wrapper twice: the weighted
+   entry on the reference
    kernel test's 12 shapes x modes x weights, L = 1, a bag of zero
    weights under mean, ids -1, -V, V and 2V (wrapped or clamped), a
    bfloat16 table and both serve batches (``bag_inputs``' ids and
    weights) over the full table; the masked entry on Zipf ids under
    random masks (L from 0 to 200, D from 16 to 512, f32 and bf16; a
    masked-in id outside ``[-V, V)``, wrapping ids, masked-out ids outside
-   it, an all-masked bag; B up to 6,000, which takes the persistent grid),
+   it, an all-masked bag; B up to 6,000, which takes the direct path),
    a table whose rows 0 and 7 hold inf and NaN,
    no mask, and both serve batches' raw ids and mask.  Then the embedding
    layer: ``embedding_bag_batched`` over the full table at both shapes,
@@ -184,8 +184,11 @@ Phases, in order; any failure exits non-zero:
    graph replay and eager, with ``--parent`` the parent's design on the
    same inputs in turns, the plain version,
    ``torch.nn.functional.embedding_bag`` by graph replay) beside the
-   byte bound, which charges each distinct row once, the two stagings
-   (``[embedding_bag design]`` lines, :func:`bag_design`), and MIND's
+   byte bound, which charges each distinct row once, the kernel against
+   copies with one path at every batch and with bulk staging
+   (``[embedding_bag design]`` lines, :func:`bag_designs`), the layer's
+   profiled pass again late in the run (a probe: an empty trace is
+   printed, not failed), and MIND's
    ``serve_interests`` and ``retrieval_scores`` milliseconds, users/s and
    candidates/s (``[recsys]`` lines).
 
@@ -2368,8 +2371,8 @@ class PlainBagCalls:
 
 def bag_vs_plain(table, batches, device, seed: int = 5) -> int:
     """Both entries of ``embedding_bag`` against their plain versions,
-    bitwise: each case through the wrapper twice (the default staging)
-    and once with every staging; returns the number of cases."""
+    bitwise, each case through the wrapper twice; returns the number of
+    cases."""
     from repro_torch.kernels.embedding_bag import ops, ref
     rng = np.random.default_rng(seed)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(device)
@@ -2450,8 +2453,6 @@ def bag_vs_plain(table, batches, device, seed: int = 5) -> int:
                  else ref.embedding_bag_ref)
         outs = [wrapper(t, ids, aux, mode=mode), wrapper(t, ids, aux,
                                                         mode=mode)]
-        outs += [ops.launch(t, ids, aux, mode, masked=masked, staging=s)
-                 for s in ops.STAGINGS]
         want = plain(t, ids, aux, mode=mode)
         torch.cuda.synchronize()
         for got in outs:
@@ -2704,37 +2705,27 @@ def measure_bag(table, hist, mask):
     return res
 
 
-def bag_design(table, hist, mask):
-    """The two stagings of the kernel (``ops.STAGINGS``) on the same
-    inputs as :func:`measure_bag`, both entries, sum and mean: device ms
-    by graph replay, timed in turns (cp.async, bulk, bulk, cp.async)."""
-    from repro_torch.kernels.embedding_bag import ops
-    from repro_torch.models.recsys.embedding import bag_inputs
-    kid, w = bag_inputs(table.shape[0], hist, mask)
-    args = {"weighted": (kid, w), "masked": (hist, mask)}
-    out = {}
-    for (entry, (ids, aux)), mode in itertools.product(args.items(),
-                                                       ("sum", "mean")):
-        times = {s: [] for s in ops.STAGINGS}
-        for s in (*ops.STAGINGS, *reversed(ops.STAGINGS)):
-            times[s].append(graph_ms(lambda: ops.launch(
-                table, ids, aux, mode, masked=entry == "masked",
-                staging=s)))
-        out[f"{entry} {mode}"] = {s: sum(t) / len(t)
-                                  for s, t in times.items()}
-    return out
+def bag_designs(table, batches):
+    """The kernel against copies of it with one path at every batch
+    (``staged``, ``direct``) and with bulk staging (``bulk``), built and
+    timed by ``tools/embedding_bag_grid.py`` (its ``build_copies`` and
+    ``design_times``: both entries, sum, graph ms in turns, each copy
+    bitwise equal to the kernel) at each serve shape."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "embedding_bag_grid",
+        Path(__file__).resolve().parent / "tools" / "embedding_bag_grid.py")
+    grid = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(grid)
+    libs = grid.build_copies()
+    return {name: grid.design_times(libs, table, *batches[name])
+            for name in RECSYS_SHAPES}
 
 
 def recsys_profile(cfg, params, batches, device):
-    """Where the recsys path's time goes: the embedding layer at
-    ``serve_bulk`` (mean), ``serve_interests`` at both shapes and
-    ``retrieval_scores`` over ``N_CANDIDATES``, each timed on the host
-    clock (mean of 3, ending in a synchronize) and once under
-    ``torch.profiler``: device time, its share of the wall time, the
-    kernels launched and the four costliest by device time.  The layer's
-    pass fails if it launches more than one kernel."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.recsys.embedding import embedding_bag_batched
+    """Where the recsys path's time goes: :func:`profile_pass` of the
+    embedding layer at ``serve_bulk`` (mean), ``serve_interests`` at both
+    shapes and ``retrieval_scores`` over ``N_CANDIDATES``."""
     from repro_torch.models.recsys.mind import (retrieval_scores,
                                                 serve_interests)
     cand = torch.from_numpy(np.random.default_rng(1).integers(
@@ -2742,38 +2733,53 @@ def recsys_profile(cfg, params, batches, device):
     as_batch = lambda n: dict(zip(("hist", "hist_mask"), batches[n]))
     u0 = serve_interests(cfg, params, as_batch("serve_p99"))[0]
     calls = {
-        "layer serve_bulk mean": lambda: embedding_bag_batched(
-            params["item_embed"], *batches["serve_bulk"], mode="mean"),
+        "layer serve_bulk mean": layer_call(params, batches),
         **{f"serve_interests {n}": (lambda n=n: serve_interests(
             cfg, params, as_batch(n))) for n in RECSYS_SHAPES},
         "retrieval_scores": lambda: retrieval_scores(cfg, params, u0, cand)}
-    out = {}
-    for name, fn in calls.items():
+    return {name: profile_pass(name, fn) for name, fn in calls.items()}
+
+
+def layer_call(params, batches):
+    """The embedding layer at ``serve_bulk``, mean: the profiled call."""
+    from repro_torch.models.recsys.embedding import embedding_bag_batched
+    return lambda: embedding_bag_batched(
+        params["item_embed"], *batches["serve_bulk"], mode="mean")
+
+
+def profile_pass(name, fn, *, empty_ok: bool = False):
+    """``fn`` timed on the host clock (mean of 3, ending in a synchronize)
+    and once under ``torch.profiler``: device time, its share of the wall
+    time, the kernels launched and the four costliest by device time.  An
+    empty trace raises (:func:`trace_kernels`) unless ``empty_ok``; a pass
+    of the embedding layer fails if it launches more than one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kern = trace_kernels(prof.key_averages(), f"recsys_profile {name}")
-        device_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
-        out[name] = dict(
-            wall_ms=wall_ms, device_ms=device_ms,
-            device_busy_share=device_ms / wall_ms,
-            kernels=sum(e.count for e in kern),
-            top=[(e.key[:60], e.self_device_time_total / 1e3) for e in top])
-        if name.startswith("layer") and out[name]["kernels"] > 1:
-            raise AssertionError(f"recsys_profile {name}: "
-                                 f"{out[name]['kernels']} kernels, expected "
-                                 f"one launch of the masked entry: "
-                                 f"{out[name]['top']}")
+    events = prof.key_averages()
+    kern = ([e for e in events if e.device_type == DeviceType.CUDA]
+            if empty_ok else trace_kernels(events, f"recsys_profile {name}"))
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+    out = dict(wall_ms=wall_ms, device_ms=device_ms,
+               device_busy_share=device_ms / wall_ms,
+               kernels=sum(e.count for e in kern),
+               top=[(e.key[:60], e.self_device_time_total / 1e3)
+                    for e in top])
+    if name.startswith("layer") and out["kernels"] > 1:
+        raise AssertionError(f"recsys_profile {name}: {out['kernels']} "
+                             f"kernels, expected one launch of the masked "
+                             f"entry: {out['top']}")
     return out
 
 
@@ -2807,7 +2813,8 @@ def recsys_profiled(device):
     right after the build: late in the run, after the other phases, the
     layer's pass (one kernel, under a millisecond) came back with no
     kernel in its trace three times, though it records its kernel when
-    it comes first."""
+    it comes first.  :func:`recsys_phases` profiles the layer late once
+    more and prints what that trace holds."""
     cfg, params, batches = recsys_inputs(device)
     profiled = recsys_profile(cfg, params, batches, device)
     for name, m in profiled.items():
@@ -2821,13 +2828,12 @@ def recsys_phases(device, profiled):
     """Phase 5 and its numbers, with the profiled passes' results
     (:func:`recsys_profiled`); returns the ``embedding_bag`` entry of the
     ``kernels`` line and the recsys numbers."""
-    from repro_torch.kernels.embedding_bag import ops
     cfg, params, batches = recsys_inputs(device)
     table = params["item_embed"]
     n_cases = bag_vs_plain(table, batches, device)
     log(f"[kernel-vs-plain] embedding_bag and embedding_bag_masked: "
         f"{n_cases} seeded cases bitwise equal (each through the wrapper "
-        f"twice and with every staging)")
+        f"twice)")
     layer = recsys_layer(table, batches, device)
     log(f"[recsys] embedding layer: {layer['calls']} calls of "
         f"embedding_bag_batched over the full table, {layer['launches']} "
@@ -2838,17 +2844,25 @@ def recsys_phases(device, profiled):
         f"and NaN where the reference has them, the rest finite")
     serving = mind_serving(cfg, params, batches, device)
     serving["profile"] = profiled
+    # the probe of the empty trace: the layer's pass again, late in the
+    # run, recorded whatever its trace holds (an empty one does not fail)
+    late = profile_pass("layer serve_bulk mean", layer_call(params, batches),
+                        empty_ok=True)
+    serving["profile_late"] = late
+    log("[profile] layer serve_bulk mean, late in the run (a probe; an "
+        "empty trace is recorded, not failed): " + json.dumps(late))
     for key in (*RECSYS_SHAPES, "retrieval_cand"):
         log(f"[recsys] MIND {key}: " + json.dumps(serving[key]))
     numbers = {name: measure_bag(table, *batches[name])
                for name in RECSYS_SHAPES}
     for name, m in numbers.items():
         log(f"[embedding_bag] {name}: " + json.dumps(m))
-    design = {name: bag_design(table, *batches[name])
-              for name in RECSYS_SHAPES}
+    design = bag_designs(table, batches)
     for name, m in design.items():
-        log(f"[embedding_bag design] {name} (graph ms by staging; default "
-            f"{ops.STAGING}): " + json.dumps(m))
+        log(f"[embedding_bag design] {name} (graph ms, sum, in turns; "
+            f"kernel: staged at a small batch, direct at a large one; "
+            f"staged, direct: that path at every batch; bulk: staged with "
+            f"one cp.async.bulk a row): " + json.dumps(m))
     del params, table, batches
     torch.cuda.empty_cache()
     bulk = numbers["serve_bulk"]
@@ -2865,23 +2879,26 @@ def recsys_phases(device, profiled):
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:48",
-        "launches": layer["launches"] + layer["weighted_launches"],
+        "entry": "embedding_bag_masked_launch",
+        "launches": layer["launches"],
         "launches_by_entry": {
             "embedding_bag_launch": layer["weighted_launches"],
             "embedding_bag_masked_launch": layer["launches"]},
+        **entry("masked"),
         "max_abs_err": max(m[e][mode]["max_abs_err"]
                            for m in numbers.values()
                            for e in ("weighted", "masked")
                            for mode in ("sum", "mean")),
-        **entry("weighted"),
         "shape": "serve_bulk: B = 262,144 bags of L = 50 over the 10^7 x 64 "
-                 "f32 MIND table, the weighted entry on bag_inputs' ids and "
-                 "0/1 weights, sum",
+                 "f32 MIND table, the masked entry on the layer's raw ids "
+                 "and mask, sum",
         "lookups": bulk["lookups"],
-        "staging": ops.STAGING, "design": design,
-        "masked": dict(entry("masked"), entry="embedding_bag_masked_launch",
-                       launches=layer["launches"],
-                       shape="serve_bulk, the layer's raw ids and mask, sum"),
+        "design": design,
+        "weighted": dict(entry("weighted"), entry="embedding_bag_launch",
+                         launches=layer["weighted_launches"],
+                         shape="serve_bulk, bag_inputs' ids and 0/1 "
+                               "weights, sum: row 5, the Pallas kernel's "
+                               "counterpart"),
     }
     return dict(kernel=kernel, layer=layer, serving=serving)
 

@@ -17,31 +17,25 @@
 // kernel is bound by latency instead: by the chain of round trips to memory
 // that a bag's lookups make.
 //
-// What the design does about it.  Loads are taken apart from the order of
-// the sum.  A group of G lanes owns a bag (G = the row's 16-byte chunks,
-// rounded up to 8, 16 or 32; a half-warp for D = 64 in f32), one chunk a
-// lane; a row wider than 32 chunks takes several column passes.  The group
-// first lists the bag's lookups (64 at a time): their ids (and weights or
-// mask bytes) are read at once, the masked entry drops the masked-out ones
-// there, and each listed row gets a slot of the group's ring in shared
-// memory (the weighted entry gives a row equal to the one before it the
-// same slot, so a bag's padding, which the parent layer sent as row 0,
-// is staged once).  Rows are staged into their slots either as 16-byte
-// cp.async copies (each lane its own chunk) or as one cp.async.bulk a row
-// completing on the slot's mbarrier by byte count: the two stagings,
-// chosen per call (the smoke times both; cp.async is the faster).  When
-// the list fits the ring (DEPTH slots), all its rows are staged at once,
-// then added in order.  So at a small batch, where one warp a block with
-// DEPTH = 64 gives every bag a group of its own on the card at once, a bag
-// of 50 lookups costs about one round trip for its ids and one for its
-// rows, not one per few lookups.  At a large batch DEPTH is kShallow and
-// the grid is persistent (as many co-resident blocks as the card holds,
-// each group walking bags); a pipeline adds lookups j .. j + 3 once their
-// rows are in, then stages the rows of lookups j + DEPTH .. j + DEPTH + 3
-// into the slots just freed, so DEPTH - 4 to DEPTH rows are in flight
-// while four are added.
+// What the design does about it.  A group of G lanes owns a bag (G = the
+// row's 16-byte chunks, rounded up to 8, 16 or 32; a half-warp for D = 64
+// in f32), one chunk a lane; a row wider than 32 chunks takes several
+// column passes.  Two paths, chosen by batch:
+// - Staged, when every bag has a group on the card at once (one warp a
+//   block).  The group lists 64 lookups at a time in shared memory (their
+//   ids, and weights or mask bytes, read at once; the masked entry drops
+//   the masked-out ones there), copies every listed row into a slot of its
+//   own by 16-byte cp.async, waits once, then adds the rows from shared
+//   memory in lookup order.  So a bag of 50 lookups costs about one round
+//   trip for its ids and one for its rows, not one per few lookups.
+// - Direct, at a larger batch, where the card is full of bags anyway: each
+//   lane reads one lookup's id of the next G, the group shares them by
+//   shuffles and loads the rows straight into registers, four lookups in
+//   flight.  Staging through shared memory there costs more than it hides
+//   (PERF.md, the `[embedding_bag design]` line).  The masked entry loads
+//   no masked-out row.
 //
-// Arithmetic.  The sum runs from shared memory in lookup order:
+// Arithmetic.  Both paths add in lookup order:
 // acc = __fadd_rn(acc, __fmul_rn(row, w)) for l = 0..L-1 from +0, a
 // multiply and an add each rounded, never fused into an FMA, so the result
 // is bitwise that of the plain version (ref.py), which does the same in the
@@ -65,13 +59,9 @@
 
 namespace {
 
-constexpr int kWarps = 4;          // warps a block at a large batch
-constexpr int kShallow = 12;       // ring slots a bag at a large batch
-constexpr int kDeep = 64;          // ring slots a bag at a small batch
-constexpr int kSeg = 64;           // lookups listed at a time
-constexpr int kUnroll = 4;         // lookups added a step: 4 slot bytes
-constexpr int kCarveout = -1;      // shared memory's share of L1, % (-1:
-                                   // left to CUDA)
+constexpr int kThreads = 128;      // threads a block of the direct path
+constexpr int kSeg = 64;           // lookups a staged group lists at a time
+constexpr int kUnroll = 4;         // lookups added a step
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -82,373 +72,324 @@ struct Params {
   float* out;
   long long V, B;
   int D, L, mean;
-  int pitch;                       // bytes of a ring slot: a pass's slice
+  int pitch;                       // bytes of a slot: a pass's slice of a row
   int passes;                      // column passes over a row
 };
 
-// A group's list of the lookups it adds, in order, kSeg at a time.
+// A staged group's list of the rows it adds, in order.
 struct List {
   long long off[kSeg];             // byte offset of the lookup's row
   float w[kSeg];                   // weighted: the lookup's weight
-  unsigned char slot[kSeg];        // ring slot | phase parity << 6 | copy << 7
 };
 
-// A group's shared memory: its list, an mbarrier a slot, the ring.
-template <int DEPTH>
+// A staged group's shared memory: its list, then a slot a listed row.
 __host__ __device__ constexpr int group_bytes(int pitch) {
-  return static_cast<int>(sizeof(List)) + DEPTH * 8 + DEPTH * pitch;
+  return static_cast<int>(sizeof(List)) + kSeg * pitch;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-// Returns once the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred P1;\nLAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra.uni DONE;\nbra.uni LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity) : "memory");
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
-      "r"(smem_u32(bar)) : "memory");
-}
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_u32(dst)), "l"(src) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+// Returns once every cp.async copy of this lane has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
 }
 
-// 16 bytes of a staged row, widened to f32.
-__device__ __forceinline__ void load16(const unsigned char* p, float (&v)[4]) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
+// 16 bytes of a row, widened to f32.
+__device__ __forceinline__ void widen(const uint4& x, float (&v)[4]) {
+  v[0] = __uint_as_float(x.x);
+  v[1] = __uint_as_float(x.y);
+  v[2] = __uint_as_float(x.z);
+  v[3] = __uint_as_float(x.w);
 }
-__device__ __forceinline__ void load16(const unsigned char* p, float (&v)[8]) {
-  const uint4 x = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void widen(const uint4& x, float (&v)[8]) {
   const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&x);
 #pragma unroll
   for (int e = 0; e < 8; ++e) v[e] = __bfloat162float(h[e]);
 }
 
-// The weighted entry's id rule: wrap [-V, -1], clamp the rest.
-__device__ __forceinline__ long long row_of(int32_t id, long long V) {
-  long long r = id;
-  if (r < 0) r += V;
-  return r < 0 ? 0 : (r >= V ? V - 1 : r);
-}
-
-// A lane's lookup, read ahead of its listing.
+// A lookup as read: its id, and its weight or mask byte.
 struct Lookup {
   int32_t id;
   float w;
-  bool in;                         // l < L
+  bool in;                         // l < L in a bag < B
   bool live;                       // masked in
 };
 
-template <typename T, bool kMasked, bool kBulk, int G, int DEPTH>
-__global__ void __launch_bounds__(kWarps * 32) bag_kernel(const Params p) {
+template <bool kMasked>
+__device__ __forceinline__ Lookup read_lookup(const Params& p, long long at,
+                                              bool in) {
+  Lookup f{0, 1.f, in, false};
+  if (in) {
+    f.id = __ldg(p.ids + at);
+    if (kMasked) f.live = p.mask == nullptr || __ldg(p.mask + at) != 0;
+    else if (p.w != nullptr) f.w = __ldg(p.w + at);
+  }
+  return f;
+}
+
+// The entry's id rule: `take` the lookup's row, at byte offset `off`; `oob`
+// (masked): a masked-in id outside [-V, V), which makes the bag NaN.
+template <bool kMasked>
+__device__ __forceinline__ void resolve(const Lookup& f, long long V,
+                                        long long row_bytes, long long& off,
+                                        bool& take, bool& oob) {
+  long long r = f.id;
+  if (r < 0) r += V;
+  if (kMasked) {
+    const bool ok = r >= 0 && r < V;
+    take = f.live && ok;
+    oob = f.live && !ok;
+  } else {
+    take = f.in;
+    oob = false;
+    r = r < 0 ? 0 : (r >= V ? V - 1 : r);
+  }
+  off = take ? r * row_bytes : 0;
+}
+
+// The bag's result: the mean's divide, the masked entry's NaN bag.
+template <bool kMasked, int VEC>
+__device__ __forceinline__ void finish(const Params& p, float (&acc)[VEC],
+                                       float wsum, int cnt, bool bad,
+                                       float* o) {
+  if (p.mean) {
+    const float d = kMasked ? (cnt > 0 ? static_cast<float>(cnt) : 1e-9f)
+                            : (wsum < 1e-9f ? 1e-9f : wsum);  // NaN stays
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], d);
+  }
+  if (kMasked && bad) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = __int_as_float(0x7fffffff);
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; e += 4)
+    *reinterpret_cast<float4*>(o + e) =
+        make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+}
+
+// The staged path: one warp a block, 32 / G bags, every listed row of a
+// bag in flight at once.
+template <typename T, bool kMasked, int G>
+__global__ void __launch_bounds__(32) staged_kernel(const Params p) {
   constexpr int VEC = 16 / sizeof(T);           // elements of a chunk
   constexpr int BPW = 32 / G;                   // bags a warp
-  static_assert(DEPTH <= 64 && DEPTH % kUnroll == 0 && DEPTH > kUnroll &&
-                    kSeg % G == 0, "slots fit 6 bits, steps fit the ring");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lane = threadIdx.x & 31, g = lane / G, t = lane % G;
+  static_assert(kSeg % G == 0 && kSeg % kUnroll == 0, "whole steps");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x, g = lane / G, t = lane % G;
   const unsigned group = (G == 32 ? kFull : (1u << G) - 1) << (g * G);
   const unsigned below = (1u << lane) - 1;
-  unsigned char* base = smem + ((threadIdx.x >> 5) * BPW + g) *
-                                   group_bytes<DEPTH>(p.pitch);
+  unsigned char* base = smem + g * group_bytes(p.pitch);
   List& list = *reinterpret_cast<List*>(base);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(base + sizeof(List));
-  unsigned char* ring = base + sizeof(List) + DEPTH * 8;
+  unsigned char* ring = base + sizeof(List);
   const char* table = static_cast<const char*>(p.table);
   const long long row_bytes = static_cast<long long>(p.D) * sizeof(T);
   const int chunks = p.D / VEC, slot_chunks = p.pitch / 16;
-  if (kBulk) {
-    if (t == 0) {
-      for (int s = 0; s < DEPTH; ++s) mbar_init(&bars[s]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncwarp();
-  }
-  const long long warps = static_cast<long long>(gridDim.x) *
-                          (blockDim.x >> 5);
-  long long staged = 0;              // slots the group has filled so far
-  // the warp's bags: BPW at a time, all lanes in every loop
-  for (long long first = (static_cast<long long>(blockIdx.x) *
-                              (blockDim.x >> 5) + (threadIdx.x >> 5)) * BPW;
-       first < p.B; first += warps * BPW) {
-    const long long bag = first + g;
-    const bool valid = bag < p.B;
-    for (int pass = 0; pass < p.passes; ++pass) {
-      const int parts = min(slot_chunks, chunks - pass * slot_chunks);
-      const bool active = t < parts;
-      float acc[VEC];
+  const long long bag = static_cast<long long>(blockIdx.x) * BPW + g;
+  const bool valid = bag < p.B;
+  for (int pass = 0; pass < p.passes; ++pass) {
+    const int parts = min(slot_chunks, chunks - pass * slot_chunks);
+    const bool active = t < parts;
+    float acc[VEC];
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-      float wsum = 0.f;
-      int cnt = 0;
-      bool bad = false;
-      for (int s0 = 0; s0 < p.L; s0 += kSeg) {
-        __syncwarp();                           // the list and ring are free
-        // list lookups s0 .. s0 + kSeg - 1: read them all, then sort
-        Lookup raw[kSeg / G];
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    float wsum = 0.f;
+    int cnt = 0;
+    bool bad = false;
+    for (int s0 = 0; s0 < p.L; s0 += kSeg) {
+      __syncwarp();                             // the list and slots are free
+      // list lookups s0 .. s0 + kSeg - 1: read them all, then sort
+      Lookup raw[kSeg / G];
 #pragma unroll
-        for (int i = 0; i < kSeg / G; ++i) {
-          const int l = s0 + i * G + t;
-          Lookup& f = raw[i];
-          f = Lookup{0, 1.f, valid && l < p.L, false};
-          if (f.in) {
-            const long long at = bag * p.L + l;
-            f.id = __ldg(p.ids + at);
-            if (kMasked) f.live = p.mask == nullptr || __ldg(p.mask + at) != 0;
-            else if (p.w != nullptr) f.w = __ldg(p.w + at);
-          }
+      for (int i = 0; i < kSeg / G; ++i) {
+        const int l = s0 + i * G + t;
+        raw[i] = read_lookup<kMasked>(p, bag * p.L + l, valid && l < p.L);
+      }
+      int n = 0;
+#pragma unroll
+      for (int i = 0; i < kSeg / G; ++i) {
+        long long off;
+        bool take, oob;
+        resolve<kMasked>(raw[i], p.V, row_bytes, off, take, oob);
+        const unsigned took = __ballot_sync(kFull, take) & group;
+        bad |= (__ballot_sync(kFull, oob) & group) != 0;
+        if (take) {
+          const int pos = n + __popc(took & below);
+          list.off[pos] = off;
+          if (!kMasked) list.w[pos] = raw[i].w;
         }
-        int n = 0, fresh_n = 0;
-        long long prev = -1;
+        n += __popc(took);
+      }
+      cnt += n;
+      __syncwarp();                             // the list is written
+      // every listed row in flight at once: one round trip
+      if (active)
+        for (int i = 0; i < n; ++i)
+          cp_async16(ring + i * p.pitch + t * 16,
+                     table + list.off[i] + pass * p.pitch + t * 16);
+      cp_async_wait_all();
+      // each lane adds the chunks it copied itself, in lookup order
+      for (int j = 0; j < n; j += kUnroll) {
+        float w[kUnroll], v[kUnroll][VEC];
 #pragma unroll
-        for (int i = 0; i < kSeg / G; ++i) {
-          long long r = raw[i].id;
-          bool take, oob = false;
-          if (kMasked) {
-            if (r < 0) r += p.V;
-            const bool ok = r >= 0 && r < p.V;
-            take = raw[i].live && ok;
-            oob = raw[i].live && !ok;
-          } else {
-            take = raw[i].in;
-            r = row_of(raw[i].id, p.V);
-          }
-          const long long off = r * row_bytes;
-          bool fresh = take;
-          if (!kMasked) {                       // a row like the one before
-            long long before = __shfl_up_sync(kFull, off, 1, G);
-            if (t == 0) before = prev;
-            fresh = take && off != before;
-            prev = __shfl_sync(kFull, off, G - 1, G);
-          }
-          const unsigned took = __ballot_sync(kFull, take) & group;
-          const unsigned fr = __ballot_sync(kFull, fresh) & group;
-          bad |= (__ballot_sync(kFull, oob) & group) != 0;
-          if (take) {
-            const int pos = n + __popc(took & below);
-            const long long u =
-                staged + fresh_n + __popc(fr & below) - (fresh ? 0 : 1);
-            list.off[pos] = off;
-            list.slot[pos] = static_cast<unsigned char>(
-                u % DEPTH | (u / DEPTH & 1) << 6 | (fresh ? 0x80 : 0));
-            if (!kMasked) list.w[pos] = raw[i].w;
-          }
-          n += __popc(took);
-          fresh_n += __popc(fr);
+        for (int u = 0; u < kUnroll; ++u) {
+          w[u] = kMasked || j + u >= n ? 1.f : list.w[j + u];
+          if (active && j + u < n)
+            widen(*reinterpret_cast<const uint4*>(ring + (j + u) * p.pitch +
+                                                  t * 16), v[u]);
         }
-        staged += fresh_n;
-        cnt += n;
-        __syncwarp();                           // the list is written
-        // lookup i's row into its slot
-        auto stage = [&](int i) {
-          if (i < n) {
-            const int sl = list.slot[i];
-            if (sl & 0x80) {
-              const char* src =
-                  table + list.off[i] + static_cast<long long>(pass) * p.pitch;
-              unsigned char* dst = ring + (sl & 63) * p.pitch;
-              if (kBulk) {
-                if (t == 0) {
-                  mbar_expect_tx(&bars[sl & 63], parts * 16);
-                  bulk_copy(dst, src, parts * 16, &bars[sl & 63]);
-                }
-              } else if (active) {
-                cp_async16(dst + t * 16, src + t * 16);
-              }
-            }
-          }
-        };
-        // add lookups j .. j + 3, whose rows have been staged, in order
-        auto add = [&](int j) {
-          const uint32_t four = *reinterpret_cast<const uint32_t*>(
-              &list.slot[j]);                   // j is a multiple of 4
-          float w[kUnroll], v[kUnroll][VEC];
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const int sl = four >> (8 * u) & 0xff;
-            w[u] = kMasked || j + u >= n ? 1.f : list.w[j + u];
-            if (kBulk && j + u < n) mbar_wait(&bars[sl & 63], sl >> 6 & 1);
-            if (active && j + u < n)
-              load16(ring + (sl & 63) * p.pitch + t * 16, v[u]);
-          }
+        for (int u = 0; u < kUnroll; ++u) {
+          if (j + u < n) {
+            if (!kMasked) wsum = __fadd_rn(wsum, w[u]);
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            if (j + u < n) {
-              if (!kMasked) wsum = __fadd_rn(wsum, w[u]);
-#pragma unroll
-              for (int e = 0; e < VEC; ++e)
-                acc[e] = kMasked ? __fadd_rn(acc[e], v[u][e])
-                                 : __fadd_rn(acc[e], __fmul_rn(v[u][e], w[u]));
-            }
-          }
-        };
-        const int n_max = __reduce_max_sync(kFull, n);
-        if (n_max <= DEPTH) {
-          // every row of the list in flight at once: one round trip
-          for (int i = 0; i < n_max; ++i) stage(i);
-          if (!kBulk) {
-            cp_async_commit();
-            cp_async_wait<0>();
-          }
-          for (int j = 0; j < n_max; j += kUnroll) add(j);
-        } else {
-          // a pipeline: rows DEPTH lookups ahead of the sum, a commit group
-          // of cp.async copies every four lookups
-          for (int i = 0; i < DEPTH; i += kUnroll) {
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) stage(i + u);
-            if (!kBulk) cp_async_commit();
-          }
-          for (int j = 0; j < n_max; j += kUnroll) {
-            if (!kBulk) cp_async_wait<DEPTH / kUnroll - 1>();
-            add(j);
-            if (kBulk) __syncwarp();            // the slots read are free
-#pragma unroll
-            for (int u = 0; u < kUnroll; ++u) stage(j + DEPTH + u);
-            if (!kBulk) cp_async_commit();
+            for (int e = 0; e < VEC; ++e)
+              acc[e] = kMasked ? __fadd_rn(acc[e], v[u][e])
+                               : __fadd_rn(acc[e], __fmul_rn(v[u][e], w[u]));
           }
         }
       }
-      if (valid && active) {
-        if (p.mean) {
-          const float d = kMasked ? (cnt > 0 ? static_cast<float>(cnt) : 1e-9f)
-                                  : (wsum < 1e-9f ? 1e-9f : wsum);  // NaN stays
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = __fdiv_rn(acc[e], d);
-        }
-        if (kMasked && bad) {
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = __int_as_float(0x7fffffff);
-        }
-        float* o = p.out + bag * p.D + (pass * slot_chunks + t) * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; e += 4)
-          *reinterpret_cast<float4*>(o + e) =
-              make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-      }
     }
+    if (valid && active)
+      finish<kMasked>(p, acc, wsum, cnt, bad,
+                      p.out + bag * p.D + (pass * slot_chunks + t) * VEC);
   }
 }
 
-// Co-resident blocks of `threads` threads and `smem` bytes on the card;
-// asked once per kernel, block size and slot size (the process's cards
-// are taken to be alike); 0 if none fits.
-// `most` bytes are the kernel's largest need (its widest slot).
+// The direct path: kThreads / G bags a block, rows loaded to registers.
+template <typename T, bool kMasked, int G>
+__global__ void __launch_bounds__(kThreads) direct_kernel(const Params p) {
+  constexpr int VEC = 16 / sizeof(T);
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads;
+  const long long bag = (first + threadIdx.x) / G;
+  // a warp whose groups all lie past the last bag has nothing to do; the
+  // others keep every lane in the loops, so the shuffles see full warps
+  if ((first + (threadIdx.x & ~31)) / G >= p.B) return;
+  const int lane = threadIdx.x & 31, t = lane % G;
+  const unsigned group = (G == 32 ? kFull : (1u << G) - 1) << (lane / G * G);
+  const bool valid = bag < p.B;
+  const int chunks = p.D / VEC;
+  const char* table = static_cast<const char*>(p.table);
+  const long long row_bytes = static_cast<long long>(p.D) * sizeof(T);
+  for (int c0 = 0; c0 < chunks; c0 += G) {
+    const int c = c0 + t;
+    const bool active = valid && c < chunks;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    float wsum = 0.f;
+    int cnt = 0;
+    bool bad = false;
+    for (int l0 = 0; l0 < p.L; l0 += G) {
+      const Lookup f = read_lookup<kMasked>(p, bag * p.L + l0 + t,
+                                            valid && l0 + t < p.L);
+      long long off;
+      bool take, oob;
+      resolve<kMasked>(f, p.V, row_bytes, off, take, oob);
+      if (kMasked) {
+        cnt += __popc(__ballot_sync(kFull, take) & group);
+        bad |= (__ballot_sync(kFull, oob) & group) != 0;
+      }
+      const int n = min(G, p.L - l0);
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const long long o = __shfl_sync(kFull, off, j, G);
+        const float w = __shfl_sync(kFull, f.w, j, G);
+        const bool tk = !kMasked || __shfl_sync(kFull, int(take), j, G);
+        if (!kMasked) wsum = __fadd_rn(wsum, w);
+        if (active && tk) {
+          float v[VEC];
+          widen(__ldg(reinterpret_cast<const uint4*>(table + o) + c), v);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[e] = kMasked ? __fadd_rn(acc[e], v[e])
+                             : __fadd_rn(acc[e], __fmul_rn(v[e], w));
+        }
+      }
+    }
+    if (active)
+      finish<kMasked>(p, acc, wsum, cnt, bad,
+                      p.out + bag * p.D + static_cast<long long>(c) * VEC);
+  }
+}
+
+// Co-resident blocks of the staged kernel (one warp, `smem` bytes) on the
+// card; asked once per kernel and slot size (the process's cards are taken
+// to be alike).
 template <auto kKernel>
-cudaError_t resident(int threads, int smem, int most, int pitch,
-                     int* blocks) {
-  static int known[33] = {};                    // by pitch / 16
-  int& got = known[pitch / 16];
+cudaError_t resident(int smem, int pitch, long long* blocks) {
+  static long long known[33] = {};              // by pitch / 16
+  long long& got = known[pitch / 16];
   if (got == 0) {
     int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
-    if (err == cudaSuccess && kCarveout >= 0)
-      err = cudaFuncSetAttribute(
-          kKernel, cudaFuncAttributePreferredSharedMemoryCarveout, kCarveout);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
-                                                          threads, smem);
+                                                          32, smem);
     if (err != cudaSuccess) return err;
     if (per_sm == 0) return cudaErrorInvalidConfiguration;
-    got = sms * per_sm;
+    got = static_cast<long long>(sms) * per_sm;
   }
   *blocks = got;
   return cudaSuccess;
 }
 
-// A small batch, when one warp a block with kDeep slots a bag gives every
-// bag a group at once: all its rows in flight.  Else kShallow slots, kWarps
-// warps a block, and a persistent grid.
-template <typename T, bool kMasked, bool kBulk, int G>
+// Staged when every bag's group fits on the card at once, else direct.
+// Every staged configuration needs under 48 KB of shared memory a block
+// (32 KB of slots and the lists).
+template <typename T, bool kMasked, int G>
 cudaError_t launch(const Params& p, cudaStream_t st) {
   constexpr int BPW = 32 / G;
   const long long warps = (p.B + BPW - 1) / BPW;
-  int blocks = 0;
-  const int deep_smem = BPW * group_bytes<kDeep>(p.pitch);
-  cudaError_t err = resident<bag_kernel<T, kMasked, kBulk, G, kDeep>>(
-      32, deep_smem, BPW * group_bytes<kDeep>(G * 16), p.pitch, &blocks);
+  const int smem = BPW * group_bytes(p.pitch);
+  long long fit = 0;
+  const cudaError_t err =
+      resident<staged_kernel<T, kMasked, G>>(smem, p.pitch, &fit);
   if (err != cudaSuccess) return err;
-  if (warps <= blocks) {
-    bag_kernel<T, kMasked, kBulk, G, kDeep>
-        <<<static_cast<unsigned>(warps), 32, deep_smem, st>>>(p);
-    return cudaGetLastError();
+  if (warps <= fit) {
+    staged_kernel<T, kMasked, G>
+        <<<static_cast<unsigned>(warps), 32, smem, st>>>(p);
+  } else {
+    const long long blocks = (p.B * G + kThreads - 1) / kThreads;
+    direct_kernel<T, kMasked, G>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(p);
   }
-  const int smem = kWarps * BPW * group_bytes<kShallow>(p.pitch);
-  err = resident<bag_kernel<T, kMasked, kBulk, G, kShallow>>(
-      kWarps * 32, smem, kWarps * BPW * group_bytes<kShallow>(G * 16),
-      p.pitch, &blocks);
-  if (err != cudaSuccess) return err;
-  const long long want = (warps + kWarps - 1) / kWarps;
-  bag_kernel<T, kMasked, kBulk, G, kShallow>
-      <<<static_cast<unsigned>(want < blocks ? want : blocks), kWarps * 32,
-         smem, st>>>(p);
   return cudaGetLastError();
 }
 
 // Lanes per bag: the row's 16-byte chunks rounded up to 8, 16 or 32.
-template <typename T, bool kMasked, bool kBulk>
+template <typename T, bool kMasked>
 cudaError_t by_width(Params p, cudaStream_t st) {
   const int chunks = p.D / (16 / static_cast<int>(sizeof(T)));
   const int g = chunks <= 8 ? 8 : chunks <= 16 ? 16 : 32;
   p.pitch = (chunks < g ? chunks : g) * 16;
   p.passes = (chunks + g - 1) / g;
-  if (g == 8) return launch<T, kMasked, kBulk, 8>(p, st);
-  if (g == 16) return launch<T, kMasked, kBulk, 16>(p, st);
-  return launch<T, kMasked, kBulk, 32>(p, st);
+  if (g == 8) return launch<T, kMasked, 8>(p, st);
+  if (g == 16) return launch<T, kMasked, 16>(p, st);
+  return launch<T, kMasked, 32>(p, st);
 }
 
 template <bool kMasked>
 int dispatch(int dtype, long long V, int D, long long B, int L,
              const void* table, const int32_t* ids, const float* w,
-             const unsigned char* mask, float* out, int mean, int staging,
-             void* stream) {
+             const unsigned char* mask, float* out, int mean, void* stream) {
   if (B == 0) return 0;
   const int size = dtype == 0 ? 4 : dtype == 1 ? 2 : 0;
-  if (size == 0 || V <= 0 || L < 0 || D <= 0 || (D * size) % 16 ||
-      (staging != 0 && staging != 1))
+  if (size == 0 || V <= 0 || L < 0 || D <= 0 || (D * size) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{table, ids, w, mask, out, V, B, D, L, mean, 0, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = staging ? by_width<float, kMasked, true>(p, st)
-                  : by_width<float, kMasked, false>(p, st);
-  else
-    err = staging ? by_width<__nv_bfloat16, kMasked, true>(p, st)
-                  : by_width<__nv_bfloat16, kMasked, false>(p, st);
+  const cudaError_t err = dtype == 0
+                              ? by_width<float, kMasked>(p, st)
+                              : by_width<__nv_bfloat16, kMasked>(p, st);
   return static_cast<int>(err);
 }
 
@@ -461,15 +402,14 @@ extern "C" const char* embedding_bag_error_name(int code) {
 
 // dtype 0 = float32, 1 = bfloat16 table [V, D], row-contiguous and 16-byte
 // aligned, rows of whole 16-byte chunks; ids [B, L] int32; w [B, L] float32
-// or null; out [B, D] float32; mean 0 = sum, 1 = mean; staging 0 =
-// cp.async, 1 = cp.async.bulk.  Returns 0 or the cudaError_t of the launch.
+// or null; out [B, D] float32; mean 0 = sum, 1 = mean.  Returns 0 or the
+// cudaError_t of the launch.
 extern "C" int embedding_bag_launch(int dtype, long long V, int D,
                                     long long B, int L, const void* table,
                                     const int32_t* ids, const float* w,
-                                    float* out, int mean, int staging,
-                                    void* stream) {
+                                    float* out, int mean, void* stream) {
   return dispatch<false>(dtype, V, D, B, L, table, ids, w, nullptr, out, mean,
-                         staging, stream);
+                         stream);
 }
 
 // The same, for the recsys layer: mask [B, L] bool (one byte a lookup) or
@@ -479,8 +419,8 @@ extern "C" int embedding_bag_masked_launch(int dtype, long long V, int D,
                                            const void* table,
                                            const int32_t* ids,
                                            const unsigned char* mask,
-                                           float* out, int mean, int staging,
+                                           float* out, int mean,
                                            void* stream) {
   return dispatch<true>(dtype, V, D, B, L, table, ids, nullptr, mask, out,
-                        mean, staging, stream);
+                        mean, stream);
 }

@@ -16,13 +16,9 @@ import torch
 from .ref import MODES, embedding_bag_masked_ref, embedding_bag_ref
 
 __all__ = ["embedding_bag", "embedding_bag_masked", "embedding_bag_ref",
-           "embedding_bag_masked_ref", "LAUNCHES", "STAGINGS", "STAGING"]
+           "embedding_bag_masked_ref", "LAUNCHES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# how the kernel stages a chunk's rows into shared memory: 16-byte cp.async
-# copies, or one cp.async.bulk a row completing on an mbarrier
-STAGINGS = {"cp.async": 0, "bulk": 1}
-STAGING = "cp.async"               # the faster on the H100 (PERF.md)
 
 
 class _Counter:
@@ -42,7 +38,7 @@ LAUNCHES = _Counter()
 
 _P = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+             ctypes.c_int, _P, _P, _P, _P, ctypes.c_int, _P]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -113,30 +109,29 @@ def _check_per_lookup(name, x, ids, dtype):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(table, ids, per_lookup, mode, *, masked: bool,
-           staging: str = STAGING):
-    """One launch of the kernel on checked CUDA tensors: the weighted entry
-    (``per_lookup`` the weights) or the masked one (the mask), staging
-    rows by ``staging`` (a key of :data:`STAGINGS`).  Counts nothing: the
-    wrappers count their launches."""
+def _launch(table, ids, per_lookup, mode, entry: str):
+    """One launch of the kernel's ``entry`` (``"embedding_bag"``, with the
+    weights as ``per_lookup``, or ``"embedding_bag_masked"``, with the
+    mask) on checked CUDA tensors, counted in :data:`LAUNCHES`; no launch
+    for no bags."""
     b, l = ids.shape
     out = torch.empty((b, table.shape[1]), dtype=torch.float32,
                       device=table.device)
     if b == 0:
         return out
     lib = _library()
-    fn = lib.embedding_bag_masked_launch if masked else lib.embedding_bag_launch
+    fn = getattr(lib, f"{entry}_launch")
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(_DTYPES[table.dtype], table.shape[0], table.shape[1], b, l,
                  table.data_ptr(), ids.data_ptr(),
                  None if per_lookup is None else per_lookup.data_ptr(),
-                 out.data_ptr(), int(mode == "mean"), STAGINGS[staging],
-                 stream)
+                 out.data_ptr(), int(mode == "mean"), stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed: "
                            f"{lib.embedding_bag_error_name(err).decode()} "
                            f"({err})")
+    setattr(LAUNCHES, entry, getattr(LAUNCHES, entry) + 1)
     return out
 
 
@@ -152,10 +147,7 @@ def embedding_bag(table, ids, weights=None, *, mode: str = "sum"):
     _check_per_lookup("weights", weights, ids, torch.float32)
     if not table.is_cuda:
         return embedding_bag_ref(table, ids, weights, mode=mode)
-    out = launch(table, ids, weights, mode, masked=False)
-    if out.shape[0]:
-        LAUNCHES.embedding_bag += 1
-    return out
+    return _launch(table, ids, weights, mode, "embedding_bag")
 
 
 def embedding_bag_masked(table, ids, mask=None, *, mode: str = "sum"):
@@ -170,7 +162,4 @@ def embedding_bag_masked(table, ids, mask=None, *, mode: str = "sum"):
     _check_per_lookup("mask", mask, ids, torch.bool)
     if not table.is_cuda:
         return embedding_bag_masked_ref(table, ids, mask, mode=mode)
-    out = launch(table, ids, mask, mode, masked=True)
-    if out.shape[0]:
-        LAUNCHES.embedding_bag_masked += 1
-    return out
+    return _launch(table, ids, mask, mode, "embedding_bag_masked")

@@ -950,9 +950,9 @@ def test_cuda_embedding_bag_wrapper_refuses(card):
     assert empty.shape == (0, 16) and eops.LAUNCHES.embedding_bag == before
 
 
-# the masked entry: bag lengths across the list of 64 lookups and the
-# ring of slots, rows narrower and wider than one pass of 32 chunks; B =
-# 4000 takes the persistent grid and its pipeline, smaller B one group a bag
+# the masked entry: bag lengths across the staged path's list of 64
+# lookups, rows narrower and wider than one pass of 32 chunks; B = 4000
+# takes the direct path for D >= 64, smaller B the staged one
 _MASKED_L = (0, 1, 7, 50, 65, 200)
 _MASKED_D = (16, 64, 128, 512)
 _MASKED_B = (1, 512, 4000)
@@ -975,8 +975,9 @@ def _masked_case(rng, v, b, l, device):
                          ids=["f32", "bf16"])
 def test_cuda_embedding_bag_masked_matches_plain_version(card, dtype):
     """Bitwise against ``embedding_bag_masked_ref`` on the card, through
-    the wrapper (one launch of the masked entry, none of the weighted) and
-    with each staging, at B = 1, 512 and 4000; without a mask too."""
+    the wrapper (one launch of the masked entry, none of the weighted), at
+    B = 1 and 512 (the staged path) and 4000 (the direct path for D >= 64);
+    without a mask too."""
     rng = np.random.default_rng(17)
     v = 3000
     for d in _MASKED_D:
@@ -995,10 +996,6 @@ def test_cuda_embedding_bag_masked_matches_plain_version(card, dtype):
             want = eops.embedding_bag_masked_ref(table, ids, mask, mode=mode)
             assert out.dtype == torch.float32 and out.shape == (b, d)
             assert _bits(out, want), (d, l, b, mode, dtype)
-            for staging in eops.STAGINGS:
-                got = eops.launch(table, ids, mask, mode, masked=True,
-                                  staging=staging)
-                assert _bits(got, want), (d, l, b, mode, dtype, staging)
         # masked-out lookups of a row of inf and NaN add nothing
         ids, mask = _masked_case(rng, v, 512, 50, card)
         used = torch.where(ids < 0, ids + v, ids)[mask]
@@ -1019,10 +1016,10 @@ def test_cuda_embedding_bag_masked_matches_plain_version(card, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_cuda_embedding_bag_stagings_match_plain_version(card, dtype):
-    """The weighted entry with each staging, bitwise, at the masked
-    entry's bag lengths, widths and batches (weights with zeros and a NaN;
-    runs of a repeated row, which are staged once)."""
+def test_cuda_embedding_bag_weighted_paths_match_plain_version(card, dtype):
+    """The weighted entry on both paths, bitwise, at the masked entry's
+    bag lengths, widths and batches (weights with zeros and a NaN; runs
+    of a repeated row, as the parent layer's padding sent)."""
     rng = np.random.default_rng(18)
     v = 2000
     for d in _MASKED_D:
@@ -1037,10 +1034,8 @@ def test_cuda_embedding_bag_stagings_match_plain_version(card, dtype):
                 w[0] = 0.0
                 w[-1, l // 2] = float("nan")
             want = eops.embedding_bag_ref(table, ids, w, mode=mode)
-            for staging in eops.STAGINGS:
-                got = eops.launch(table, ids, w, mode, masked=False,
-                                  staging=staging)
-                assert _bits(got, want), (d, l, b, mode, dtype, staging)
+            got = eops.embedding_bag(table, ids, w, mode=mode)
+            assert _bits(got, want), (d, l, b, mode, dtype)
 
 
 def test_cuda_embedding_bag_graph_replay_equals_eager(card):

@@ -61,7 +61,7 @@ def test_masked_out_lookups_add_nothing_to_a_non_finite_table(mode):
     ids = rng.integers(1, v, (6, 4)).astype(np.int32)
     ids[ids == 7] = 8
     mask = np.ones((6, 4), bool)
-    mask[1, 2:] = False                     # the issue's bag: 0 in the parent
+    mask[1, 2:] = False                     # masked-out tail (was row 0)
     ids[2, 1], mask[2, 1] = 7, False        # the non-finite row, masked out
     ids[3, 0] = 0                           # row 0 masked in: inf and NaN
     ids[4, 3] = 2 * v                       # masked in, outside [-V, V)

@@ -55,8 +55,11 @@ Phases, in order; any failure exits non-zero:
    unfused solve's invocations, and ``dist`` must match scipy's float64
    Dijkstra at ``rtol=1e-4, atol=1e-5``.
    Then point-to-point queries with ALT landmark pruning:
-   on each graph 8 ``"farthest"`` landmarks are built on the card with
-   the fused blocked path (the build time is printed), and 2 seeded
+   ``"farthest"`` landmarks (8 on kronecker, 4 on road_grid: a cut of
+   depth, the road build being one 23 s tree solve a landmark on an
+   H100) are
+   built on the card with the fused blocked path (the build time is
+   printed), and 2 seeded
    (source, target) pairs, the target reachable from the source, are
    each solved five ways: p2p without landmarks on ``blocked``; with
    landmarks on ``blocked`` (``edge_relax``'s ALT branch), on ``blocked``
@@ -95,6 +98,36 @@ Phases, in order; any failure exits non-zero:
    graphs are scale 26-27 (its road network has 24M vertices), and the
    numpy generator needs about a minute at scale 20 and about four times
    that per step of scale, which the run's time limit does not hold.
+3c. The facade (``repro_torch.api``: ``Solver``, ``SolveSpec``,
+   ``sssp_batch`` underneath), on the graphs and layouts above.  First
+   ``edge_relax`` over slots against its plain version on 20 seeded
+   random slabs (1, 3 and 8 slots, with and without ALT, each over every
+   slot, every other slot and the last alone; each call twice; every
+   active slot's ``vals``, ``wins`` and four counters bitwise).  On
+   kronecker(20,16), ``Solver.open(g, EngineConfig(backend="blocked",
+   use_alt=True))`` (its landmark distances bitwise the p2p phase's):
+   a ``SolveSpec.tree`` of 8 sources (the max-degree one and 7 seeded),
+   each slot bitwise the single solve from its source with equal
+   logical counters and matching Dijkstra, with exactly one
+   ``edge_relax_batch`` launch per iteration and no one-state launch; a
+   batched ALT ``p2p`` spec over the p2p phase's 2 pairs and 2 seeded
+   ones, ``dist[t]`` and paths bitwise the unpruned queries', some
+   candidate pruned, ``edge_relax_batch_alt`` launched; batched
+   ``bounded`` and ``knear`` specs with per-slot parameters, settled
+   entries equal to the tree slots'; ``solve_many`` over mixed kinds,
+   each result its own ``solve``; the tree spec with
+   ``fused_rounds=4`` (the fused kernel slot by slot), bitwise the
+   unfused batch.  Then an ``EngineConfig(policy="adaptive")`` tree
+   solve on kronecker: dist bitwise the static solve's, parents too but
+   where both are exact f32 ties, matching Dijkstra; the same for
+   a road_grid(1024) ``bounded`` query (the 5th percentile of its tree's
+   distances) under the adaptive policy against the static one (the
+   adaptive road tree solve took 105 s on an H100, more than this phase
+   has), then
+   on road_grid(1024) a batched ``knear`` spec (4 seeded sources, k =
+   1,000), each slot bitwise its single solve.  The batched kernel is
+   then held against its plain version again at the middle call of the
+   batched tree and p2p specs.
 4. The language-model serving path (qwen3-0.6b at full width, weights
    drawn on the card from a ``torch.Generator`` seeded with 0):
    ``ServeEngine(max_batch=8, s_cache=4096, prompt_pad=256)`` in
@@ -163,6 +196,14 @@ Phases, in order; any failure exits non-zero:
    with their launches over the p2p queries; ``edge_relax_partials``'
    ALT row at the middle call of each graph's first v1 ALT query,
    captured in that query, with its launches over the v1 queries;
+   ``edge_relax_batch`` and ``edge_relax_batch[alt]`` at the middle call
+   of phase 3c's batched tree and p2p specs (8 and 4 slots): graph
+   replay and eager, beside the same slots as one-state calls, the plain
+   version, one ``scatter_reduce_`` over all slots' keys and the bound
+   (:func:`batch_bound_bytes`: the slab read once for all slots), with
+   their launches per batched solve; ``[facade]`` lines with each
+   batched spec's seconds beside the single solves' and the adaptive
+   solves' steps, rounds and seconds beside the static ones;
    ``edge_relax_fused`` at the tree window and its ALT branch at the
    middle call of the fused ALT query, by :func:`graph_ms` and eager,
    with the parent design's times under ``--parent``, the bound as the
@@ -532,6 +573,11 @@ def alt_vs_plain(device, seed: int = 4, n_random: int = 20) -> int:
 
 def scipy_dist(g, source: int) -> np.ndarray:
     """float64 Dijkstra (scipy) over the minimum weight of each arc."""
+    return scipy_dists(g, [source])[0]
+
+
+def scipy_dists(g, sources) -> np.ndarray:
+    """:func:`scipy_dist` from each of ``sources``, the matrix built once."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
     key = g.src.astype(np.int64) * g.n + g.dst
@@ -541,7 +587,7 @@ def scipy_dist(g, source: int) -> np.ndarray:
     sel = order[first]
     a = csr_matrix((g.w[sel].astype(np.float64), (g.src[sel], g.dst[sel])),
                    shape=(g.n, g.n))
-    return dijkstra(a, directed=True, indices=source)
+    return dijkstra(a, directed=True, indices=list(sources))
 
 
 class PhaseTimes:
@@ -639,6 +685,9 @@ def warm_up(device):
     for backend in ("blocked", "segment_min"):
         solve(shard_graph(g, 1), int(np.argmax(g.deg)), backend, device,
               sharded=True)
+    from repro_torch.core.sssp import sssp_batch
+    sssp_batch(g, [int(np.argmax(g.deg)), 0], backend="blocked",
+               device=device)
 
 
 class IndexSeconds:
@@ -747,7 +796,11 @@ def main_path(graphs, device):
 # phase 3b: point-to-point queries with ALT landmark pruning
 # ---------------------------------------------------------------------------
 
-N_LANDMARKS, N_PAIRS = 8, 2
+N_PAIRS = 2
+# landmarks per graph: road_grid's build is one fused tree solve of about
+# 23 s a landmark on an H100, and its first four farthest landmarks (the
+# corners) are those of the eight
+N_LANDMARKS = {"kronecker(20,16)": 8, "road_grid(1024)": 4}
 # name, backend, options, the ALT launch counter the solve must move
 P2P_SOLVES = (("unpruned", "blocked", {}, None),
               ("alt", "blocked", {}, "edge_relax_alt"),
@@ -795,17 +848,17 @@ def p2p_path(results, device):
         with HostTimes(landmarks, ("select_landmarks", "_check_symmetric")
                        ) as host:
             lm = landmarks.build_landmarks(
-                dg, N_LANDMARKS, "farthest", device=device, layout=bg,
+                dg, N_LANDMARKS[name], "farthest", device=device, layout=bg,
                 fused_rounds=FUSED_ROUNDS)
         sync(device)
         build_s = time.perf_counter() - t0
-        log(f"[landmarks] {name}: {N_LANDMARKS} farthest landmarks "
+        log(f"[landmarks] {name}: {N_LANDMARKS[name]} farthest landmarks "
             f"{lm.landmarks.tolist()} (hop bound {lm.max_hops}, symmetric "
             f"{lm.sym}) built on the card with fused_rounds={FUSED_ROUNDS} "
             f"in {build_s!r} s: host selection (hop BFS) "
             f"{host.s['select_landmarks']!r} s, symmetry check (sorts on "
             f"the card) {host.s['_check_symmetric']!r} s, the rest (copies, "
-            "8 tree solves)")
+            f"{N_LANDMARKS[name]} tree solves)")
         pairs = pick_pairs(hg, N_PAIRS, seed=10 + gi)
         queries, pruned, exact = [], 0, {}
         for s, t in pairs:
@@ -1747,6 +1800,538 @@ def measure_partials(res, device):
               index=index)
     return round_numbers("relax_partials", args + (lb, ub), kw,
                          "on the main path's layout")
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the facade (Solver, SolveSpec, sssp_batch) and edge_relax over
+# slots
+# ---------------------------------------------------------------------------
+
+FACADE_SLOTS = 8
+ROAD_KNEAR = (4, 1000)           # road_grid's batched knear: sources, k
+ROAD_ADAPTIVE_QUANTILE = 0.05    # road_grid's adaptive bounded query
+
+
+def timed(fn, device):
+    """``(fn(), host seconds)``, the device synchronized around it."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def slot_metrics(metrics, i=None) -> dict:
+    """The logical counters of one solve (``i`` None) or of slot ``i`` of
+    a batched one, as ints."""
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS
+    pick = (lambda x: x) if i is None else (lambda x: x[i])
+    return {f: int(pick(getattr(metrics, f))) for f in LOGICAL_METRIC_FIELDS}
+
+
+def same_tree_up_to_ties(hg, dist, parent, want_dist, want_parent, keep,
+                         what) -> int:
+    """``dist`` bitwise ``want_dist`` (on ``keep``, or everywhere), and
+    ``parent`` equal to ``want_parent`` except where both are exact f32
+    ties: ``dist[p] + w(p, v) == dist[v]`` for both parents, over edges
+    of the host graph ``hg``.  Windows are pure scheduling, so another
+    window may take another of two equal candidates that arrive in
+    different rounds (the reference's policies agree bitwise only on
+    graphs without such ties).  Returns the number of tie parents."""
+    sel = (lambda x: x) if keep is None else (lambda x: x[keep])
+    if not bitwise_equal(sel(dist), sel(want_dist)):
+        raise AssertionError(f"{what}: dist differs from the static solve's")
+    d = dist.cpu().numpy()
+    idx = torch.arange(dist.shape[0], device=dist.device)
+    diff = sel(idx)[sel(parent) != sel(want_parent)].cpu().numpy()
+    pa, pb = parent.cpu().numpy(), want_parent.cpu().numpy()
+    for v in diff:
+        for p in (int(pa[v]), int(pb[v])):
+            lo, hi = hg.row_ptr[max(p, 0)], hg.row_ptr[max(p, 0) + 1]
+            w = hg.w[lo:hi][hg.dst[lo:hi] == v].astype(np.float32)
+            if p < 0 or not (np.float32(d[p]) + w == d[v]).any():
+                raise AssertionError(
+                    f"{what}: vertex {v}'s parent {p} is not a shortest-path "
+                    "edge (the parents differ from the static solve's "
+                    "other than at an exact tie)")
+    return int(diff.size)
+
+
+def slot_of(result, i):
+    """Slot ``i`` of a batched ``SolveResult`` as ``(dist, parent,
+    metrics)``."""
+    return (result.dist[i], result.parent[i],
+            type(result.metrics)(*(m[i] for m in result.metrics)))
+
+
+def same_slot(batch, i, one, what):
+    """Slot ``i`` of a batched result bitwise the single result ``one``
+    (``(dist, parent, metrics)``): dist, parent and logical counters."""
+    d, p, m = batch
+    if not (bitwise_equal(d[i], one[0]) and p[i].equal(one[1])):
+        raise AssertionError(f"{what} slot {i}: dist or parent differs from "
+                             "the single solve's")
+    if slot_metrics(m, i) != slot_metrics(one[2]):
+        raise AssertionError(f"{what} slot {i}: logical counters "
+                             f"{slot_metrics(m, i)} differ from the single "
+                             f"solve's {slot_metrics(one[2])}")
+
+
+def batch_slab_case(rng, n, m, *, block_v, tile_e, ties, n_slots, alt,
+                    device):
+    """A random slab (:func:`_slab_case`) and ``n_slots`` random states
+    over it, each with its own window and, with ``alt``, its own ALT
+    bound and prune bound.  Returns ``relax_bucket``'s batched arguments
+    and keywords (``active`` to be added)."""
+    (_, _, _, *slab, _, _), kw, bg = _slab_case(
+        rng, n, m, block_v=block_v, tile_e=tile_e, ties=ties, lb0=False,
+        device=device)
+    n_out = bg.n_out
+    shape = (n_slots, n_out)
+    dist = (rng.integers(0, 6, shape) if ties
+            else rng.random(shape) * 3).astype(np.float32)
+    dist[rng.random(shape) < 0.2] = np.inf
+    paths = (rng.random(shape) < rng.choice([0.01, 0.3, 1.0])) \
+        & np.isfinite(dist)
+    parent = np.where(np.isfinite(dist), rng.integers(0, n_out, shape),
+                      -1).astype(np.int32)
+    lb = rng.choice([0.0, 1.0], n_slots).astype(np.float32)
+    ub = (lb + rng.choice([3.0, np.inf], n_slots)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    args = (t(dist), t(paths), t(parent), *slab, t(lb), t(ub))
+    if alt:
+        args += (torch.stack([_alt_lb(rng, n_out, n, device, ties=ties)
+                              for _ in range(n_slots)]),
+                 t(rng.choice([b for _, b in ALT_BOUNDS], n_slots)
+                   .astype(np.float32)))
+    return args, kw
+
+
+def batch_pair(args, kw, what):
+    """``relax_bucket`` over slots (called twice, to catch races) against
+    its plain version, ``ref.edge_relax_batch_ref``: each active slot's
+    ``vals``, ``wins`` and four counters bitwise, and its scheduled-tile
+    count that of ``schedule_tiles``.  Returns the kernel's and the plain
+    version's outputs."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
+    want = ref.edge_relax_batch_ref(*args, **plain_kw)
+    active = kw["active"].tolist()
+    for _ in range(2):
+        out = ops.relax_bucket(*args, **kw)
+        for i in active:
+            _, pn = ref.schedule_tiles(args[1][i], args[3], args[5],
+                                       args[6], kw["tile_e"])
+            if not (bitwise_equal(out[0][i], want[0][i])
+                    and out[1][i].equal(want[1][i])
+                    and out[2][i].equal(want[2][i])
+                    and int(out[2][i][2]) == int(pn)):
+                raise AssertionError(
+                    f"edge_relax_batch {what} slot {i}: kernel "
+                    f"{out[2][i].tolist()} and plain version "
+                    f"{want[2][i].tolist()} (schedule_tiles: {int(pn)} "
+                    "tiles) disagree")
+    return out, want
+
+
+def batch_vs_plain(device, seed: int = 7, n_random: int = 20) -> int:
+    """The batched one-round kernel against its plain version on
+    ``n_random`` seeded random slabs: slot counts 1, 3 and 8 in turn,
+    with and without ALT, each over every slot, every other slot and the
+    last slot alone.  Returns the number of calls checked."""
+    rng = np.random.default_rng(seed)
+    checked = 0
+    for i in range(n_random):
+        n = int(rng.integers(64, 20000))
+        n_slots = (1, 3, FACADE_SLOTS)[i % 3]
+        case = dict(n=n, m=int(rng.integers(0, 8 * n)),
+                    block_v=int(rng.choice([64, 1024, -(-n // 256) * 256])),
+                    tile_e=int(rng.choice([32, 64, 256, 512])),
+                    ties=bool(rng.random() < 0.5), n_slots=n_slots,
+                    alt=bool(i % 2))
+        args, kw = batch_slab_case(rng, device=device, **case)
+        for act in {tuple(range(n_slots)), tuple(range(0, n_slots, 2)),
+                    (n_slots - 1,)}:
+            kw["active"] = torch.tensor(act, dtype=torch.int32,
+                                        device=device)
+            batch_pair(args, kw, f"case {i} {case} active {list(act)}")
+            checked += 1
+    return checked
+
+
+def facade_solves(results, p2p, device) -> dict:
+    """Phase 3c's solves on kronecker(20,16) and road_grid(1024) through
+    ``Solver``/``SolveSpec``, checked against single solves, Dijkstra and
+    the launch counters (see the module docstring).  Returns the numbers
+    and what :func:`facade_phase` times."""
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    out = {}
+    name = "kronecker(20,16)"
+    res = results[name]
+    hg, dg, bg = res["host"], res["graph"], res["layout"]
+    rng = np.random.default_rng(31)
+    nz = np.flatnonzero(hg.deg > 0)
+    srcs = [res["source"]] + [int(v) for v in rng.choice(
+        nz[nz != res["source"]], FACADE_SLOTS - 1, replace=False)]
+    # the yardstick: the same engine one source at a time
+    single = Solver.open(dg, EngineConfig(backend="blocked"), layout=bg,
+                         device=device)
+    singles, single_s = [], 0.0
+    for s in srcs:
+        r, secs = timed(lambda: single.solve(SolveSpec.tree(s)), device)
+        singles.append(tuple(r))
+        single_s += secs
+    solver, open_s = timed(lambda: Solver.open(dg, EngineConfig(
+        backend="blocked", use_alt=True), layout=bg, device=device), device)
+    if not bitwise_equal(solver.landmarks.D, p2p[name]["landmarks"].D):
+        raise AssertionError(f"{name}: the session's landmark distances "
+                             "differ from the p2p phase's")
+    LAUNCHES.reset()
+    tree, batch_s = timed(lambda: solver.solve(SolveSpec.tree(srcs)), device)
+    launches = LAUNCHES.edge_relax_batch
+    stray = (LAUNCHES.edge_relax, LAUNCHES.edge_relax_alt,
+             LAUNCHES.edge_relax_batch_alt)
+    iters = int(tree.metrics.n_host_syncs.max())
+    if launches != iters or any(stray):
+        raise AssertionError(
+            f"{name}: the batched tree solve launched edge_relax_batch "
+            f"{launches} times over {iters} iterations (one a round "
+            f"expected) and (edge_relax, edge_relax_alt, "
+            f"edge_relax_batch_alt) {stray} times (none expected)")
+    for i in range(len(srcs)):
+        same_slot(tuple(tree), i, singles[i], f"{name} tree")
+    ref = scipy_dists(hg, srcs)
+    for i in range(len(srcs)):
+        check_against_dijkstra(ref[i], tree.dist[i])
+    log(f"[facade] {name} tree x{len(srcs)}: batched {batch_s!r} s "
+        f"({launches} edge_relax_batch launches, {iters} iterations) "
+        f"against {single_s!r} s for the {len(srcs)} single solves; "
+        f"session open (landmarks) {open_s!r} s; every slot bitwise its "
+        "single solve and Dijkstra's")
+    out["tree"] = dict(sources=srcs, batch_s=batch_s, single_s=single_s,
+                       launches=launches, iterations=iters, open_s=open_s)
+
+    # p2p with ALT: the p2p phase's pairs and two seeded ones
+    pairs = [(q["source"], q["target"]) for q in p2p[name]["queries"]]
+    pairs += pick_pairs(hg, 2, seed=32)
+    exact = dict(p2p[name]["exact"])
+    p2p_single_s = 0.0
+    for s, t in pairs:
+        one, secs = timed(lambda: solver.solve(SolveSpec.p2p(s, t)), device)
+        p2p_single_s += secs
+        if (s, t) not in exact:
+            plain = single.solve(SolveSpec.p2p(s, t))
+            exact[s, t] = (plain.dist[t:t + 1].clone(), plain.paths())
+    LAUNCHES.reset()
+    ps, pt = [s for s, _ in pairs], [t for _, t in pairs]
+    pq, p2p_s = timed(lambda: solver.solve(SolveSpec.p2p(ps, pt)), device)
+    alt_launches = LAUNCHES.edge_relax_batch_alt
+    if alt_launches <= 0 or LAUNCHES.edge_relax_alt or LAUNCHES.edge_relax:
+        raise AssertionError(f"{name}: the batched p2p spec launched "
+                             f"edge_relax_batch_alt {alt_launches} times, "
+                             f"edge_relax_alt {LAUNCHES.edge_relax_alt}")
+    for i, (s, t) in enumerate(pairs):
+        want_d, want_path = exact[s, t]
+        if not (bitwise_equal(pq.dist[i][t:t + 1], want_d)
+                and pq.paths(slot=i) == want_path):
+            raise AssertionError(f"{name} batched p2p ({s}, {t}): d(s,t) or "
+                                 "its path differs from the unpruned "
+                                 "single-device query's")
+    pruned = int(pq.metrics.n_pruned.sum())
+    if pruned <= 0:
+        raise AssertionError(f"{name}: the batched ALT p2p spec pruned no "
+                             "candidate")
+    log(f"[facade] {name} p2p x{len(pairs)} (ALT): batched {p2p_s!r} s "
+        f"({alt_launches} edge_relax_batch_alt launches, n_pruned "
+        f"{pruned}) against {p2p_single_s!r} s for the single ALT queries; "
+        "d(s,t) and paths bitwise the unpruned queries'")
+    out["p2p"] = dict(pairs=pairs, batch_s=p2p_s, single_s=p2p_single_s,
+                      launches=alt_launches, pruned=pruned,
+                      iterations=int(pq.metrics.n_host_syncs.max()))
+
+    # bounded and knear with per-slot parameters
+    bounds = [float(np.float32(torch.quantile(
+        d[torch.isfinite(d)].double(), 0.4).item())) for d in tree.dist]
+    ks = [1000, 200, 5000, 50, 1000, 300, 2000, 10][:len(srcs)]
+    for goal, spec in (("bounded", SolveSpec.bounded(srcs, bounds)),
+                       ("knear", SolveSpec.knear(srcs, ks))):
+        r, secs = timed(lambda: solver.solve(spec), device)
+        for i, gp in enumerate(spec.slot_params()):
+            if not settled_as_tree(goal, gp, r.dist[i], r.parent[i],
+                                   tree.dist[i], tree.parent[i]):
+                raise AssertionError(f"{name} batched {goal} slot {i} "
+                                     f"({gp!r}): settled entries differ "
+                                     "from the tree solve's")
+        log(f"[facade] {name} {goal} x{len(srcs)}: {secs!r} s, settled "
+            "entries equal the tree solves'")
+        out[goal] = dict(params=spec.slot_params(), seconds=secs)
+
+    # solve_many over mixed kinds, each result its own solve
+    mixed = [SolveSpec.tree(srcs[0]), SolveSpec.p2p(*pairs[0]),
+             SolveSpec.knear(srcs[1:3], ks[1:3]),
+             SolveSpec.bounded(srcs[3], bounds[3]),
+             SolveSpec.tree(srcs[4:6]), SolveSpec.p2p(ps[1:3], pt[1:3])]
+    many, many_s = timed(lambda: solver.solve_many(mixed), device)
+    for spec, r in zip(mixed, many):
+        one = solver.solve(spec)
+        rows = range(spec.n_slots) if spec.batched else [None]
+        for i in rows:
+            pick = (lambda x: x) if i is None else (lambda x: x[i])
+            if not (bitwise_equal(pick(r.dist), pick(one.dist))
+                    and pick(r.parent).equal(pick(one.parent))
+                    and slot_metrics(r.metrics, i)
+                    == slot_metrics(one.metrics, i)):
+                raise AssertionError(f"{name} solve_many {spec.kind}: "
+                                     "differs from its own solve")
+    log(f"[facade] {name} solve_many over {len(mixed)} specs of mixed "
+        f"kinds: {many_s!r} s, each result equal to its own solve")
+    out["solve_many_s"] = many_s
+
+    # the fused kernel under the batch, slot by slot
+    fused = Solver.open(dg, EngineConfig(backend="blocked",
+                                         fused_rounds=FUSED_ROUNDS),
+                        layout=bg, device=device)
+    LAUNCHES.reset()
+    ft, fused_s = timed(lambda: fused.solve(SolveSpec.tree(srcs)), device)
+    if LAUNCHES.edge_relax_fused <= 0 or LAUNCHES.edge_relax_batch:
+        raise AssertionError(f"{name}: the fused batch launched "
+                             f"edge_relax_fused {LAUNCHES.edge_relax_fused} "
+                             f"and edge_relax_batch "
+                             f"{LAUNCHES.edge_relax_batch} times")
+    for i in range(len(srcs)):
+        same_slot(tuple(ft), i, slot_of(tree, i), f"{name} fused tree")
+    log(f"[facade] {name} tree x{len(srcs)} fused_rounds={FUSED_ROUNDS}: "
+        f"{fused_s!r} s ({LAUNCHES.edge_relax_fused} edge_relax_fused "
+        "launches, slot by slot), bitwise the unfused batch")
+    out["fused"] = dict(batch_s=fused_s,
+                        launches=LAUNCHES.edge_relax_fused)
+    out["solver"], out["single"] = solver, single
+
+    single_road = Solver.open(results["road_grid(1024)"]["graph"],
+                              EngineConfig(backend="blocked"),
+                              layout=results["road_grid(1024)"]["layout"],
+                              device=device)
+    # the adaptive policy: kronecker's tree; on road_grid a bounded query
+    # (its adaptive tree solve took 105 s on an H100, over the 90 s this
+    # phase allows it)
+    out["adaptive"] = {}
+    for gname, r in results.items():
+        sv = Solver.open(r["graph"], EngineConfig(backend="blocked",
+                                                  policy="adaptive"),
+                         layout=r["layout"], device=device)
+        static = dict(seconds=r["solve_s"], dist=r["dist"],
+                      parent=r["parent"], metrics=r["metrics"])
+        if gname.startswith("road"):
+            finite = r["dist"][torch.isfinite(r["dist"])]
+            bound = float(np.float32(torch.quantile(
+                finite.double(), ROAD_ADAPTIVE_QUANTILE).item()))
+            spec = SolveSpec.bounded(r["source"], bound)
+            b, secs = timed(lambda: single_road.solve(spec), device)
+            static = dict(seconds=secs, dist=b.dist, parent=b.parent,
+                          metrics=slot_metrics(b.metrics))
+            keep = r["dist"] <= bound
+        else:
+            spec, keep = SolveSpec.tree(r["source"]), None
+        a, secs = timed(lambda: sv.solve(spec), device)
+        ties = same_tree_up_to_ties(r["host"], a.dist, a.parent,
+                                    static["dist"], static["parent"], keep,
+                                    f"{gname} adaptive {spec.kind}")
+        kh = slice(None) if keep is None else keep.cpu().numpy()
+        check_against_dijkstra(r["dijkstra"][kh],
+                               torch.from_numpy(a.dist.cpu().numpy()[kh]))
+        am, sm = slot_metrics(a.metrics), static["metrics"]
+        log(f"[facade] {gname} adaptive {spec.kind}"
+            f"{'' if keep is None else f' (bound {bound!r})'}: {secs!r} s, "
+            f"steps={am['n_steps']} rounds={am['n_rounds']} against the "
+            f"static solve's {static['seconds']!r} s, steps={sm['n_steps']} "
+            f"rounds={sm['n_rounds']}; dist bitwise the static solve's, "
+            f"parent too but at {ties} exact f32 ties, and Dijkstra's")
+        out["adaptive"][gname] = dict(
+            kind=spec.kind, seconds=secs, steps=am["n_steps"],
+            rounds=am["n_rounds"], static_s=static["seconds"],
+            static_steps=sm["n_steps"], static_rounds=sm["n_rounds"],
+            tie_parents=ties)
+    rname, road = "road_grid(1024)", single_road
+    r = results[rname]
+    n_src, k = ROAD_KNEAR
+    rsrc = [int(v) for v in np.random.default_rng(33).choice(
+        r["host"].n, n_src, replace=False)]
+    ones, knear_single_s = [], 0.0
+    for s in rsrc:
+        one, secs = timed(lambda: road.solve(SolveSpec.knear(s, k)), device)
+        ones.append(tuple(one))
+        knear_single_s += secs
+    kb, knear_s = timed(lambda: road.solve(SolveSpec.knear(rsrc, k)), device)
+    for i in range(n_src):
+        same_slot(tuple(kb), i, ones[i], f"{rname} knear")
+    log(f"[facade] {rname} knear k={k} x{n_src}: batched {knear_s!r} s "
+        f"against {knear_single_s!r} s for the single solves; every slot "
+        "bitwise its single solve")
+    out["road_knear"] = dict(sources=rsrc, k=k, batch_s=knear_s,
+                             single_s=knear_single_s)
+    return out
+
+
+def batch_bound_bytes(args, kw):
+    """Least bytes of one batched round: each active slot's own reads and
+    writes as :func:`bound_bytes` counts them for a one-state round, the
+    slab's (``src``, ``w``, ``dst``) read once for all slots (the union of
+    their scheduled, path and in-window slots), the active list and the
+    windows.  Also returns the sum of the slots' one-state bounds (the
+    slab read once per slot), the bound of the same work as 8 calls."""
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, *alt = args
+    e = src.shape[0]
+    union = [torch.zeros(e, dtype=torch.bool, device=src.device)
+             for _ in range(3)]
+    shared = singles = 0
+    for i in kw["active"].tolist():
+        row = (dist[i], paths[i], parent[i], src, dst, w, tile_first, lb[i],
+               ub[i], *((alt[0][i], alt[1][i]) if alt else ()))
+        rkw = dict(tile_e=kw["tile_e"], n_out=kw["n_out"], index=kw["index"])
+        slots = scheduled_slots(row, rkw)
+        new, *_ = bound_bytes(row, rkw, slots, "relax_bucket")
+        s = src[slots].long()
+        on = paths[i][s].bool()
+        cand = dist[i][s] + w[slots]
+        window = on & (cand >= lb[i]) & (cand < ub[i])
+        singles += new
+        shared += new - 4 * (slots.shape[0] + int(on.sum())
+                             + int(window.sum()))
+        for u, m in zip(union, (slice(None), on, window)):
+            u[slots[m]] = True
+    n_active = kw["active"].shape[0]
+    slab = 4 * sum(int(u.sum()) for u in union)
+    return shared + slab + 12 * n_active, singles
+
+
+def library_batch(args, kw, want):
+    """The library yardstick of a batched round: one ``scatter_reduce_``
+    (amin) of the packed keys of every active slot's in-window kept
+    candidates of its scheduled tiles into ``[S * n_out]`` filled keys,
+    unpacked to ``vals`` and ``wins`` (which must equal the plain
+    version's on the active rows).  Returns its device ms."""
+    from repro_torch.kernels.edge_relax import ref
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, *alt = args
+    n_out, n_slots = kw["n_out"], dist.shape[0]
+    active = kw["active"].tolist()
+    keys_in, dsts = [], []
+    for i in active:
+        row = (dist[i], paths[i], parent[i], src, dst, w, tile_first)
+        slots = scheduled_slots(row, kw)
+        s, d = src[slots].long(), dst[slots].long()
+        cand = dist[i][s] + w[slots]
+        ok = paths[i][s] & (cand >= lb[i]) & (cand < ub[i])
+        if alt:
+            ok = ok & (cand + alt[0][i][d] <= alt[1][i])
+        keys_in.append(((cand.view(torch.int32).long() << 32) | s)[ok])
+        dsts.append(d[ok] + i * n_out)
+    kept, k_dst = torch.cat(keys_in), torch.cat(dsts)
+
+    def whole():
+        keys = torch.full((n_slots * n_out,), ref.EMPTY_KEY,
+                          dtype=torch.int64, device=w.device)
+        keys.scatter_reduce_(0, k_dst, kept, "amin")
+        keys = keys.reshape(n_slots, n_out)
+        return ((keys >> 32).to(torch.int32).view(torch.float32),
+                (keys & 0xFFFFFFFF).to(torch.int32))
+    vals, wins = whole()
+    for i in active:
+        if not (bitwise_equal(vals[i], want[0][i])
+                and wins[i].equal(want[1][i])):
+            raise AssertionError("the batched library yardstick's output "
+                                 "differs from the plain version's")
+    return graph_ms(whole)
+
+
+def batch_numbers(args, kw, what: str) -> dict:
+    """One batched ``relax_bucket`` call on the main path's inputs: the
+    check against the plain version (:func:`batch_pair`), its device time
+    (:func:`graph_ms`) and eager time beside the same slots as one-state
+    calls (all of them in one graph, and eagerly), the plain version's,
+    the library yardstick's and the bounds (:func:`batch_bound_bytes`)."""
+    from repro_torch.kernels.edge_relax import ops, ref
+    out, want = batch_pair(args, kw, what)
+    active = kw["active"].tolist()
+    err = max(float((out[0][i] - want[0][i]).abs().nan_to_num(0.0).max())
+              for i in active)
+    dist, paths, parent, src, dst, w, tile_first, lb, ub, *alt = args
+    rkw = dict(tile_e=kw["tile_e"], n_out=kw["n_out"], index=kw["index"])
+
+    def singles():
+        for i in active:
+            ops.relax_bucket(dist[i], paths[i], parent[i], src, dst, w,
+                             tile_first, lb[i], ub[i],
+                             *((alt[0][i], alt[1][i]) if alt else ()), **rkw)
+    call = lambda: ops.relax_bucket(*args, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "index"}
+    bound_b, singles_b = batch_bound_bytes(args, kw)
+    return dict(
+        ms=graph_ms(call), eager_ms=cuda_ms(call),
+        singles_ms=graph_ms(singles), singles_eager_ms=cuda_ms(singles),
+        plain_ms=cuda_ms(lambda: ref.edge_relax_batch_ref(*args,
+                                                          **plain_kw)),
+        library_ms=library_batch(args, kw, want),
+        bound_ms=bound_b / HBM_BYTES_PER_S * 1e3,
+        bound_ms_singles=singles_b / HBM_BYTES_PER_S * 1e3, bytes=bound_b,
+        bytes_singles=singles_b, max_abs_err=err, slots=dist.shape[0],
+        active=len(active),
+        counts=[out[2][i].tolist() for i in active])
+
+
+def mid_batch_call(solver, spec, calls: int):
+    """The arguments of the middle ``relax_bucket`` call of ``spec``
+    solved again on ``solver``; it must make ``calls`` calls again."""
+    with MiddleCall("relax_bucket", calls // 2) as rec:
+        solver.solve(spec)
+    if rec.calls != calls:
+        raise AssertionError(f"the batched {spec.kind} spec made "
+                             f"{rec.calls} relax_bucket calls, {calls} "
+                             "before")
+    # without ALT the call passes alt_lb and prune_bound as None
+    return tuple(a for a in rec.args if a is not None), rec.kw
+
+
+def facade_phase(results, p2p, device):
+    """Phase 3c and its numbers: the batched kernel against its plain
+    version, the facade's solves (:func:`facade_solves`), and the
+    ``edge_relax_batch`` rows of the ``kernels`` line at the middle call
+    of the batched tree and p2p specs on kronecker(20,16)."""
+    from repro_torch.api import SolveSpec
+    log(f"[kernel-vs-plain] edge_relax_batch: {batch_vs_plain(device)} "
+        "batched calls on random slabs bitwise equal (1, 3 and 8 slots, "
+        "active lists that skip slots, with and without ALT)")
+    f = facade_solves(results, p2p, device)
+    mark("facade solves")
+    solver, name = f.pop("solver"), "kronecker(20,16)"
+    f.pop("single")
+    rows = []
+    for key, spec, row, replaces in (
+            ("tree", SolveSpec.tree(f["tree"]["sources"]),
+             "edge_relax_batch", "edge_relax.py:188"),
+            ("p2p", SolveSpec.p2p([s for s, _ in f["p2p"]["pairs"]],
+                                  [t for _, t in f["p2p"]["pairs"]]),
+             "edge_relax_batch[alt]", "edge_relax.py:158")):
+        args, kw = mid_batch_call(solver, spec, f[key]["launches"])
+        m = batch_numbers(args, kw, f"{key} at the batched solve's middle "
+                                    "call")
+        log(f"[{row}] {name} at the middle call of the batched {key} "
+            f"spec: " + json.dumps(m))
+        rows.append({
+            "name": row, "route": "cuda",
+            "source": "src/repro_torch/kernels/edge_relax/csrc/"
+                      "edge_relax.cu",
+            "replaces": f"src/repro/kernels/edge_relax/{replaces}",
+            "launches": f[key]["launches"],
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": "bytes", "library_ms": m["library_ms"],
+            "eager_ms": m["eager_ms"], "singles_ms": m["singles_ms"],
+            "singles_eager_ms": m["singles_eager_ms"],
+            "bound_ms_singles": m["bound_ms_singles"], "slots": m["slots"],
+            "active": m["active"], "launches_per_solve": {
+                name: f[key]["launches"]}})
+    return rows, f
 
 
 # ---------------------------------------------------------------------------
@@ -3003,6 +3588,8 @@ def report(graphs, device):
         f"{partials_alt_vs_plain(results, v1q, device)} shard calls bitwise "
         "equal")
     mark("v1 queries")
+    facade_rows, facade = facade_phase(results, p2p, device)
+    mark("phase 3c (facade)")
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -3158,8 +3745,8 @@ def report(graphs, device):
         "goals": p2p["goals"],
         "v1_queries": {n: dict(queries=v1q[n]["queries"],
                                pruned=v1q[n]["pruned"]) for n in results},
-        "v1_goals": v1q["goals"]}
-    return kernels, solves
+        "v1_goals": v1q["goals"], "facade": facade}
+    return kernels + facade_rows, solves
 
 
 if __name__ == "__main__":

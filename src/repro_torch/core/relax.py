@@ -5,6 +5,14 @@ l.8-17).  A backend is ``relax_window(layout, dist, parent, frontier, lb,
 ub) -> (new_dist, new_parent, RoundMetrics)`` plus a ``prepare(graph,
 **opts)`` that builds its layout once; the registry selects them by name.
 
+``relax_window`` also takes a leading slot axis (``sssp_batch``): ``dist``,
+``parent``, ``frontier`` ``[S, n]``, ``lb``/``ub`` ``[S]`` (ALT:
+``alt_lb`` ``[S, n]``, ``prune_bound`` ``[S]``) and ``active=`` a
+:class:`Slots` naming the slots to relax.  Each active slot's row comes
+out as the one-state call on that row gives it, bit for bit; the other
+rows come out unchanged, with zero counters, and the ``RoundMetrics``
+fields are ``[S]``.
+
 ``segment_min``
     The dense flat edge list: a masked ``scatter_reduce`` min over all
     edges, then a min-source-id winner pass.  Plain torch ops.
@@ -56,8 +64,19 @@ class RoundMetrics(NamedTuple):
 
 def count(mask: torch.Tensor) -> torch.Tensor:
     """Number of set entries as an int32 0-d tensor (the reference's
-    counter width; ``torch.sum`` alone would give int64)."""
+    counter width; ``torch.sum`` alone would give int64); of a ``[S, n]``
+    mask, an ``[S]`` count per row."""
+    if mask.dim() == 2:
+        return mask.sum(dim=1).to(torch.int32)
     return mask.sum().to(torch.int32)
+
+
+class Slots(NamedTuple):
+    """The slots of a batched call to relax: ``mask`` bool ``[S]`` and
+    ``ids`` int32 ``[A]`` (the set slots, ascending), both on the state's
+    device."""
+    mask: torch.Tensor
+    ids: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +270,10 @@ def _segment_min_prepare(g: DeviceGraph, **_opts) -> DeviceGraph:
 
 
 def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub,
-                       alt_lb=None, prune_bound=None):
+                       alt_lb=None, prune_bound=None, active=None):
+    if dist.dim() == 2:
+        return _segment_min_relax_slots(g, dist, parent, frontier, lb, ub,
+                                        alt_lb, prune_bound, active)
     paths = leaf_pruned(frontier, dist, g.deg)
     cand, in_window, active = edge_candidates(
         dist[g.src], paths[g.src], parent[g.src], g.dst, g.w, lb, ub)
@@ -264,6 +286,36 @@ def _segment_min_relax(g: DeviceGraph, dist, parent, frontier, lb, ub,
     new_dist, new_parent, improved = apply_updates(dist, parent, best,
                                                    winner)
     zero = torch.zeros((), dtype=torch.float32, device=dist.device)
+    rm = RoundMetrics(
+        improved=improved, n_trav=count(in_window), n_relax=count(active),
+        n_updates=count(improved), n_extended=count(improved & (g.deg > 1)),
+        n_pruned=n_pruned, n_tiles_scanned=zero, n_tiles_dense=zero,
+        n_invocations=zero)
+    return new_dist, new_parent, rm
+
+
+def _segment_min_relax_slots(g: DeviceGraph, dist, parent, frontier, lb,
+                             ub, alt_lb, prune_bound, slots: Slots):
+    """The slot-axis round: one scatter over the flattened ``[S * n]``
+    destinations, the same f32 sums and comparisons per slot."""
+    n_slots, n = dist.shape
+    paths = leaf_pruned(frontier, dist, g.deg) & slots.mask[:, None]
+    cand, in_window, active = edge_candidates(
+        dist[:, g.src], paths[:, g.src], parent[:, g.src], g.dst, g.w,
+        lb[:, None], ub[:, None])
+    n_pruned = torch.zeros(n_slots, dtype=torch.int32, device=dist.device)
+    if alt_lb is not None:
+        active, pruned = alt_prune(cand, active, alt_lb[:, g.dst],
+                                   prune_bound[:, None])
+        cand = torch.where(active, cand, INF)
+        n_pruned = count(pruned)
+    base = torch.arange(n_slots, device=dist.device)[:, None] * n
+    best, winner = segment_min_with_winner(
+        cand.reshape(-1), active.reshape(-1), g.src.expand(n_slots, -1)
+        .reshape(-1), (g.dst + base).reshape(-1), n_slots * n)
+    new_dist, new_parent, improved = apply_updates(
+        dist, parent, best.reshape(n_slots, n), winner.reshape(n_slots, n))
+    zero = torch.zeros(n_slots, dtype=torch.float32, device=dist.device)
     rm = RoundMetrics(
         improved=improved, n_trav=count(in_window), n_relax=count(active),
         n_updates=count(improved), n_extended=count(improved & (g.deg > 1)),
@@ -286,13 +338,19 @@ def _blocked_prepare(g, **opts) -> BlockedGraph:
 
 
 def _pad(x, n_out, value):
-    pad = n_out - x.shape[0]
-    return torch.cat([x, torch.full((pad,), value, dtype=x.dtype,
-                                    device=x.device)]) if pad else x
+    """``x`` (``[n]`` or ``[S, n]``) padded with ``value`` to ``n_out``
+    entries along its last axis."""
+    pad = n_out - x.shape[-1]
+    return torch.cat([x, torch.full((*x.shape[:-1], pad), value,
+                                    dtype=x.dtype, device=x.device)],
+                     dim=-1) if pad else x
 
 
 def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub,
-                   alt_lb=None, prune_bound=None):
+                   alt_lb=None, prune_bound=None, active=None):
+    if dist.dim() == 2:
+        return _blocked_relax_slots(bg, dist, parent, frontier, lb, ub,
+                                    alt_lb, prune_bound, active)
     dist_p = _pad(dist, bg.n_out, INF)
     parent_p = _pad(parent, bg.n_out, -1)
     frontier_p = _pad(frontier, bg.n_out, False)
@@ -325,6 +383,37 @@ def _blocked_relax(bg: BlockedGraph, dist, parent, frontier, lb, ub,
         n_invocations=torch.ones((), dtype=torch.float32,
                                  device=dist.device))
     return new_dist[:n], new_parent[:n], rm
+
+
+def _blocked_relax_slots(bg: BlockedGraph, dist, parent, frontier, lb, ub,
+                         alt_lb, prune_bound, slots: Slots):
+    """The slot-axis round: one batched call of the kernel over the
+    active slots (:func:`relax_bucket` with ``active=``); the rows of the
+    other slots of its output are not read."""
+    n_slots, n = dist.shape
+    dist_p = _pad(dist, bg.n_out, INF)
+    parent_p = _pad(parent, bg.n_out, -1)
+    paths = leaf_pruned(_pad(frontier, bg.n_out, False), dist_p, bg.deg)
+    alt_p = None if alt_lb is None else _pad(alt_lb, bg.n_out, INF)
+    best, winner, cnt = relax_bucket(
+        dist_p, paths, parent_p, bg.src, bg.dst, bg.w, bg.tile_first, lb,
+        ub, alt_p, prune_bound, tile_e=bg.tile_e, n_out=bg.n_out,
+        index=bg.index, active=slots.ids)
+    on = slots.mask[:, None]
+    improved = (best < dist_p) & on
+    new_dist = torch.where(improved, best, dist_p)
+    new_parent = torch.where(improved, winner, parent_p)
+    improved = improved[:, :n]
+    cnt = torch.where(on, cnt, 0)
+    n_trav, n_relax, n_tiles, n_pruned = cnt.unbind(dim=1)
+    one = slots.mask.to(torch.float32)
+    rm = RoundMetrics(
+        improved=improved, n_trav=n_trav, n_relax=n_relax,
+        n_updates=count(improved),
+        n_extended=count(improved & (bg.deg[:n] > 1)), n_pruned=n_pruned,
+        n_tiles_scanned=n_tiles.to(torch.float32),
+        n_tiles_dense=one * float(bg.dense_grid_tiles), n_invocations=one)
+    return new_dist[:, :n], new_parent[:, :n], rm
 
 
 BLOCKED_PALLAS = register_backend(RelaxBackend(

@@ -1,7 +1,9 @@
 """The heuristic SSSP algorithm (paper §3.3, Algorithm 2 + Function 1/2),
-single device, static policy (port of ``repro.core.sssp``): the full tree,
-the early-exit goals (p2p, bounded, knear) and ALT-pruned p2p queries,
-unidirectional or bidirectional.
+single device (port of ``repro.core.sssp``): the full tree, the
+early-exit goals (p2p, bounded, knear) and ALT-pruned p2p queries,
+unidirectional or bidirectional, under the static or the adaptive
+stepping policy, one source at a time (:func:`sssp`) or a batch of
+sources in one loop (:func:`sssp_batch`).
 
 The reference flattens the solve into one ``lax.while_loop`` on the
 device.  Here the loop is Python and the state stays in device tensors
@@ -22,20 +24,28 @@ pull phase) is computed and selected with ``torch.where``, never
 branched on.  The goal test runs on the device and is ORed into ``done``
 at each transition, so a query reads nothing more than a tree solve.
 ``n_host_syncs`` counts the reads.
+
+Options come as an :class:`~repro_torch.core.config.EngineConfig`
+(``config=``) or as the loose keywords the reference takes, never both
+(:meth:`EngineConfig.from_loose`).
 """
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import relax, stats, stepping, traversal
-from .graph import DEFAULT_ALPHA, DEFAULT_BETA, DeviceGraph, HostGraph, \
-    degree_bucket
+from .config import (P2P_MODES, ConfigError, EngineConfig,
+                     FacadeDeprecationWarning, as_resolved, resolve_devices)
+from .graph import DeviceGraph, HostGraph, degree_bucket
 from .relax import INF, INT_MAX, count
 
-__all__ = ["sssp", "prepare_layout", "SsspMetrics", "LOGICAL_METRIC_FIELDS",
+__all__ = ["sssp", "sssp_batch", "sssp_p2p", "sssp_bounded", "sssp_knear",
+           "prepare_layout", "SsspMetrics", "LOGICAL_METRIC_FIELDS",
            "PHYSICAL_METRIC_FIELDS", "metrics_dict", "normalized_metrics",
            "GOALS", "P2P_MODES", "goal_param_array", "INF", "INT_MAX"]
 
@@ -47,7 +57,6 @@ __all__ = ["sssp", "prepare_layout", "SsspMetrics", "LOGICAL_METRIC_FIELDS",
 #   "bounded" stop once lb > D: every vertex with dist <= D is settled;
 #   "knear"   stop once k + 1 vertices (the source and its k nearest) are.
 GOALS = ("tree", "p2p", "bounded", "knear")
-P2P_MODES = ("unidirectional", "bidirectional")
 
 
 def goal_param_array(goal: str, params) -> torch.Tensor:
@@ -144,16 +153,22 @@ class _Consts(NamedTuple):
 
 
 def _relax_round(backend: relax.RelaxBackend, layout, st_: SsspState,
-                 alt_lb=None, prune_bound=None) -> SsspState:
+                 alt_lb=None, prune_bound=None, slots=None) -> SsspState:
     """One synchronized round of push-model edge relaxations; with
     ``alt_lb``/``prune_bound`` (ALT p2p) the backend cuts candidates that
-    cannot improve the target (:func:`relax.alt_prune`)."""
+    cannot improve the target (:func:`relax.alt_prune`).  On a stacked
+    ``[S, n]`` state, ``slots`` (a :class:`relax.Slots`) names the slots
+    relaxed, all in one backend call."""
     extra = () if alt_lb is None else (alt_lb, prune_bound)
+    kw = {} if slots is None else dict(active=slots)
     new_dist, new_parent, rm = backend.relax_window(
-        layout, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub, *extra)
+        layout, st_.dist, st_.parent, st_.frontier, st_.lb, st_.ub, *extra,
+        **kw)
     m = st_.metrics
+    live = st_.frontier.any() if slots is None \
+        else st_.frontier.any(dim=1) & slots.mask
     metrics = m._replace(
-        n_rounds=m.n_rounds + st_.frontier.any().to(torch.int32),
+        n_rounds=m.n_rounds + live.to(torch.int32),
         n_extended=m.n_extended + rm.n_extended,
         n_trav=m.n_trav + rm.n_trav,
         n_relax=m.n_relax + rm.n_relax,
@@ -198,9 +213,10 @@ def _fused_relax_rounds(bg, st_: SsspState, fused_rounds: int, alt_lb=None,
 def _bootstrap_ub(g: DeviceGraph, st_: SsspState,
                   high_d0: torch.Tensor) -> SsspState:
     """Algo 2 l.18-20: during the first step, tighten ub to the shortest
-    known path linking s to a vertex of degree >= highD(0)."""
+    known path linking s to a vertex of degree >= highD(0) (per slot of
+    a stacked ``[S, n]`` state)."""
     mask = (g.deg.to(torch.float32) >= high_d0) & (st_.dist > 0)
-    cand = torch.where(mask, st_.dist, INF).min()
+    cand = torch.where(mask, st_.dist, INF).amin(dim=-1)
     ub = torch.where(st_.lb <= 0.0, torch.minimum(st_.ub, cand), st_.ub)
     return st_._replace(ub=ub)
 
@@ -251,9 +267,9 @@ def _pull_phase(g: DeviceGraph, dist, parent, st, lb, ub, metrics,
 def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
                 min_pending=_min_pending, pull_phase=_pull_phase,
                 goal: str = "tree", goal_param=None, alt_lb=None,
-                bound_of=None) -> SsspState:
+                bound_of=None, ps: stepping.PolicyState = None):
     """Step transition (Algo 2 l.22 + Function 1/2 + fast-forward and
-    termination), static policy.
+    termination).
 
     ``min_pending(g, dist, ub)`` and ``pull_phase(g, dist, parent, st,
     lb, ub, metrics)`` are the two places that read edges; the sharded
@@ -262,7 +278,13 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
     ``g.n_edges2`` and the state.  ``goal``/``goal_param`` end the solve
     once the goal settles; ``alt_lb`` with ``bound_of(dist)`` (the prune
     bound at this dist) cuts pending candidates and pull requests that
-    cannot improve the p2p target."""
+    cannot improve the p2p target.
+
+    With the adaptive policy, ``ps`` carries the
+    :class:`~repro_torch.core.stepping.PolicyState`: the transition first
+    folds the counters observed since the previous step into it, then
+    sizes the next window from the adapted parameters, and returns
+    ``(state, ps)``; with ``ps`` None (static) it returns the state."""
     dist, parent = st_.dist, st_.parent
     lb, ub = st_.lb, st_.ub
     alt = () if alt_lb is None else (alt_lb, bound_of(dist))
@@ -271,18 +293,24 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
     min_pending = min_pending(g, dist, ub, *alt)
     done = ~torch.isfinite(min_pending)
 
+    params, mult = c.params, None
+    if ps is not None:
+        m = st_.metrics
+        ps = stepping.adaptive_update(ps, m.n_rounds, m.n_relax,
+                                      m.n_updates)
+        params, mult = stepping.effective_params(ps), ps.mult
     st_next = traversal.compute_st(dist, g.deg, g.rtow, g.n_edges2, lb, ub,
-                                   c.params, bucket=c.bucket,
-                                   unit_grid=c.unit_grid)
+                                   params, bucket=c.bucket,
+                                   unit_grid=c.unit_grid, mult=mult)
     lb2 = ub
-    gap2 = stepping.gap(dist, g.deg, g.rtow, g.n_edges2, lb2, c.params,
-                        c.bucket)
+    gap2 = stepping.gap(dist, g.deg, g.rtow, g.n_edges2, lb2, params,
+                        c.bucket, mult)
     ub2 = lb2 + gap2
     # empty-window fast-forward (exact: no shortest path in the skip)
     ffwd = (min_pending >= ub2) & ~done
     lb2 = torch.where(ffwd, min_pending, lb2)
-    gap3 = stepping.gap(dist, g.deg, g.rtow, g.n_edges2, lb2, c.params,
-                        c.bucket)
+    gap3 = stepping.gap(dist, g.deg, g.rtow, g.n_edges2, lb2, params,
+                        c.bucket, mult)
     ub2 = torch.where(ffwd, lb2 + gap3, ub2)
     st_next = torch.minimum(st_next, lb2)
 
@@ -302,9 +330,10 @@ def _transition(g: DeviceGraph, st_: SsspState, c: _Consts,
     frontier = frontier & ~done
     metrics = metrics._replace(
         n_steps=metrics.n_steps + (~done).to(torch.int32))
-    return st_._replace(dist=dist, parent=parent, frontier=frontier,
-                        lb=lb2, ub=ub2, st=st_next, done=done,
-                        metrics=metrics)
+    out = st_._replace(dist=dist, parent=parent, frontier=frontier,
+                       lb=lb2, ub=ub2, st=st_next, done=done,
+                       metrics=metrics)
+    return out if ps is None else (out, ps)
 
 
 def _consts(deg: torch.Tensor, alpha: float, beta: float) -> _Consts:
@@ -361,14 +390,31 @@ def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
     return s.dist, s.parent, metrics
 
 
+def _policy_transition(policy: str, params, device, transition):
+    """The loop's transition: ``transition(s)`` itself (static), or, for
+    the adaptive policy, ``transition(s, ps=...)`` with the
+    :class:`~repro_torch.core.stepping.PolicyState` kept between
+    calls."""
+    if policy == "static":
+        return transition
+    ps = [stepping.policy_init(params, device)]
+
+    def adaptive(s):
+        s, ps[0] = transition(s, ps=ps[0])
+        return s
+    return adaptive
+
+
 def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
          max_iters: int, alpha: float, beta: float, fused_rounds: int = 0,
-         goal: str = "tree", goal_param=None, alt=None):
+         goal: str = "tree", goal_param=None, alt=None,
+         policy: str = "static"):
     """One SSSP computation; returns ``(dist, parent, metrics)``.
     ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
     kernel, up to that many rounds per call.  ``goal_param`` is a 0-d
     device tensor; ``alt`` (an :class:`relax.AltData`, p2p only) prunes
-    with the landmark bounds toward the target."""
+    with the landmark bounds toward the target; ``policy`` is
+    ``"static"`` or ``"adaptive"``."""
     c = _consts(g.deg, alpha, beta)
     s = _initial_state(g.n, source, g.device)
     alt_lb = bound_of = None
@@ -392,11 +438,11 @@ def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
     else:
         relax_step = lambda s: _relax_round(backend, layout, s, alt_lb,
                                             bound_of(s.dist))
-    return _solve_loop(g, s, c, relax_step,
-                       lambda s: _transition(g, s, c, goal=goal,
-                                             goal_param=goal_param,
-                                             alt_lb=alt_lb,
-                                             bound_of=bound_of), max_iters)
+    return _solve_loop(g, s, c, relax_step, _policy_transition(
+        policy, c.params, g.device,
+        lambda s, **ps: _transition(g, s, c, goal=goal,
+                                    goal_param=goal_param, alt_lb=alt_lb,
+                                    bound_of=bound_of, **ps)), max_iters)
 
 
 def _pick(fwd: torch.Tensor, a: SsspState, b: SsspState) -> SsspState:
@@ -517,81 +563,369 @@ def prepare_layout(g, backend="segment_min", *, device=None,
     return relax.get_backend(backend).prepare(g, **backend_opts)
 
 
-_LATER = {
-    "policy": "the adaptive-policy slice",
-    "trace": "the observability slice",
-    "config": "the config slice (core/config.py)",
-}
+_CONFIG_FIELDS = frozenset(f.name for f in dataclasses.fields(EngineConfig))
 
 
-def sssp(g, source, *, backend="segment_min", layout=None,
-         max_iters=1_000_000, alpha=DEFAULT_ALPHA, beta=DEFAULT_BETA,
-         device=None, goal="tree", goal_param=None, fused_rounds=0,
-         policy="static", trace=False, landmarks=None,
-         p2p_mode="unidirectional", config=None, **layout_opts):
+def _engine_args(g, config, landmarks, loose: dict):
+    """The resolved engine of one call, from ``config`` or from the loose
+    keywords, never both (:meth:`EngineConfig.from_loose` is the gate).
+    The loose keywords are the reference's: the engine knobs and any
+    other :class:`EngineConfig` field, except ``use_kernel``, which the
+    port has no use for (``TypeError``).  Explicit ``landmarks`` are ALT
+    data: a loose config that passes them gets ``use_alt=True``.  Per-round
+    tracing raises ``NotImplementedError``."""
+    unknown = sorted(set(loose) - (_CONFIG_FIELDS - {"use_kernel"}))
+    if unknown:
+        raise TypeError(f"unknown engine options {unknown}")
+    if config is None and loose.get("p2p_mode") == "bidirectional" \
+            and landmarks is None and not loose.get("use_alt"):
+        raise ConfigError("p2p_mode='bidirectional' needs a landmark set "
+                          "(use_alt=True / landmarks=...)")
+    config = EngineConfig.from_loose(
+        config, "engine",
+        defaults=None if landmarks is None else {"use_alt": True}, **loose)
+    r = as_resolved(config, n=g.n, m=g.m).require("single")
+    if r.trace:
+        raise NotImplementedError(
+            "trace=True (per-round solve traces) is not ported yet; it "
+            "comes with the observability slice (ROADMAP queue 1 item 7)")
+    return r
+
+
+def _check_layout_given_once(layout, loose: dict) -> None:
+    if layout is not None and {"block_v", "tile_e"} & set(loose):
+        raise ValueError("pass either layout= or layout options, not both")
+
+
+def _solve_device(device, r) -> torch.device:
+    """``device``, else the config's first pinned device, else ``cuda``."""
+    if device is None and r.devices is not None:
+        device = resolve_devices(r.devices)[0]
+    return resolve_device(device)
+
+
+def _prepare(g, r, device, sources, layout, landmarks, goal):
+    """The common set-up of :func:`sssp` and :func:`sssp_batch`: the
+    graph and the layout on the device, the sources checked, and the ALT
+    data of a p2p solve (explicit ``landmarks`` win; a ``use_alt`` config
+    without them builds a set with this solve's backend and layout)."""
+    be = relax.get_backend(r.backend)
+    dev = _solve_device(device, r)
+    g = _on_device(g, dev)
+    bad = [s for s in sources if not 0 <= int(s) < g.n]
+    if bad:
+        raise ValueError(f"source(s) {bad} out of range for n={g.n}")
+    if layout is None:
+        layout = be.prepare(g, **r.layout_opts())
+    alt = None
+    if goal == "p2p":
+        if landmarks is None and r.use_alt:
+            from .landmarks import build_landmarks
+            landmarks = build_landmarks(
+                g, r.n_landmarks, r.landmark_strategy, device=dev,
+                backend=be, fused_rounds=r.fused_rounds, layout=layout)
+        if landmarks is not None:
+            alt = relax.AltData(*(t.to(dev) for t in
+                                  getattr(landmarks, "alt_data", landmarks)))
+        if r.p2p_mode == "bidirectional":
+            if alt is None:
+                raise ConfigError("p2p_mode='bidirectional' needs a landmark "
+                                  "set (use_alt=True / landmarks=...)")
+            if r.policy != "static":
+                raise ConfigError("p2p_mode='bidirectional' supports only "
+                                  "policy='static' without tracing")
+    return be, g, layout, alt
+
+
+def sssp(g, source, *, backend=None, layout=None, max_iters=None,
+         alpha=None, beta=None, fused_rounds=None, policy=None,
+         goal: str = "tree", goal_param=None, config=None, landmarks=None,
+         device=None, **backend_opts):
     """Run the heuristic SSSP algorithm from ``source``.
 
-    ``g`` is a :class:`HostGraph` (moved to ``device``) or a
-    :class:`DeviceGraph` already there.  ``device`` defaults to ``cuda``
-    and must be given as ``"cpu"`` to run without a card.  ``backend``
-    is ``"segment_min"`` or ``"blocked"``; ``layout_opts`` (``block_v``,
-    ``tile_e``; any other keyword raises ``TypeError``) shape the blocked
-    layout, or pass a prebuilt ``layout``.  ``fused_rounds > 0`` (blocked
-    backend only) runs up to that many rounds per call of the fused
-    kernel, with the same result.  ``goal``/``goal_param`` select an
+    The single-device engine entry point; prefer the
+    :class:`repro_torch.api.Solver` facade, which owns the layout and the
+    landmarks.  ``g`` is a :class:`HostGraph` (moved to ``device``) or a
+    :class:`DeviceGraph` already there.  ``device`` defaults to the
+    config's pinned device, else ``cuda``; pass ``"cpu"`` to run without
+    a card.  ``config`` (an :class:`EngineConfig` or a resolved one)
+    replaces the loose keywords: ``backend`` (``"segment_min"`` or
+    ``"blocked"``), ``alpha``/``beta``/``max_iters``, ``policy``
+    (``"static"``/``"adaptive"``), ``fused_rounds`` (blocked only: up to
+    that many rounds per call of the fused kernel) and the other config
+    fields (``block_v``, ``tile_e``, ``p2p_mode``, ``use_alt``, ...); any
+    other keyword raises ``TypeError``.  Pass a prebuilt ``layout`` to
+    amortize the layout build.  ``goal``/``goal_param`` select an
     early-exit query (:data:`GOALS`).  ``landmarks`` (a
     :class:`~repro_torch.core.landmarks.LandmarkSet` or a raw
     :class:`~repro_torch.core.relax.AltData`) prunes p2p queries exactly
-    and is ignored by the other goals; ``p2p_mode="bidirectional"`` (which
-    needs landmarks) runs the meet-in-the-middle p2p solve, standing in
-    for the reference's ``EngineConfig.p2p_mode``.  Returns ``(dist,
-    parent, metrics)`` as device tensors.
-
-    The adaptive policy, tracing and ``config=`` belong to later slices of
-    the port and raise ``NotImplementedError``.
+    and is ignored by the other goals; ``use_alt=True`` without it
+    builds a set for the call; ``p2p_mode="bidirectional"`` (which needs
+    landmarks) runs the meet-in-the-middle p2p solve.  Returns ``(dist,
+    parent, metrics)`` as device tensors.  ``trace=True`` belongs to a
+    later slice and raises ``NotImplementedError``.
     """
-    _check_layout_opts(layout_opts)
-    asked = {"policy": policy != "static", "trace": bool(trace),
-             "config": config is not None}
-    for name, on in asked.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet; it comes "
-                                      f"with {_LATER[name]}")
-    be = relax.get_backend(backend)
-    fused_rounds = int(fused_rounds)
-    if fused_rounds < 0:
-        raise ValueError(f"fused_rounds must be >= 0, got {fused_rounds}")
-    if fused_rounds and be is not relax.BLOCKED_PALLAS:
-        raise ValueError(f"fused_rounds needs the blocked backend, not "
-                         f"{be.name!r} (set backend='blocked', or drop "
-                         "fused_rounds)")
-    if p2p_mode not in P2P_MODES:
-        raise ValueError(f"unknown p2p_mode {p2p_mode!r}; expected one of "
-                         f"{P2P_MODES}")
+    loose = dict(backend_opts, backend=backend, max_iters=max_iters,
+                 alpha=alpha, beta=beta, fused_rounds=fused_rounds,
+                 policy=policy)
+    loose = {k: v for k, v in loose.items() if v is not None}
+    r = _engine_args(g, config, landmarks, loose)
+    _check_layout_given_once(layout, loose)
     gp_host = goal_param_array(goal, goal_param)
-    alt = getattr(landmarks, "alt_data", landmarks) if goal == "p2p" \
-        else None
-    bidi = goal == "p2p" and p2p_mode == "bidirectional"
-    if bidi and alt is None:
-        raise ValueError("p2p_mode='bidirectional' needs a landmark set "
-                         "(landmarks=...)")
-    dev = resolve_device(device)
-    g = _on_device(g, dev)
-    if not 0 <= int(source) < g.n:
-        raise ValueError(f"source {source} out of range for n={g.n}")
+    if gp_host.dim() != 0:
+        raise ValueError(f"goal_param of one solve must be a scalar, got "
+                         f"shape {tuple(gp_host.shape)}")
     _check_goal_bounds(goal, gp_host, g.n)
-    if alt is not None:
-        alt = relax.AltData(*(t.to(dev) for t in alt))
-    if layout is None:
-        layout = be.prepare(g, **layout_opts)
-    elif layout_opts:
-        raise ValueError("pass either layout= or layout options, not both")
-    if bidi:
+    be, g, layout, alt = _prepare(g, r, device, [source], layout, landmarks,
+                                  goal)
+    if goal == "p2p" and r.p2p_mode == "bidirectional":
         return _run_bidi(g, layout, int(source), int(gp_host), be,
-                         max_iters, float(alpha), float(beta), fused_rounds,
-                         alt)
-    return _run(g, layout, int(source), be, max_iters, float(alpha),
-                float(beta), fused_rounds, goal, gp_host.to(dev), alt)
+                         r.max_iters, float(r.alpha), float(r.beta),
+                         r.fused_rounds, alt)
+    return _run(g, layout, int(source), be, r.max_iters, float(r.alpha),
+                float(r.beta), r.fused_rounds, goal, gp_host.to(g.device),
+                alt, r.policy)
+
+
+def _shim(name: str, replacement: str) -> None:
+    warnings.warn(
+        f"{name} is deprecated: open a solver session instead — "
+        f"`repro_torch.api.Solver.open(g).solve({replacement})` (one "
+        f"facade for every goal kind and backend)",
+        FacadeDeprecationWarning, stacklevel=3)
+
+
+def sssp_p2p(g, source, target, **kw):
+    """Deprecated shim over the p2p goal (see :mod:`repro_torch.api`):
+    ``dist[target]`` and its parent chain equal the full tree's."""
+    _shim("sssp_p2p", "SolveSpec.p2p(source, target)")
+    return sssp(g, source, goal="p2p", goal_param=target, **kw)
+
+
+def sssp_bounded(g, source, bound, **kw):
+    """Deprecated shim over the distance-bounded goal: every vertex with
+    ``dist <= bound`` is settled (entries above it are tentative)."""
+    _shim("sssp_bounded", "SolveSpec.bounded(source, bound)")
+    return sssp(g, source, goal="bounded", goal_param=bound, **kw)
+
+
+def sssp_knear(g, source, k, **kw):
+    """Deprecated shim over the k-nearest goal: the source and its ``k``
+    nearest vertices are settled (the rest tentative)."""
+    _shim("sssp_knear", "SolveSpec.knear(source, k)")
+    return sssp(g, source, goal="knear", goal_param=k, **kw)
+
+
+# ---------------------------------------------------------------------------
+# batched solves: a slot axis on the state
+# ---------------------------------------------------------------------------
+
+def _row(s: SsspState, i: int) -> SsspState:
+    """Slot ``i`` of a stacked state, as views."""
+    return SsspState(*(SsspMetrics(*(m[i] for m in x))
+                       if isinstance(x, SsspMetrics) else x[i] for x in s))
+
+
+def _set_row(s: SsspState, i: int, row: SsspState) -> None:
+    """Write ``row`` into slot ``i`` of the stacked state, in place."""
+    for x, y in zip(s, row):
+        for a, b in (zip(x, y) if isinstance(x, SsspMetrics) else [(x, y)]):
+            if a[i].data_ptr() != b.data_ptr():   # not already that row
+                a[i] = b
+
+
+def _clone(s: SsspState) -> SsspState:
+    return SsspState(*(SsspMetrics(*(m.clone() for m in x))
+                       if isinstance(x, SsspMetrics) else x.clone()
+                       for x in s))
+
+
+def _initial_states(n: int, sources: list, dev) -> SsspState:
+    """The stacked ``[S, n]`` initial state of :func:`_initial_state`."""
+    n_slots = len(sources)
+    rows = torch.arange(n_slots, device=dev)
+    src = torch.tensor(sources, dtype=torch.int64).to(dev)
+    dist0 = torch.full((n_slots, n), INF, dtype=torch.float32, device=dev)
+    dist0[rows, src] = 0.0
+    parent0 = torch.full((n_slots, n), -1, dtype=torch.int32, device=dev)
+    parent0[rows, src] = src.to(torch.int32)
+    frontier0 = torch.zeros(n_slots, n, dtype=torch.bool, device=dev)
+    frontier0[rows, src] = True
+    zero = lambda dtype: torch.zeros(n_slots, dtype=dtype, device=dev)
+    metrics0 = SsspMetrics(**{
+        name: zero(torch.float32 if name in PHYSICAL_METRIC_FIELDS
+                   else torch.int32) for name in SsspMetrics._fields})
+    metrics0 = metrics0._replace(n_extended=metrics0.n_extended + 1)
+    return SsspState(dist=dist0, parent=parent0, frontier=frontier0,
+                     lb=zero(torch.float32),
+                     ub=torch.full((n_slots,), INF, device=dev),
+                     st=zero(torch.float32), done=zero(torch.bool),
+                     metrics=metrics0)
+
+
+def _slots(active: list, n_slots: int, dev) -> relax.Slots:
+    """The :class:`relax.Slots` of the host list ``active``; the copy to
+    the device does not wait for the stream."""
+    ids = torch.tensor(active, dtype=torch.int32).to(dev, non_blocking=True)
+    mask = torch.zeros(n_slots, dtype=torch.bool, device=dev)
+    return relax.Slots(mask=mask.index_fill_(0, ids.long(), True), ids=ids)
+
+
+def _run_batch(g: DeviceGraph, layout, sources: list, backend, max_iters,
+               alpha: float, beta: float, fused_rounds: int, goal: str, gp,
+               alt, policy: str):
+    """``len(sources)`` solves in one loop over a stacked ``[S, n]`` state.
+
+    Each iteration relaxes every slot still running in one backend call
+    (one batched launch of the one-round kernel on ``blocked``; with
+    ``fused_rounds > 0`` one call of the fused kernel per slot), runs the
+    bootstrap tightening on all of them, reads one ``[2, S]`` tensor
+    (done, any frontier), and then runs the step transition of each slot
+    whose frontier emptied, on its own row.  A slot whose previous
+    transition finished it drops this iteration's round, as the one-slot
+    loop does, and leaves the batch; so every slot's dist, parent and
+    logical counters are its single solve's, bit for bit.  ``gp`` holds
+    the per-slot goal parameters ``[S]`` on the device."""
+    n_slots, dev = len(sources), g.device
+    c = _consts(g.deg, alpha, beta)
+    s = _initial_states(g.n, sources, dev)
+    ps = stepping.policy_init(c.params, dev, (n_slots,)) \
+        if policy == "adaptive" else None
+    alt_lb = bound_of = None
+    slot_alt = lambda i: {}
+    if alt is not None:
+        tgt = gp
+        infl = 1.0 + 4.0 * alt.delta
+        alt_lb = torch.stack([relax.alt_lower_bounds(alt.D, tgt[i],
+                                                     alt.delta, alt.sym)
+                              for i in range(n_slots)])
+        src_t = torch.tensor(sources, dtype=torch.int32).to(dev)
+        prune_ub = torch.stack([relax.alt_seed_ub(alt.D, src_t[i], tgt[i],
+                                                  infl, alt.sym)
+                                for i in range(n_slots)])
+        bound_of = lambda dist: torch.minimum(
+            prune_ub, dist.gather(1, tgt.long()[:, None])[:, 0] * infl)
+
+        def slot_alt(i):
+            bound = lambda dist: torch.minimum(
+                prune_ub[i], relax.at(dist, tgt[i]) * infl)
+            return dict(alt_lb=alt_lb[i], bound_of=bound,
+                        fused=(alt_lb[i], prune_ub[i], infl, tgt[i]))
+
+    def relax_step(s, active, slots):
+        if fused_rounds <= 0:
+            extra = () if alt is None else (alt_lb, bound_of(s.dist))
+            return _relax_round(backend, layout, s, *extra, slots=slots)
+        out = _clone(s)
+        for i in active:
+            fused_alt = slot_alt(i).get("fused", ())
+            _set_row(out, i, _fused_relax_rounds(layout, _row(s, i),
+                                                 fused_rounds, *fused_alt))
+        return out
+
+    active = list(range(n_slots))
+    slots = _slots(active, n_slots, dev)
+    syncs = [0] * n_slots
+    for _ in range(max_iters):
+        prev = s
+        s = relax_step(s, active, slots)
+        s = _bootstrap_ub(g, s, c.high_d0)
+        done, any_front = torch.stack([s.done, s.frontier.any(dim=1)]
+                                      ).tolist()
+        for i in active:
+            syncs[i] += 1
+        finished = [i for i in active if done[i]]
+        if finished:
+            # the previous transition finished these slots: their round
+            # here ran on an empty frontier and is dropped
+            for i in finished:
+                _set_row(s, i, _row(prev, i))
+            active = [i for i in active if not done[i]]
+            if not active:
+                break
+            slots = _slots(active, n_slots, dev)
+        for i in active:
+            if any_front[i]:
+                continue
+            a = slot_alt(i)
+            kw = dict(goal=goal, goal_param=gp[i],
+                      alt_lb=a.get("alt_lb"), bound_of=a.get("bound_of"))
+            if ps is None:
+                _set_row(s, i, _transition(g, _row(s, i), c, **kw))
+            else:
+                row, ps_i = _transition(g, _row(s, i), c,
+                                        ps=stepping.PolicyState(
+                                            *(x[i] for x in ps)), **kw)
+                # the counter snapshots are views of this slot's metrics:
+                # take them before the row is overwritten
+                for x, y in zip(ps, ps_i):
+                    x[i] = y
+                _set_row(s, i, row)
+    metrics = s.metrics._replace(n_host_syncs=torch.tensor(
+        syncs, dtype=torch.float32).to(dev))
+    return s.dist, s.parent, metrics
+
+
+def sssp_batch(g, sources, *, backend=None, layout=None, max_iters=None,
+               alpha=None, beta=None, fused_rounds=None, policy=None,
+               goal: str = "tree", goal_params=None, config=None,
+               landmarks=None, device=None, **backend_opts):
+    """Batched multi-source SSSP: one solve loop over ``sources``.
+
+    The per-source state (dist/parent/frontier/window) is stacked along
+    a leading slot axis ``[S, n]`` on the device, over one shared layout.
+    Each iteration relaxes all slots still running in one call of the
+    backend: on ``segment_min`` one scatter over the flattened ``[S *
+    n]`` destinations, on ``blocked`` one launch of the ``edge_relax``
+    kernel over the active slots (counted in ``LAUNCHES.edge_relax_batch``
+    or ``edge_relax_batch_alt``).  The loop reads one ``[2, S]`` flag
+    tensor per iteration; each slot whose frontier emptied then runs its
+    step transition on its own row, and a finished slot leaves the batch
+    while the rest keep stepping.  So every slot's ``dist``, ``parent``
+    and logical counters are bitwise those of :func:`sssp` from
+    ``sources[i]`` with ``goal_params[i]`` (and the reference's
+    ``sssp_batch``, whose vmapped loop freezes a finished slot).
+
+    Two cases run slot by slot inside each iteration, with the same
+    per-slot result: with ``fused_rounds > 0`` the fused kernel runs once
+    per active slot, and a bidirectional p2p batch runs each slot's
+    meet-in-the-middle solve in turn.
+
+    All slots share the ``goal`` kind; ``goal_params`` holds one
+    target / bound / k per source.  Options as in :func:`sssp`.  Returns
+    ``(dist, parent, metrics)`` with a leading ``[S]`` axis.
+    """
+    loose = dict(backend_opts, backend=backend, max_iters=max_iters,
+                 alpha=alpha, beta=beta, fused_rounds=fused_rounds,
+                 policy=policy)
+    loose = {k: v for k, v in loose.items() if v is not None}
+    r = _engine_args(g, config, landmarks, loose)
+    _check_layout_given_once(layout, loose)
+    src = np.asarray(sources, np.int64)
+    if src.ndim != 1 or src.size == 0:
+        raise ValueError(f"sources must be a non-empty 1-D sequence, got "
+                         f"shape {src.shape}")
+    if goal == "tree" and goal_params is None:
+        goal_params = [0] * src.shape[0]
+    gp_host = goal_param_array(goal, goal_params)
+    if tuple(gp_host.shape) != src.shape:
+        raise ValueError(f"goal_params shape {tuple(gp_host.shape)} != "
+                         f"sources shape {src.shape}")
+    sources = src.tolist()
+    _check_goal_bounds(goal, gp_host, g.n)
+    be, g, layout, alt = _prepare(g, r, device, sources, layout, landmarks,
+                                  goal)
+    if goal == "p2p" and r.p2p_mode == "bidirectional":
+        outs = [_run_bidi(g, layout, s, int(t), be, r.max_iters,
+                          float(r.alpha), float(r.beta), r.fused_rounds, alt)
+                for s, t in zip(sources, gp_host.tolist())]
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]),
+                SsspMetrics(*(torch.stack(f) for f in
+                              zip(*(o[2] for o in outs)))))
+    return _run_batch(g, layout, sources, be, r.max_iters, float(r.alpha),
+                      float(r.beta), r.fused_rounds, goal,
+                      gp_host.to(g.device), alt, r.policy)
 
 
 def metrics_dict(metrics: SsspMetrics) -> dict:

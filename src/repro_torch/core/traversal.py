@@ -52,15 +52,18 @@ def compute_st(dist: torch.Tensor, deg: torch.Tensor, rtow: torch.Tensor,
                n_edges2: torch.Tensor, lb: torch.Tensor, ub: torch.Tensor,
                params: stepping.SteppingParams = stepping.SteppingParams(),
                st_num: int = ST_NUM, bucket: torch.Tensor = None,
-               unit_grid: torch.Tensor = None) -> torch.Tensor:
+               unit_grid: torch.Tensor = None, mult=None) -> torch.Tensor:
     """Function 2: selection threshold for the *next* pair ``<ub, ub+gap(ub)>``.
 
     ``unit_grid`` is ``st_grid_points(1)`` kept on the device by callers
     in a loop (building it copies from the host, which waits for the
-    stream)."""
+    stream).  ``mult`` is the adaptive policy's window multiplier (None
+    for the static policy)."""
     sd_ub = stats.sum_d(dist, deg, ub)
-    gap_lb = stepping.gap(dist, deg, rtow, n_edges2, lb, params, bucket)
-    gap_ub = stepping.gap(dist, deg, rtow, n_edges2, ub, params, bucket)
+    gap_lb = stepping.gap(dist, deg, rtow, n_edges2, lb, params, bucket,
+                          mult)
+    gap_ub = stepping.gap(dist, deg, rtow, n_edges2, ub, params, bucket,
+                          mult)
     grid = st_grid_points(ub, st_num) if unit_grid is None else unit_grid * ub
     sd_grid = stats.sum_d_grid(dist, deg, grid)
     return compute_st_from_stats(grid, sd_grid, sd_ub, gap_lb, gap_ub,

@@ -55,6 +55,17 @@
 // The key, the index walk and the resident-grid query live in
 // schedule.cuh, which edge_relax_fused.cu shares.
 //
+// Slots (edge_relax_batch_launch): S states relaxed over one shared slab
+// and index in one launch of each kernel, as vmap of the TPU kernel adds
+// a batch grid axis.  `dist`, `paths` and `parent` are [S, n_src], `lb`,
+// `ub` and `prune_bound` [S], `alt_lb`, `vals` and `wins` [S, n_out],
+// `counts` [S, 4], and the scratch holds a row per slot (`flags`
+// [S, n_tiles + 1], `sched` [S, n_tiles], `keys` [S, n_out]).  gridDim.y
+// runs over the int32 list `active` of the slots to relax; a slot not in
+// it is not read and its rows of `vals`, `wins` and `counts` are not
+// written.  The one-state entry points run the same kernels with no list
+// and gridDim.y = 1, which is slot 0.
+//
 // The ALT branch is the template flag kAlt of relax_tiles, chosen by the
 // launcher from a non-null `alt_lb`: an in-window candidate c to
 // destination d enters only if __fadd_rn(c, alt_lb[d]) <= *prune_bound
@@ -79,16 +90,27 @@
 
 namespace {
 
+// The slot this block works on: active[blockIdx.y], or 0 with no list.
+__device__ __forceinline__ int64_t block_slot(const int32_t* active) {
+  return active == nullptr ? 0 : (int64_t)active[blockIdx.y];
+}
+
 __global__ void schedule_frontier(const uint8_t* __restrict__ paths,
                                   int64_t n_src,
                                   const int32_t* __restrict__ vt_ptr,
                                   const int32_t* __restrict__ vt_tile,
                                   const int32_t* __restrict__ forced,
-                                  int64_t n_forced,
+                                  int64_t n_forced, int64_t n_tiles,
+                                  const int32_t* __restrict__ active,
                                   unsigned int* __restrict__ flags,
                                   int32_t* __restrict__ sched,
-                                  int32_t* __restrict__ sched_n,
                                   int32_t* __restrict__ counts) {
+  const int64_t slot = block_slot(active);
+  paths += slot * n_src;
+  flags += slot * (n_tiles + 1);
+  sched += slot * n_tiles;
+  counts += slot * 4;
+  int32_t* sched_n = (int32_t*)(flags + n_tiles);   // the append counter
   const int lane = threadIdx.x & 31;
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -117,12 +139,27 @@ __global__ void relax_tiles(const float* __restrict__ dist,
                             const float* __restrict__ ub_p,
                             const float* __restrict__ alt_lb,
                             const float* __restrict__ bound_p,
-                            const int32_t* __restrict__ sched,
-                            const int32_t* __restrict__ sched_n, int tile_e,
+                            const int32_t* __restrict__ sched, int64_t n_src,
+                            int64_t n_tiles, int64_t n_out, int tile_e,
+                            const int32_t* __restrict__ active,
                             unsigned int* __restrict__ flags,
                             unsigned long long* __restrict__ keys,
                             int32_t* __restrict__ counts) {
-  const int32_t n_sched = *sched_n;
+  const int64_t slot = block_slot(active);
+  dist += slot * n_src;
+  paths += slot * n_src;
+  parent += slot * n_src;
+  lb_p += slot;
+  ub_p += slot;
+  if (kAlt) {
+    alt_lb += slot * n_out;
+    bound_p += slot;
+  }
+  flags += slot * (n_tiles + 1);
+  sched += slot * n_tiles;
+  keys += slot * n_out;
+  counts += slot * 4;
+  const int32_t n_sched = *(const int32_t*)(flags + n_tiles);
   if (blockIdx.x == 0 && threadIdx.x == 0) counts[2] = n_sched;
   // uniform across the block: every thread returns or none does
   if ((int32_t)blockIdx.x >= n_sched) return;
@@ -178,13 +215,21 @@ __global__ void relax_tiles(const float* __restrict__ dist,
 }
 
 // Destinations 2j and 2j+1 per thread (16-byte key loads; the buffers
-// come from the caching allocator, so they are 16-byte aligned).
+// come from the caching allocator, so they are 16-byte aligned, and so is
+// every slot's row when n_out is even; an odd n_out takes the scalar path
+// past slot 0).
 __global__ void unpack(unsigned long long* __restrict__ keys, int64_t n_out,
-                       float* __restrict__ vals, int32_t* __restrict__ wins,
-                       int32_t* __restrict__ sched_n) {
+                       int64_t n_tiles, const int32_t* __restrict__ active,
+                       unsigned int* __restrict__ flags,
+                       float* __restrict__ vals, int32_t* __restrict__ wins) {
+  const int64_t slot = block_slot(active);
+  keys += slot * n_out;
+  vals += slot * n_out;
+  wins += slot * n_out;
   const int64_t j = 2 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x);
-  if (j == 0) *sched_n = 0;
-  if (j + 1 < n_out) {
+  if (j == 0) flags[slot * (n_tiles + 1) + n_tiles] = 0u;  // append counter
+  const bool aligned = slot == 0 || (n_out & 1) == 0;
+  if (j + 1 < n_out && aligned) {
     const ulonglong2 k = *reinterpret_cast<const ulonglong2*>(keys + j);
     *reinterpret_cast<float2*>(vals + j) =
         make_float2(key_val(k.x), key_val(k.y));
@@ -193,11 +238,13 @@ __global__ void unpack(unsigned long long* __restrict__ keys, int64_t n_out,
     if (k.x != kEmptyKey || k.y != kEmptyKey)
       *reinterpret_cast<ulonglong2*>(keys + j) =
           make_ulonglong2(kEmptyKey, kEmptyKey);
-  } else if (j < n_out) {
-    const unsigned long long k = keys[j];
-    vals[j] = key_val(k);
-    wins[j] = key_win(k);
-    if (k != kEmptyKey) keys[j] = kEmptyKey;
+  } else {
+    for (int64_t i = j; i < j + 2 && i < n_out; ++i) {
+      const unsigned long long k = keys[i];
+      vals[i] = key_val(k);
+      wins[i] = key_win(k);
+      if (k != kEmptyKey) keys[i] = kEmptyKey;
+    }
   }
 }
 
@@ -211,41 +258,53 @@ T cap(int64_t want, int64_t most) {
   return (T)(want < most ? (want > 1 ? want : 1) : most);
 }
 
+// A slot's share of a resident grid of `most` blocks (at least one).
+inline int64_t share(int64_t most, int64_t n_active) {
+  return most / n_active > 1 ? most / n_active : 1;
+}
+
 int relax_round(const float* dist, const uint8_t* paths,
                 const int32_t* parent, const int32_t* src, const int32_t* dst,
                 const float* w, const int32_t* vt_ptr, const int32_t* vt_tile,
                 const int32_t* forced, int64_t n_forced, const float* lb,
                 const float* ub, const float* alt_lb,
                 const float* prune_bound, int64_t n_src, int64_t n_tiles,
-                int tile_e, int64_t n_out, unsigned int* flags,
-                int32_t* sched, unsigned long long* keys, float* vals,
-                int32_t* wins, int32_t* counts, cudaStream_t st) {
+                int tile_e, int64_t n_out, const int32_t* active,
+                int64_t n_active, unsigned int* flags, int32_t* sched,
+                unsigned long long* keys, float* vals, int32_t* wins,
+                int32_t* counts, cudaStream_t st) {
   cudaError_t err;
-  int32_t* sched_n = (int32_t*)(flags + n_tiles);   // the append counter
+  if (n_active < 1 || n_active > 65535) return (int)cudaErrorInvalidValue;
   const int threads = tile_threads(tile_e);
   const int64_t items = n_src > n_forced ? n_src : n_forced;
   const int sched_blocks = resident_blocks<schedule_frontier>(256);
   if (sched_blocks == 0) return no_blocks();
-  schedule_frontier<<<cap<unsigned>((items + 255) / 256, sched_blocks), 256,
-                      0, st>>>(paths, n_src, vt_ptr, vt_tile, forced,
-                               n_forced, flags, sched, sched_n, counts);
+  // the resident grid is shared among the slots
+  const dim3 sched_grid(cap<unsigned>((items + 255) / 256,
+                                      share(sched_blocks, n_active)),
+                        (unsigned)n_active);
+  schedule_frontier<<<sched_grid, 256, 0, st>>>(
+      paths, n_src, vt_ptr, vt_tile, forced, n_forced, n_tiles, active,
+      flags, sched, counts);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (alt_lb != nullptr) {
     const int most = resident_blocks<relax_tiles<true>>(threads);
     if (most == 0) return no_blocks();
-    relax_tiles<true><<<cap<unsigned>(n_tiles, most), threads, 0, st>>>(
+    relax_tiles<true><<<dim3(cap<unsigned>(n_tiles, share(most, n_active)),
+                             (unsigned)n_active), threads, 0, st>>>(
         dist, paths, parent, src, dst, w, lb, ub, alt_lb, prune_bound,
-        sched, sched_n, tile_e, flags, keys, counts);
+        sched, n_src, n_tiles, n_out, tile_e, active, flags, keys, counts);
   } else {
     const int most = resident_blocks<relax_tiles<false>>(threads);
     if (most == 0) return no_blocks();
-    relax_tiles<false><<<cap<unsigned>(n_tiles, most), threads, 0, st>>>(
+    relax_tiles<false><<<dim3(cap<unsigned>(n_tiles, share(most, n_active)),
+                              (unsigned)n_active), threads, 0, st>>>(
         dist, paths, parent, src, dst, w, lb, ub, nullptr, nullptr, sched,
-        sched_n, tile_e, flags, keys, counts);
+        n_src, n_tiles, n_out, tile_e, active, flags, keys, counts);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  unpack<<<(unsigned int)((n_out + 511) / 512), 256, 0, st>>>(
-      keys, n_out, vals, wins, sched_n);
+  unpack<<<dim3((unsigned int)((n_out + 511) / 512), (unsigned)n_active),
+           256, 0, st>>>(keys, n_out, n_tiles, active, flags, vals, wins);
   return (int)cudaGetLastError();
 }
 
@@ -267,8 +326,28 @@ extern "C" int edge_relax_launch(
     void* stream) {
   return relax_round(dist, paths, parent, src, dst, w, vt_ptr, vt_tile,
                      forced, n_forced, lb, ub, alt_lb, prune_bound, n_src,
-                     n_tiles, tile_e, n_out, flags, sched, keys, vals, wins,
-                     counts, (cudaStream_t)stream);
+                     n_tiles, tile_e, n_out, nullptr, 1, flags, sched, keys,
+                     vals, wins, counts, (cudaStream_t)stream);
+}
+
+// edge_relax over slots: the states of the `n_active` slots listed in
+// `active` (int32, on the device) relaxed in one launch of each kernel
+// (shapes in the header comment).  Each slot's scratch row must be clean
+// on entry, as for edge_relax_launch; a call that returns 0 leaves it so.
+extern "C" int edge_relax_batch_launch(
+    const float* dist, const uint8_t* paths, const int32_t* parent,
+    const int32_t* src, const int32_t* dst, const float* w,
+    const int32_t* vt_ptr, const int32_t* vt_tile, const int32_t* forced,
+    int64_t n_forced, const float* lb, const float* ub, const float* alt_lb,
+    const float* prune_bound, int64_t n_src, int64_t n_tiles, int tile_e,
+    int64_t n_out, const int32_t* active, int64_t n_active,
+    unsigned int* flags, int32_t* sched, unsigned long long* keys,
+    float* vals, int32_t* wins, int32_t* counts, void* stream) {
+  if (active == nullptr) return (int)cudaErrorInvalidValue;
+  return relax_round(dist, paths, parent, src, dst, w, vt_ptr, vt_tile,
+                     forced, n_forced, lb, ub, alt_lb, prune_bound, n_src,
+                     n_tiles, tile_e, n_out, active, n_active, flags, sched,
+                     keys, vals, wins, counts, (cudaStream_t)stream);
 }
 
 extern "C" int edge_relax_partials_launch(
@@ -282,6 +361,6 @@ extern "C" int edge_relax_partials_launch(
     float* val, int32_t* win, int32_t* counts, void* stream) {
   return relax_round(dist_src, paths_src, parent_src, src, dst, w, vt_ptr,
                      vt_tile, forced, n_forced, lb, ub, alt_lb, prune_bound,
-                     n_src, n_tiles, tile_e, n_out, flags, sched, keys, val,
-                     win, counts, (cudaStream_t)stream);
+                     n_src, n_tiles, tile_e, n_out, nullptr, 1, flags, sched,
+                     keys, val, win, counts, (cudaStream_t)stream);
 }

@@ -1,7 +1,8 @@
 """Wrappers of the edge_relax kernels.
 
-:func:`relax_bucket` runs one relaxation round over a device's slabs,
-:func:`relax_partials` the same round over a shard's slabs for the
+:func:`relax_bucket` runs one relaxation round over a device's slabs (of
+one state, or of several slots' states over the same slabs in one
+launch), :func:`relax_partials` the same round over a shard's slabs for the
 sharded engines (shard-local source ids), and :func:`relax_fused` up to
 ``fused_rounds`` rounds in one call.  All take the tensors where they
 lie.  CPU tensors go to the plain versions in :mod:`.ref`; CUDA tensors
@@ -12,9 +13,10 @@ the call raises.  There is no fallback from one to the other.
 All three kernels schedule their tiles from the layout's vertex->tile
 index (``index=``, a :class:`~repro_torch.core.graph.TileIndex`) and
 keep scratch buffers between calls, cached per (device, tile count,
-destination count) for the life of the process: for the one-round
-kernels a flag word per tile and the packed keys, which every call
-leaves cleared, and the schedule; for the fused kernel the same plus the
+destination count, and slot count for a batched call) for the life of
+the process: for the one-round kernels a flag word per tile and the
+packed keys, which every call leaves cleared, and the schedule (a row of
+each per slot); for the fused kernel the same plus the
 touched list, two frontier lists, two planes of path marks and the round
 scalars (:class:`_FusedScratch`), also left clean.  Calls on one device
 must therefore be ordered on one stream.  A call may be captured in a
@@ -33,19 +35,22 @@ from typing import NamedTuple
 import torch
 
 from .ref import (EMPTY_KEY, FUSED_COUNTERS, INT_MAX, PARTIAL_COUNTERS,
-                  edge_relax_fused_ref, edge_relax_partials_ref,
-                  edge_relax_ref, frontier_schedule, schedule_tiles)
+                  edge_relax_batch_ref, edge_relax_fused_ref,
+                  edge_relax_partials_ref, edge_relax_ref, frontier_schedule,
+                  schedule_tiles)
 
 __all__ = ["relax_bucket", "relax_fused", "relax_partials",
-           "edge_relax_ref", "edge_relax_fused_ref",
+           "edge_relax_ref", "edge_relax_batch_ref", "edge_relax_fused_ref",
            "edge_relax_partials_ref", "schedule_tiles", "frontier_schedule",
            "FUSED_COUNTERS", "PARTIAL_COUNTERS", "INT_MAX", "LAUNCHES"]
 
 
 class _Counter:
     """Launches of the CUDA kernels: ``edge_relax`` counts one per
-    :func:`relax_bucket` call on the card without ALT and
-    ``edge_relax_alt`` one per call with it, ``edge_relax_fused`` and
+    :func:`relax_bucket` call of one state on the card without ALT and
+    ``edge_relax_alt`` one per call with it, ``edge_relax_batch`` and
+    ``edge_relax_batch_alt`` one per batched call (whatever its slot
+    count), ``edge_relax_fused`` and
     ``edge_relax_fused_alt`` the same for :func:`relax_fused`, and
     ``edge_relax_partials`` and ``edge_relax_partials_alt`` the same for
     :func:`relax_partials`; CPU calls never count."""
@@ -56,6 +61,8 @@ class _Counter:
     def reset(self):
         self.edge_relax = 0
         self.edge_relax_alt = 0
+        self.edge_relax_batch = 0
+        self.edge_relax_batch_alt = 0
         self.edge_relax_fused = 0
         self.edge_relax_fused_alt = 0
         self.edge_relax_partials = 0
@@ -69,6 +76,9 @@ _I64 = ctypes.c_int64
 # edge_relax_launch and edge_relax_partials_launch
 _ROUND_ARGTYPES = [_P] * 9 + [_I64] + [_P] * 4 + [_I64, _I64, ctypes.c_int,
                                                   _I64] + [_P] * 7
+# edge_relax_batch_launch: the same, with the active list and its length
+# after n_out
+_BATCH_ARGTYPES = _ROUND_ARGTYPES[:18] + [_P, _I64] + _ROUND_ARGTYPES[18:]
 
 
 # edge_relax_fused_launch
@@ -87,8 +97,8 @@ def _library(name, argtypes, source="edge_relax"):
     return fn
 
 
-# (device, tiles, destinations) -> (flags, sched, keys): the one-round
-# kernels' scratch, never evicted (see the module's docstring)
+# (device, tiles, destinations, slots) -> (flags, sched, keys): the
+# one-round kernels' scratch, never evicted (see the module's docstring)
 _SCRATCH: dict = {}
 
 
@@ -105,16 +115,18 @@ def _cached(cache: dict, key, what: str, make):
     return bufs
 
 
-def _scratch(dev, nt: int, n_out: int):
-    """The cached scratch of a one-round call: ``flags`` int32 ``[nt +
-    1]`` (a word per tile, then the schedule's append counter; all 0),
-    ``sched`` int32 ``[nt]`` and ``keys`` int64 ``[n_out]`` (all
+def _scratch(dev, nt: int, n_out: int, slots: int = 1):
+    """The cached scratch of a one-round call over ``slots`` states (1
+    for a one-state call): ``flags`` int32 ``[slots, nt + 1]`` (a word
+    per tile, then the schedule's append counter; all 0), ``sched`` int32
+    ``[slots, nt]`` and ``keys`` int64 ``[slots, n_out]`` (all
     ``EMPTY_KEY``).  Returns ``(cache key, buffers)``."""
-    key = (dev, nt, n_out)
+    key = (dev, nt, n_out, slots)
     return key, _cached(_SCRATCH, key, "edge_relax", lambda: (
-        torch.zeros(nt + 1, dtype=torch.int32, device=dev),
-        torch.empty(nt, dtype=torch.int32, device=dev),
-        torch.full((n_out,), EMPTY_KEY, dtype=torch.int64, device=dev)))
+        torch.zeros(slots, nt + 1, dtype=torch.int32, device=dev),
+        torch.empty(slots, nt, dtype=torch.int32, device=dev),
+        torch.full((slots, n_out), EMPTY_KEY, dtype=torch.int64,
+                   device=dev)))
 
 
 def _check(name, t, dtype, shape, device):
@@ -146,10 +158,12 @@ def _check_alt(names, tensors, shapes, dtypes, device):
 
 
 def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
-                      lb, ub, alt_lb, prune_bound, index, *, tile_e: int,
-                      n_out: int):
+                      lb, ub, alt_lb, prune_bound, index, active=None, *,
+                      tile_e: int, n_out: int):
     """Launch ``<name>_launch`` (``edge_relax`` or
-    ``edge_relax_partials``): the same round, counted apart."""
+    ``edge_relax_partials``): the same round, counted apart; with
+    ``active`` (int32 slot ids) ``edge_relax_batch_launch`` over the
+    slots of ``[S, n_src]`` states, counted once in ``<name>_batch``."""
     dev = dist.device
     e = src.shape[0]
     nt = tile_first.shape[0]
@@ -159,27 +173,35 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
         raise ValueError(f"{name} on the card needs the layout's TileIndex "
                          "(index=)")
     vt_ptr, vt_tile, forced = index
-    n_src = dist.shape[0]
+    lead, n_src = tuple(dist.shape[:-1]), dist.shape[-1]
+    extra = []
+    if active is not None:
+        n_active = active.shape[0]
+        if not 1 <= n_active <= min(lead[0], 65535):
+            raise ValueError(f"{n_active} active slots for {lead[0]} slots")
+        _check("active", active, torch.int32, (n_active,), dev)
+        extra, name = [active.data_ptr(), n_active], f"{name}_batch"
     for what, t, dtype, shape in (
-            ("dist", dist, torch.float32, (n_src,)),
-            ("paths", paths, torch.bool, (n_src,)),
-            ("parent", parent, torch.int32, (n_src,)),
+            ("dist", dist, torch.float32, lead + (n_src,)),
+            ("paths", paths, torch.bool, lead + (n_src,)),
+            ("parent", parent, torch.int32, lead + (n_src,)),
             ("src", src, torch.int32, (e,)), ("dst", dst, torch.int32, (e,)),
             ("w", w, torch.float32, (e,)),
             ("tile_first", tile_first, torch.bool, (nt,)),
-            ("lb", lb, torch.float32, ()), ("ub", ub, torch.float32, ()),
+            ("lb", lb, torch.float32, lead), ("ub", ub, torch.float32, lead),
             ("vt_ptr", vt_ptr, torch.int32, (n_src + 1,)),
             ("vt_tile", vt_tile, torch.int32, vt_tile.shape[:1]),
             ("forced", forced, torch.int32, forced.shape[:1])):
         _check(what, t, dtype, shape, dev)
     alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
-                     ((n_out,), ()), (torch.float32,) * 2, dev)
-    fn = _library(name, _ROUND_ARGTYPES)
-    key, (flags, sched, keys) = _scratch(dev, nt, n_out)
+                     (lead + (n_out,), lead), (torch.float32,) * 2, dev)
+    fn = _library(name, _BATCH_ARGTYPES if extra else _ROUND_ARGTYPES)
+    key, (flags, sched, keys) = _scratch(dev, nt, n_out,
+                                         lead[0] if extra else 1)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
-    vals = empty(n_out, torch.float32)
-    wins = empty(n_out, torch.int32)
-    counts = empty(4, torch.int32)
+    vals = empty(lead + (n_out,), torch.float32)
+    wins = empty(lead + (n_out,), torch.int32)
+    counts = empty(lead + (4,), torch.int32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dist.data_ptr(), paths.data_ptr(), parent.data_ptr(),
@@ -187,7 +209,7 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
                  vt_ptr.data_ptr(), vt_tile.data_ptr(), forced.data_ptr(),
                  forced.shape[0], lb.data_ptr(), ub.data_ptr(),
                  _ptr(alt_lb), _ptr(prune_bound), n_src, nt, tile_e, n_out,
-                 flags.data_ptr(), sched.data_ptr(), keys.data_ptr(),
+                 *extra, flags.data_ptr(), sched.data_ptr(), keys.data_ptr(),
                  vals.data_ptr(), wins.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         _SCRATCH.pop(key, None)        # a flag or key may be left set
@@ -205,7 +227,7 @@ def _plain_round(name, dist, *args, tile_e: int, n_out: int):
 
 def relax_bucket(dist, paths, parent, src, dst, w, tile_first, lb, ub,
                  alt_lb=None, prune_bound=None, *, tile_e: int, n_out: int,
-                 index=None):
+                 index=None, active=None):
     """Relax a device's tile-aligned slabs (concatenated, global source
     ids) once.
 
@@ -223,7 +245,34 @@ def relax_bucket(dist, paths, parent, src, dst, w, tile_first, lb, ub,
     ``PARTIAL_COUNTERS`` (``n_trav``, ``n_relax``, ``n_tiles``,
     ``n_pruned``; on the device) -- exactly what :func:`relax_partials`
     returns for a shard.
+
+    Batched (``dist`` 2-D): ``dist``, ``paths``, ``parent`` are ``[S,
+    n_src]``, ``lb``/``ub`` (and ``prune_bound``) ``[S]``, ``alt_lb``
+    ``[S, n_out]``: S states over the same slabs, in one launch (counted
+    once in ``edge_relax_batch`` or ``edge_relax_batch_alt``).
+    ``active`` (int32, on the device; default every slot) lists the
+    slots to relax; the results are ``[S, n_out]`` and ``[S, 4]``, each
+    active slot's row what a one-state call on its row returns, and the
+    rows of the other slots unspecified.
     """
+    if dist.dim() == 2:
+        if active is None:
+            active = torch.arange(dist.shape[0], dtype=torch.int32,
+                                  device=dist.device)
+        if dist.is_cuda:
+            return _relax_round_cuda("edge_relax", dist, paths, parent, src,
+                                     dst, w, tile_first, lb, ub, alt_lb,
+                                     prune_bound, index, active,
+                                     tile_e=tile_e, n_out=n_out)
+        if dist.device.type != "cpu":
+            raise ValueError(f"edge_relax runs on CUDA or CPU, not "
+                             f"{dist.device}")
+        return edge_relax_batch_ref(dist, paths, parent, src, dst, w,
+                                    tile_first, lb, ub, alt_lb, prune_bound,
+                                    tile_e=tile_e, n_out=n_out,
+                                    active=active)
+    if active is not None:
+        raise ValueError("active= lists slots of a batched (2-D) call")
     if dist.is_cuda:
         return _relax_round_cuda("edge_relax", dist, paths, parent, src, dst,
                                  w, tile_first, lb, ub, alt_lb, prune_bound,

@@ -10,7 +10,9 @@ CUDA kernels' frontier-driven prepass written plainly;
 only);
 ``edge_relax_partials_ref`` is the one-round round with its counters,
 which both one-round kernels (``edge_relax`` on a device's slabs,
-``edge_relax_partials`` on a shard's) compute.  Every kernel takes the
+``edge_relax_partials`` on a shard's) compute, and
+``edge_relax_batch_ref`` the same round over several slots' states
+(``edge_relax``'s batched entry).  Every kernel takes the
 ALT cut as an option.  The wrappers in :mod:`.ops` run them for
 CPU tensors, the tests hold them against the JAX package, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.  All
@@ -277,3 +279,27 @@ def edge_relax_partials_ref(dist_src, paths_src, parent_src, src, dst, w,
                               alt_lb, prune_bound, n_out=n_out)
     return val, win, torch.stack(_slab_counters(
         pa_src, w, dst, parent_src[src_l], ok, tile_first, tile_e, fail))
+
+
+def edge_relax_batch_ref(dist, paths, parent, src, dst, w, tile_first, lb,
+                         ub, alt_lb=None, prune_bound=None, *, tile_e: int,
+                         n_out: int, active):
+    """The one-round kernel over slots, plainly: for each slot in
+    ``active`` the round of :func:`edge_relax_partials_ref` on its rows
+    (``dist``, ``paths``, ``parent`` ``[S, n_src]``, ``lb``/``ub`` and
+    ``prune_bound`` ``[S]``, ``alt_lb`` ``[S, n_out]``) over the shared
+    slabs.  Returns ``(vals, wins, counts)`` of shapes ``[S, n_out]``,
+    ``[S, n_out]`` and ``[S, 4]``; the rows of slots not in ``active``
+    hold ``(inf, INT_MAX)`` and zero counters."""
+    n_slots = dist.shape[0]
+    vals = torch.full((n_slots, n_out), torch.inf, dtype=torch.float32,
+                      device=dist.device)
+    wins = torch.full((n_slots, n_out), INT_MAX, dtype=torch.int32,
+                      device=dist.device)
+    counts = torch.zeros(n_slots, 4, dtype=torch.int32, device=dist.device)
+    for i in active.tolist():
+        alt = () if alt_lb is None else (alt_lb[i], prune_bound[i])
+        vals[i], wins[i], counts[i] = edge_relax_partials_ref(
+            dist[i], paths[i], parent[i], src, dst, w, tile_first, lb[i],
+            ub[i], *alt, tile_e=tile_e, n_out=n_out)
+    return vals, wins, counts

@@ -1079,3 +1079,104 @@ def test_cuda_embedding_bag_masked_wrapper_refuses(card):
     empty = eops.embedding_bag_masked(table, ids[:0], mask[:0])
     assert empty.shape == (0, 16)
     assert eops.LAUNCHES.embedding_bag_masked == before
+
+
+# ---------------------------------------------------------------------------
+# edge_relax over slots (sssp_batch) and the facade
+# ---------------------------------------------------------------------------
+
+def _slot_states(rng, bg, n_slots, card):
+    """``n_slots`` states of :func:`_state` stacked ``[S, n_out]``, with
+    windows and (for ALT) lower bounds and prune bounds per slot."""
+    rows = [_state(rng, bg, int(rng.choice([3, 40, -1])), card,
+                   lb=float(rng.integers(0, 3)), ub=float(rng.integers(3, 8)))
+            for _ in range(n_slots)]
+    dist, paths, parent = (torch.stack([r[k] for r in rows])
+                           for k in range(3))
+    lb, ub = (torch.stack([r[k] for r in rows]) for k in (3, 4))
+    alt_lb = torch.from_numpy((rng.integers(0, 8, (n_slots, bg.n_out)) / 4)
+                              .astype(np.float32)).to(card)
+    bound = torch.from_numpy(rng.choice([2.0, np.inf, 0.0, 3.0], n_slots)
+                             .astype(np.float32)).to(card)
+    return (dist, paths, parent, lb, ub), (alt_lb, bound)
+
+
+@pytest.mark.parametrize("n_slots", [1, 3, 8])
+@pytest.mark.parametrize("alt", [False, True], ids=["plain", "alt"])
+def test_cuda_batch_kernel_matches_plain_version(card, n_slots, alt):
+    """One batched launch over an active list (every slot, and one that
+    skips slots), twice: each active slot's vals, wins and counters
+    bitwise the plain version's and the one-state call's on its row; the
+    launch counted once; the scratch left clean."""
+    rng = np.random.default_rng(40 + n_slots)
+    bg = build_blocked(_graph(rng, ties=True), block_v=256, tile_e=64,
+                       device=card)
+    (dist, paths, parent, lb, ub), alt_ops = _slot_states(rng, bg, n_slots,
+                                                          card)
+    extra = alt_ops if alt else ()
+    args = (dist, paths, parent, bg.src, bg.dst, bg.w, bg.tile_first, lb,
+            ub, *extra)
+    kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
+    counter = "edge_relax_batch_alt" if alt else "edge_relax_batch"
+    lists = [list(range(n_slots)), list(range(0, n_slots, 2))]
+    if n_slots > 2:
+        lists.append([n_slots - 1])
+    for act in lists:
+        active = torch.tensor(act, dtype=torch.int32, device=card)
+        want = ref.edge_relax_batch_ref(*args, **kw, active=active)
+        for _ in range(2):
+            before = getattr(ops.LAUNCHES, counter)
+            vals, wins, cnt = ops.relax_bucket(*args, **kw, index=bg.index,
+                                               active=active)
+            torch.cuda.synchronize()
+            assert getattr(ops.LAUNCHES, counter) == before + 1
+            for i in act:
+                assert torch.equal(vals[i].view(torch.int32),
+                                   want[0][i].view(torch.int32)), (act, i)
+                assert torch.equal(wins[i], want[1][i]), (act, i)
+                assert cnt[i].tolist() == want[2][i].tolist(), (act, i)
+                one = ops.relax_bucket(
+                    dist[i], paths[i], parent[i], bg.src, bg.dst, bg.w,
+                    bg.tile_first, lb[i], ub[i],
+                    *(() if not alt else (alt_ops[0][i], alt_ops[1][i])),
+                    **kw, index=bg.index)
+                assert torch.equal(one[0].view(torch.int32),
+                                   vals[i].view(torch.int32)), (act, i)
+                assert torch.equal(one[1], wins[i]) and torch.equal(
+                    one[2], cnt[i]), (act, i)
+    for flags, _, keys in ops._SCRATCH.values():
+        assert not bool(flags.any())
+        assert bool((keys == ref.EMPTY_KEY).all())
+
+
+def test_cuda_batched_facade_matches_single_solves(card):
+    """The facade's batched tree and ALT p2p specs on the blocked backend:
+    each slot bitwise the single solve, one batched launch per iteration
+    and no one-state launch."""
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    g = kronecker(10, 8, seed=1)
+    solver = Solver.open(g, EngineConfig(backend="blocked", use_alt=True,
+                                         n_landmarks=4))
+    rng = np.random.default_rng(9)
+    srcs = [int(np.argmax(g.deg))] + [int(v) for v in
+                                      rng.choice(g.n, 3, replace=False)]
+    tgts = [int(v) for v in rng.choice(g.n, 4, replace=False)]
+    for spec, counter in ((SolveSpec.tree(srcs), "edge_relax_batch"),
+                          (SolveSpec.p2p(srcs, tgts),
+                           "edge_relax_batch_alt")):
+        ops.LAUNCHES.reset()
+        res = solver.solve(spec)
+        torch.cuda.synchronize()
+        launches = getattr(ops.LAUNCHES, counter)
+        assert ops.LAUNCHES.edge_relax == 0
+        assert ops.LAUNCHES.edge_relax_alt == 0
+        assert launches == int(res.metrics.n_host_syncs.max())
+        for i, s in enumerate(srcs):
+            one = solver.solve(SolveSpec.tree(s) if spec.kind == "tree"
+                               else SolveSpec.p2p(s, tgts[i]))
+            assert torch.equal(res.dist[i].view(torch.int32),
+                               one.dist.view(torch.int32)), (spec.kind, i)
+            assert torch.equal(res.parent[i], one.parent), (spec.kind, i)
+            for f in LOGICAL_METRIC_FIELDS:
+                assert int(getattr(res.metrics, f)[i]) == int(
+                    getattr(one.metrics, f)), (spec.kind, i, f)

@@ -24,6 +24,7 @@ from repro.core.graph import build_blocked as ref_build_blocked
 from repro.core.sssp import sssp as ref_sssp
 from repro.kernels.edge_relax import ops as rops
 from repro_torch import convert
+from repro_torch.core.config import ConfigError
 from repro_torch.core.graph import build_blocked, build_csr
 from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, metrics_dict,
                                    sssp)
@@ -152,14 +153,27 @@ def test_fused_solve_matches_reference_and_unfused(name):
 
 
 def test_fused_rounds_needs_the_blocked_backend():
+    """The reference's config checks: fused rounds need a blocked backend
+    and a count >= 0 (``ConfigError``, a ``ValueError``); with them, a
+    dict is not a config, the adaptive policy solves bitwise as the
+    unfused adaptive solve, and tracing belongs to a later slice."""
     _, hg = _graph("road16")
-    with pytest.raises(ValueError, match="needs the blocked backend"):
+    with pytest.raises(ValueError, match="needs a blocked backend"):
         sssp(hg, 0, backend="segment_min", fused_rounds=4, device="cpu")
     with pytest.raises(ValueError, match=">= 0"):
         sssp(hg, 0, backend="blocked", fused_rounds=-1, device="cpu")
-    for later in (dict(config={}), dict(policy="adaptive"),
-                  dict(trace=True)):
-        with pytest.raises(NotImplementedError):
+    for later, exc in ((dict(config={}), ConfigError),
+                       (dict(policy="adaptive"), None),
+                       (dict(trace=True), NotImplementedError)):
+        if exc is None:
+            fused = sssp(hg, 0, backend="blocked", fused_rounds=4,
+                         device="cpu", **later)
+            plain = sssp(hg, 0, backend="blocked", device="cpu", **later)
+            assert torch.equal(fused[0].view(torch.int32),
+                               plain[0].view(torch.int32))
+            assert torch.equal(fused[1], plain[1])
+            continue
+        with pytest.raises(exc):
             sssp(hg, 0, backend="blocked", fused_rounds=4, device="cpu",
                  **later)
 

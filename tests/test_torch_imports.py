@@ -167,14 +167,20 @@ def test_unported_architectures_raise():
 
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py",
                                   "tools/edge_relax_ablation.py",
-                                  "tools/embedding_bag_grid.py"])
+                                  "tools/embedding_bag_grid.py",
+                                  "src/repro_torch/api.py",
+                                  "src/repro_torch/core/config.py",
+                                  "src/repro_torch/serve/queries.py"])
 def test_card_side_files_import_no_jax(path):
-    # the machine with the card has no jax: these files run there
+    # the machine with the card has no jax: these files run there (a
+    # relative import inside the package is an import of repro_torch)
     tree = ast.parse((SRC.parent / path).read_text())
     names = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level:
+            names.add("repro_torch")
         elif isinstance(node, ast.ImportFrom) and node.module:
             names.add(node.module)
     roots = {n.split(".")[0] for n in names}

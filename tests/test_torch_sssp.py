@@ -19,6 +19,7 @@ from repro.core.sssp import LOGICAL_METRIC_FIELDS as REF_LOGICAL
 from repro.core.sssp import sssp as ref_sssp
 from repro_torch import convert
 from repro_torch.core.baselines import dijkstra_host
+from repro_torch.core.config import ConfigError
 from repro_torch.core.graph import default_geometry
 from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, metrics_dict,
                                    normalized_metrics, prepare_layout, sssp)
@@ -207,35 +208,42 @@ def test_prepared_layout_and_metrics():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(config={}), NotImplementedError, "config slice"),
+    (dict(config={}), ConfigError, "expected EngineConfig"),
     (dict(fused_rounds=4), ValueError, "fused"),
-    (dict(policy="adaptive"), NotImplementedError, "adaptive"),
+    (dict(policy="adaptive"), None, None),
     (dict(trace=True), NotImplementedError, "observab"),
     (dict(bogus_opt=1), TypeError, "bogus_opt"),
     (dict(goal_params=[1]), TypeError, "goal_params"),
     (dict(goal="p2p", goal_param=3, p2p_mode="bidirectional"), ValueError,
      "needs a landmark set")])
 def test_later_slices_raise(kw, exc, match):
-    """Each option of a later slice raises ``NotImplementedError`` naming
-    it, an unknown keyword raises ``TypeError`` naming it, and the
-    bidirectional p2p mode without landmarks raises ``ValueError``.  Fused
-    rounds are ported: on the default ``segment_min`` backend, which has
-    no fused kernel, they raise ``ValueError``."""
-    hg = convert.from_reference(ref_arrays(rgen.road_grid(4, seed=1)),
-                                "cpu")
+    """Each option behaves as the reference's: a dict is not a config
+    (``ConfigError``), fused rounds on the default ``segment_min`` backend
+    raise ``ConfigError`` (a ``ValueError``), the adaptive policy solves
+    (bitwise the reference's), tracing still belongs to a later slice
+    (``NotImplementedError`` naming it), an unknown keyword raises
+    ``TypeError`` naming it, and the bidirectional p2p mode without
+    landmarks raises ``ConfigError``."""
+    rg = rgen.road_grid(4, seed=1)
+    hg = convert.from_reference(ref_arrays(rg), "cpu")
+    if exc is None:
+        from repro.core.config import EngineConfig
+        ref = _np(ref_sssp(rg.to_device(), 0, config=EngineConfig(**kw)))
+        assert_same(ref, _port(sssp(hg, 0, device="cpu", **kw)), str(kw))
+        return
     with pytest.raises(exc, match=match):
         sssp(hg, 0, device="cpu", **kw)
 
 
 def test_unknown_options_are_refused_not_dropped():
     """The reproduction of the fault that dropped options silently
-    (kronecker(10, 8), seed 1, source 0): ``config=`` raises, unknown
-    keywords raise with the reference's ``TypeError``, and
-    ``goal_param`` is honoured."""
+    (kronecker(10, 8), seed 1, source 0): a dict passed as ``config=``
+    raises the reference's ``ConfigError``, unknown keywords raise with
+    the reference's ``TypeError``, and ``goal_param`` is honoured."""
     from repro.core.config import EngineConfig
     rg = rgen.kronecker(10, 8, seed=1)
     hg = convert.from_reference(ref_arrays(rg), "cpu")
-    with pytest.raises(NotImplementedError, match="config"):
+    with pytest.raises(ConfigError, match="expected EngineConfig"):
         sssp(hg, 0, device="cpu", config={"alpha": 1.5, "beta": 0.5},
              goal_param=3)
     with pytest.raises(TypeError, match="unknown engine options"):

@@ -128,6 +128,45 @@ Phases, in order; any failure exits non-zero:
    1,000), each slot bitwise its single solve.  The batched kernel is
    then held against its plain version again at the middle call of the
    batched tree and p2p specs.
+3d. Streaming deltas (``repro_torch.delta``), on the same graphs and
+   layouts (:func:`delta_phase`).  Per graph two seeded deltas
+   (:func:`make_deltas`): A, 32 undirected removals of the phase-3 tree's
+   edges, 32 reweights of other edges to ``w * U[0.5, 2.0]`` and 32
+   additions with the graph's own weights; B (decrease-only), 32
+   reweights to ``w * 0.5`` and 32 additions.  For each: ``patch_host``,
+   ``patch_blocked_with`` on a copy of the phase-3 layout, equal to
+   ``build_blocked`` of the patched host field for field with its
+   vertex->tile index; ``repair`` from the phase-3 tree state on
+   ``blocked`` (``edge_relax``) and with ``fused_rounds=4``
+   (``edge_relax_fused``), each launch counter zeroed just before and
+   read just after, both a fixpoint with tight parents
+   (:func:`check_fixpoint`, as is the from-scratch solve) and equal to a
+   from-scratch solve on the patched layout (fused on road_grid): dist
+   bitwise, parents too but at exact f32 ties (counted; the reference
+   holds repair parents bitwise only where no exact ties are, and
+   road_grid(1024) has some); B must take the fast path.  On
+   kronecker's A, the v1 ``repair_distributed`` at world size 1 on
+   ``blocked`` shards (``edge_relax_partials``), bitwise the
+   single-device repair.  ``[delta]`` lines: patch seconds beside
+   ``build_blocked``'s, ``n_invalid``, ``n_seeds``, each repair's
+   seconds, iterations, launches and ``n_relax`` beside the from-scratch
+   solve's.
+3e. Traces (``repro_torch.obs``, :func:`trace_phase`): on kronecker,
+   traced tree solves on ``blocked``, fused and adaptive, a traced
+   batched tree spec of phase 3c's 8 sources through
+   ``Solver(EngineConfig(trace=True))`` and a traced v1 solve, each
+   bitwise the untraced one (dist, parent, every metric) with counter
+   sums equal to the metrics and one record per iteration (``[trace]``
+   lines: traced against untraced seconds); a ring of 8 records drops
+   the right number; the Perfetto file written and read back, and a
+   ``MetricsRegistry`` of the phase's counters through the Prometheus
+   text and back.  Then one ``torch.profiler`` pass over a kronecker
+   ``blocked`` tree solve and one over a road_grid bounded query (static
+   policy; the 0.1st percentile of the tree's distances, cut from phase
+   3c's 5th for the profiler's time): ``[profile]`` lines with the
+   ``repro:`` ranges seen, device kernel time over the unprofiled wall
+   time (the busy share) and the top kernels; a trace with no CUDA
+   kernel fails.
 4. The language-model serving path (qwen3-0.6b at full width, weights
    drawn on the card from a ``torch.Generator`` seeded with 0):
    ``ServeEngine(max_batch=8, s_cache=4096, prompt_pad=256)`` in
@@ -2335,6 +2374,451 @@ def facade_phase(results, p2p, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: streaming deltas (patch, repair) on the graphs above
+# ---------------------------------------------------------------------------
+
+DELTA_EDITS = 32                 # undirected edits of each kind a delta
+DELTA_SEEDS = {"kronecker(20,16)": 41, "road_grid(1024)": 43}
+
+
+def _first_weight(hg, u: int, v: int) -> float:
+    """The weight of the slot ``patch_host`` edits for ``(u, v)``: the
+    first match in ``u``'s CSR row."""
+    lo, hi = int(hg.row_ptr[u]), int(hg.row_ptr[u + 1])
+    return float(hg.w[lo + int(np.argmax(hg.dst[lo:hi] == v))])
+
+
+def make_deltas(r, seed: int):
+    """Delta A (mixed): ``DELTA_EDITS`` undirected removals of edges of the
+    phase-3 tree solve's tree, as many reweights of random other edges to
+    ``w * U[0.5, 2.0]`` (f32) and as many additions between random vertex
+    pairs with weights drawn from the graph's own; delta B
+    (decrease-only): reweights to ``w * 0.5`` and additions.  Road
+    closures, congestion and new links between queries."""
+    from repro_torch.delta import EdgeDelta
+    hg, k = r["host"], DELTA_EDITS
+    rng = np.random.default_rng(seed)
+    parent = r["parent"].cpu().numpy()
+    tree = np.flatnonzero((parent >= 0) & (parent != np.arange(hg.n)))
+    removes = [(int(parent[v]), int(v))
+               for v in rng.choice(tree, k, replace=False)]
+    taken = {(min(u, v), max(u, v)) for u, v in removes}
+
+    def other_edges():
+        out = []
+        while len(out) < k:
+            e = int(rng.integers(hg.m))
+            u, v = int(hg.src[e]), int(hg.dst[e])
+            if u != v and (min(u, v), max(u, v)) not in taken:
+                taken.add((min(u, v), max(u, v)))
+                out.append((u, v, _first_weight(hg, u, v)))
+        return out
+
+    def additions():
+        pairs = rng.integers(0, hg.n, (2 * k, 2))
+        pairs = pairs[pairs[:, 0] != pairs[:, 1]][:k]
+        return [(int(u), int(v), float(rng.choice(hg.w))) for u, v in pairs]
+
+    mixed = EdgeDelta(remove=removes, add=additions(), reweight=[
+        (u, v, float(np.float32(w * rng.uniform(0.5, 2.0))))
+        for u, v, w in other_edges()])
+    decrease = EdgeDelta(add=additions(), reweight=[
+        (u, v, float(np.float32(w * 0.5))) for u, v, w in other_edges()])
+    return {"A mixed": mixed, "B decrease-only": decrease}
+
+
+def clone_layout(bg):
+    """A copy of a blocked layout with tensors of its own (a patch writes
+    the tensors it is given)."""
+    from repro_torch.core.graph import TileIndex
+    return dataclasses.replace(
+        bg, **{f: getattr(bg, f).clone() for f in (
+            "src", "dst", "w", "tile_dst", "tile_first", "bucket_nonempty",
+            "deg")}, index=TileIndex(*(t.clone() for t in bg.index)))
+
+
+def same_layout(a, b) -> bool:
+    scalars = ("n", "block_v", "n_blocks", "n_dst_blocks", "tile_e",
+               "dense_grid_tiles", "slab_ptr")
+    tensors = ("src", "dst", "w", "tile_dst", "tile_first",
+               "bucket_nonempty", "deg")
+    return all(getattr(a, f) == getattr(b, f) for f in scalars) and all(
+        getattr(a, f).shape == getattr(b, f).shape
+        and getattr(a, f).equal(getattr(b, f)) for f in tensors) and all(
+        x.shape == y.shape and x.equal(y) for x, y in zip(a.index, b.index))
+
+
+def check_fixpoint(g, dist, parent, source: int, what: str):
+    """The certificate of a shortest-path tree, on the card: no edge of
+    ``g`` (a ``DeviceGraph``) improves ``dist`` (``dist[v] <= dist[u] +
+    w`` in f32), and every vertex reached, but the source, has a parent
+    edge that is tight (``dist[p] + w == dist[v]``)."""
+    cand = dist[g.src] + g.w
+    if bool((cand < dist[g.dst]).any()):
+        raise AssertionError(f"{what}: an edge improves dist")
+    tight = (parent.long()[g.dst] == g.src) & (cand == dist[g.dst])
+    has = torch.zeros_like(dist, dtype=torch.bool)
+    has[g.dst[tight]] = True
+    has[source] = True
+    if not bool((has | ~torch.isfinite(dist)).all()):
+        raise AssertionError(f"{what}: a parent edge is not tight")
+
+
+def delta_case(name, r, label, delta, device, v1: bool):
+    """One graph and delta: ``patch_host``, ``patch_blocked_with`` on a copy
+    of the phase-3 layout (against ``build_blocked`` of the patched host,
+    index included), ``repair`` on ``blocked`` and fused from the phase-3
+    tree state (launches counted, each zeroed just before and read just
+    after), both a fixpoint with tight parents (:func:`check_fixpoint`)
+    and equal to a from-scratch solve on the patched layout: dist
+    bitwise, parents too but where both are exact f32 ties
+    (:func:`same_tree_up_to_ties`; ``repro/delta/repair.py`` holds
+    parents bitwise only where no exact f32 ties are), and with ``v1``
+    the v1 ``repair_distributed`` at world size 1 on ``blocked`` shards
+    (``edge_relax_partials``), bitwise the single-device repair."""
+    from repro_torch.core.distributed import repair_distributed, shard_blocked
+    from repro_torch.core.graph import build_blocked
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
+    from repro_torch.delta import (patch_blocked_with, patch_host,
+                                   patch_sharded_with, repair, repair_state)
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    hg, source, n = r["host"], r["source"], r["host"].n
+    t0 = time.perf_counter()
+    new_host, applied = patch_host(hg, delta)
+    host_s = time.perf_counter() - t0
+    base = clone_layout(r["layout"])        # the phase-3 layout stays
+    ptr = base.src.data_ptr()
+    sync(device)
+    t0 = time.perf_counter()
+    patched = patch_blocked_with(base, hg, new_host, applied)
+    sync(device)
+    patch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rebuilt = build_blocked(new_host, block_v=base.block_v,
+                            tile_e=base.tile_e, device=device)
+    sync(device)
+    build_s = time.perf_counter() - t0
+    if not same_layout(patched, rebuilt):
+        raise AssertionError(f"{name} {label}: the patched layout differs "
+                             "from build_blocked of the patched host")
+    del rebuilt, base
+    in_place = patched.src.data_ptr() == ptr
+    t0 = time.perf_counter()
+    *_, stats = repair_state(new_host, r["dist"], r["parent"], applied)
+    state_s = time.perf_counter() - t0
+    if label.startswith("B") and not stats.fast_path:
+        raise AssertionError(f"{name} {label}: a decrease-only delta did "
+                             "not take the fast path")
+    new_dg = new_host.to_device(device)
+    fused_scratch = name.startswith("road")     # its unfused solve is slow
+    (sd, sp, sm), scratch_s = timed(lambda: sssp(
+        new_dg, source, backend="blocked", layout=patched, device=device,
+        fused_rounds=FUSED_ROUNDS if fused_scratch else 0), device)
+    check_fixpoint(new_dg, sd, sp, source, f"{name} {label} from scratch")
+    smd = metrics_dict(sm)
+    out = dict(edits=delta.n_edits, directed=applied.n_edits,
+               patch_host_s=host_s, patch_blocked_s=patch_s,
+               build_blocked_s=build_s, in_place=in_place,
+               repair_state_s=state_s, n_invalid=stats.n_invalid,
+               n_seeds=stats.n_seeds, fast_path=stats.fast_path,
+               scratch="fused" if fused_scratch else "blocked",
+               scratch_s=scratch_s, scratch_n_relax=smd["n_relax"],
+               scratch_iterations=int(smd["n_host_syncs"]) - 1, repairs={},
+               tie_parents={})
+    log(f"[delta] {name} {label}: {delta.n_edits} edits ({applied.n_edits} "
+        f"directed), patch_host {host_s!r} s, patch_blocked {patch_s!r} s "
+        f"({'in place' if in_place else 'new tensors'}) beside build_blocked "
+        f"{build_s!r} s, equal to the rebuild with its index; repair_state "
+        f"{state_s!r} s: n_invalid={stats.n_invalid} n_seeds={stats.n_seeds}"
+        f" fast_path={stats.fast_path}; from-scratch {out['scratch']} solve "
+        f"{scratch_s!r} s, n_relax={smd['n_relax']}, a fixpoint with tight "
+        "parents")
+    rep = None
+    for mode, fr, counter in (("blocked", 0, "edge_relax"),
+                              ("fused", FUSED_ROUNDS, "edge_relax_fused")):
+        LAUNCHES.reset()
+        (d, p, m, _), secs = timed(lambda: repair(
+            patched, new_host, r["dist"], r["parent"], applied,
+            backend="blocked", fused_rounds=fr), device)
+        launches = getattr(LAUNCHES, counter)
+        stray = LAUNCHES.edge_relax_fused if fr == 0 else LAUNCHES.edge_relax
+        if launches <= 0 or stray:
+            raise AssertionError(f"{name} {label}: the {mode} repair "
+                                 f"launched {counter} {launches} times and "
+                                 f"the other kernel {stray}")
+        what = f"{name} {label} {mode} repair"
+        check_fixpoint(new_dg, d, p, source, what)
+        ties = same_tree_up_to_ties(new_host, d, p, sd, sp, None, what)
+        out["tie_parents"][mode] = ties
+        md = metrics_dict(m)
+        if mode == "blocked":
+            rep = (d, p, md)
+        elif any(md[f] != rep[2][f] for f in LOGICAL_METRIC_FIELDS):
+            raise AssertionError(f"{name} {label}: the fused repair's "
+                                 "logical counters differ")
+        its = int(md["n_host_syncs"]) - 1
+        out["repairs"][mode] = dict(
+            seconds=secs, iterations=its, launches=launches,
+            rounds=md["n_rounds"], n_relax=md["n_relax"],
+            relax_reduction=smd["n_relax"] / max(md["n_relax"], 1))
+        log(f"[delta] {name} {label} repair {mode}: {secs!r} s, "
+            f"iterations={its} rounds={md['n_rounds']} {counter} "
+            f"launches={launches}, n_relax={md['n_relax']} against the "
+            f"from-scratch solve's {smd['n_relax']} (reduction "
+            f"{out['repairs'][mode]['relax_reduction']:.4g}x) and "
+            f"{scratch_s!r} s; a fixpoint with tight parents, dist bitwise "
+            f"the from-scratch solve's, parents too but at {ties} exact "
+            "f32 ties")
+    if v1:
+        sg = patch_sharded_with(r["sharded"], new_host, applied)
+        t0 = time.perf_counter()
+        shards = shard_blocked(sg, device=device)
+        shard_s = time.perf_counter() - t0
+        d_i, p_i, front, _ = repair_state(new_host, r["dist"], r["parent"],
+                                          applied)
+        LAUNCHES.reset()
+        (vd, vp, vm), secs = timed(lambda: repair_distributed(
+            sg, d_i, p_i, front, version="v1", backend="blocked",
+            blocked=shards, device=device), device)
+        launches = LAUNCHES.edge_relax_partials
+        vmd = metrics_dict(vm)
+        if launches <= 0 or not (bitwise_equal(vd[:n], rep[0])
+                                 and vp[:n].equal(rep[1])) or any(
+                vmd[f] != rep[2][f] for f in LOGICAL_METRIC_FIELDS):
+            raise AssertionError(f"{name} {label}: the v1 repair differs "
+                                 "from the single-device repair (or "
+                                 "launched no edge_relax_partials)")
+        out["repairs"]["v1"] = dict(
+            seconds=secs, shard_blocked_s=shard_s, launches=launches,
+            iterations=int(vmd["n_host_syncs"]) - 1, n_relax=vmd["n_relax"])
+        log(f"[delta] {name} {label} repair v1 (world size 1, blocked "
+            f"shards): {secs!r} s (shard_blocked {shard_s!r} s), "
+            f"iterations={int(vmd['n_host_syncs']) - 1} edge_relax_partials "
+            f"launches={launches}; bitwise the single-device repair")
+    del patched, new_dg
+    torch.cuda.empty_cache()
+    return out
+
+
+def delta_phase(results, device) -> dict:
+    """Phase 3d: both deltas on both graphs (:func:`delta_case`); the v1
+    repair on kronecker's delta A."""
+    out = {}
+    for name, r in results.items():
+        for label, delta in make_deltas(r, DELTA_SEEDS[name]).items():
+            out[f"{name} {label}"] = delta_case(
+                name, r, label, delta, device,
+                v1=name.startswith("kron") and label.startswith("A"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: per-round traces, metrics export and profiled solves
+# ---------------------------------------------------------------------------
+
+TRACE_SMALL_RING = 8
+# road_grid's profiled bounded query: the 0.1st percentile of its tree's
+# distances (at phase 3c's 5th, 337,442 kernels took the profiler about
+# 195 s to collect and sum on an H100 host)
+ROAD_PROFILE_QUANTILE = 0.001
+
+
+def traced_pair(what, untraced, traced, counter, device):
+    """Time an untraced call, then the traced one (launches of ``counter``
+    zeroed just before it and read just after); both must agree bitwise
+    (dist, parent, every metric).  Returns the numbers and the trace."""
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.obs import materialize_trace
+    (d0, p0, m0), plain_s = timed(untraced, device)
+    LAUNCHES.reset()
+    (d, p, m, buf), secs = timed(traced, device)
+    launches = getattr(LAUNCHES, counter)
+    md, md0 = metrics_dict(m), metrics_dict(m0)
+    if launches <= 0 or not (bitwise_equal(d, d0) and p.equal(p0)) \
+            or md != md0:
+        raise AssertionError(f"{what}: the traced solve differs from the "
+                             f"untraced one (or launched no {counter})")
+    t = materialize_trace(buf)
+    sums = t.counter_sums()
+    iterations = int(md["n_host_syncs"]) - 1
+    bad = [f for f in LOGICAL_METRIC_FIELDS
+           if sums[f] + (f == "n_extended") != md[f]]
+    if bad or t.n_records != iterations or t.dropped:
+        raise AssertionError(f"{what}: trace sums differ at {bad}, or "
+                             f"{t.n_records} records for {iterations} "
+                             f"iterations ({t.dropped} dropped)")
+    log(f"[trace] {what}: traced {secs!r} s against untraced {plain_s!r} s "
+        f"(x{secs / plain_s:.4f}), {t.n_records} records = iterations, "
+        f"{int(t.columns['stepped'].sum())} stepped, counter sums equal "
+        f"the metrics, {counter} launches={launches}; bitwise the untraced "
+        "solve")
+    return dict(traced_s=secs, untraced_s=plain_s, records=t.n_records,
+                launches=launches), t
+
+
+def profiled_solve(what, fn, wall, device):
+    """One ``torch.profiler`` pass over ``fn`` (a solve): the ``repro:``
+    ranges it recorded, device kernel time against ``wall``, the same
+    solve's seconds unprofiled (timed here if None; the busy share), and
+    the top kernels.  The ranges' own spans on the device timeline are
+    not kernels and are left out.  A trace with no CUDA kernel fails
+    (:func:`trace_kernels`)."""
+    from torch.profiler import ProfilerActivity, profile
+    if wall is None:
+        _, wall = timed(fn, device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        _, prof_wall = timed(fn, device)
+    events = prof.key_averages()
+    kern = [e for e in trace_kernels(events, what)
+            if not e.key.startswith("repro:")]
+    if not kern:
+        raise AssertionError(f"{what}: the profiler's trace holds no CUDA "
+                             "kernel")
+    device_s = sum(e.self_device_time_total for e in kern) / 1e6
+    ranges = {e.key: e.count for e in events if e.key.startswith("repro:")}
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    out = dict(wall_s=wall, profiled_wall_s=prof_wall, device_s=device_s,
+               busy_share=device_s / wall,
+               busy_share_profiled=device_s / prof_wall,
+               kernels=sum(e.count for e in kern), ranges=ranges,
+               top={e.key[:60]: dict(count=e.count,
+                                     ms=e.self_device_time_total / 1e3)
+                    for e in top})
+    log(f"[profile] {what}: " + json.dumps(out))
+    return out
+
+
+def trace_phase(results, facade, device) -> dict:
+    """Phase 3e on kronecker(20,16): traced tree solves on ``blocked``,
+    fused and adaptive, a traced batched tree spec through ``Solver``,
+    a traced v1 solve, a ring smaller than the iterations, the Perfetto
+    export written and read back and a ``MetricsRegistry`` of the
+    phase's counters through the Prometheus text; then profiled passes
+    over a kronecker ``blocked`` tree solve and a road_grid bounded query
+    (static policy, bound at ``ROAD_PROFILE_QUANTILE``)."""
+    import tempfile
+
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    from repro_torch.core.distributed import sssp_distributed
+    from repro_torch.core.sssp import metrics_dict, sssp
+    from repro_torch.obs import (MetricsRegistry, materialize_trace,
+                                 parse_prometheus, to_prometheus,
+                                 write_perfetto)
+    name = "kronecker(20,16)"
+    r = results[name]
+    dg, bg, s = r["graph"], r["layout"], r["source"]
+    out, traces = {}, {}
+    for what, opts, counter in (
+            ("blocked", {}, "edge_relax"),
+            ("fused", dict(fused_rounds=FUSED_ROUNDS), "edge_relax_fused"),
+            ("adaptive", dict(policy="adaptive"), "edge_relax")):
+        solve_ = lambda **kw: sssp(dg, s, backend="blocked", layout=bg,
+                                   device=device, **opts, **kw)
+        out[what], traces[what] = traced_pair(
+            f"{name} tree {what}", solve_, lambda: solve_(trace=True),
+            counter, device)
+    if not (bitwise_equal(r["dist"], sssp(dg, s, backend="blocked",
+                                          layout=bg, device=device)[0])):
+        raise AssertionError(f"{name}: a tree solve differs from phase 3's")
+    *_, buf = sssp(dg, s, backend="blocked", layout=bg, device=device,
+                   trace=True, trace_capacity=TRACE_SMALL_RING)
+    small = materialize_trace(buf)
+    full = traces["blocked"]
+    if (small.n_recorded, small.dropped) != (
+            full.n_records, full.n_records - TRACE_SMALL_RING) or not all(
+            np.array_equal(small.columns[c],
+                           full.columns[c][-TRACE_SMALL_RING:])
+            for c in small.columns):
+        raise AssertionError(f"{name}: a ring of {TRACE_SMALL_RING} kept "
+                             f"{small.n_records} records, dropped "
+                             f"{small.dropped} of {small.n_recorded}")
+    log(f"[trace] {name} ring of {TRACE_SMALL_RING}: {small.n_recorded} "
+        f"written, {small.dropped} dropped, the last {small.n_records} "
+        "equal to the full trace's")
+    out["small_ring"] = dict(capacity=TRACE_SMALL_RING,
+                             written=small.n_recorded, dropped=small.dropped)
+
+    srcs = facade["tree"]["sources"]
+    traced = Solver.open(dg, EngineConfig(backend="blocked", trace=True),
+                         layout=bg, device=device)
+    plain = Solver.open(dg, EngineConfig(backend="blocked"), layout=bg,
+                        device=device)
+    spec = SolveSpec.tree(srcs)
+    b0, plain_s = timed(lambda: plain.solve(spec), device)
+    b, secs = timed(lambda: traced.solve(spec), device)
+    for i in range(len(srcs)):
+        m, m0 = (type(x.metrics)(*(f[i] for f in x.metrics))
+                 for x in (b, b0))
+        md = metrics_dict(m)
+        sums = b.trace[i].counter_sums()
+        if not (bitwise_equal(b.dist[i], b0.dist[i])
+                and b.parent[i].equal(b0.parent[i])) \
+                or md != metrics_dict(m0) \
+                or sums["n_relax"] != md["n_relax"] \
+                or b.trace[i].n_records != int(md["n_host_syncs"]) - 1:
+            raise AssertionError(f"{name}: traced batch slot {i} differs")
+    log(f"[trace] {name} tree x{len(srcs)} through Solver(trace=True): "
+        f"traced {secs!r} s against untraced {plain_s!r} s "
+        f"(x{secs / plain_s:.4f}), records per slot "
+        f"{[len(t) for t in b.trace]}, every slot bitwise the untraced "
+        "batch's, sums equal its metrics")
+    out["batch"] = dict(traced_s=secs, untraced_s=plain_s,
+                        records=[len(t) for t in b.trace])
+
+    v1 = lambda **kw: sssp_distributed(
+        r["sharded"], s, version="v1", backend="blocked",
+        blocked=r["shard_layout"], device=device, **kw)
+    out["v1"], _ = traced_pair(f"{name} v1 blocked", v1,
+                               lambda: v1(trace=True),
+                               "edge_relax_partials", device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        write_perfetto(full, path, name=f"{name} tree blocked")
+        events = json.loads(path.read_text())["traceEvents"]
+    rounds = sum(e.get("cat") == "round" for e in events)
+    if rounds != full.n_records:
+        raise AssertionError(f"{name}: the Perfetto file holds {rounds} "
+                             f"rounds of {full.n_records} records")
+    reg = MetricsRegistry()
+    for what, m in out.items():
+        if "records" in m and what != "batch":
+            reg.counter("sssp_trace_records_total", "trace records",
+                        {"solve": what}).inc(m["records"])
+            reg.histogram("sssp_solve_seconds", "traced solve seconds",
+                          {"solve": what}).observe(m["traced_s"])
+    parsed = parse_prometheus(to_prometheus(reg.snapshot()))
+    for what, m in out.items():
+        if "records" in m and what != "batch":
+            key = f'sssp_trace_records_total{{solve="{what}"}}'
+            if parsed[key] != m["records"]:
+                raise AssertionError(f"{key}: {parsed[key]} after the "
+                                     "Prometheus round trip")
+    log(f"[trace] Perfetto file: {len(events)} events, {rounds} round "
+        f"spans; Prometheus text: {len(parsed)} samples, read back equal")
+
+    profiles = {f"{name} tree blocked": profiled_solve(
+        f"sssp {name} tree blocked", lambda: sssp(
+            dg, s, backend="blocked", layout=bg, device=device),
+        out["blocked"]["untraced_s"], device)}
+    rname = "road_grid(1024)"
+    rr = results[rname]
+    finite = rr["dist"][torch.isfinite(rr["dist"])]
+    bound = float(np.float32(torch.quantile(
+        finite.double(), ROAD_PROFILE_QUANTILE).item()))
+    road = Solver.open(rr["graph"], EngineConfig(backend="blocked"),
+                       layout=rr["layout"], device=device)
+    profiles[f"{rname} bounded"] = profiled_solve(
+        f"sssp {rname} bounded (static, bound {bound!r})",
+        lambda: road.solve(SolveSpec.bounded(rr["source"], bound)), None,
+        device)
+    out["profiles"] = profiles
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the language-model serving path (flash_attention)
 # ---------------------------------------------------------------------------
 
@@ -3590,6 +4074,10 @@ def report(graphs, device):
     mark("v1 queries")
     facade_rows, facade = facade_phase(results, p2p, device)
     mark("phase 3c (facade)")
+    deltas = delta_phase(results, device)
+    mark("phase 3d (deltas)")
+    traces = trace_phase(results, facade, device)
+    mark("phase 3e (traces)")
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -3745,7 +4233,17 @@ def report(graphs, device):
         "goals": p2p["goals"],
         "v1_queries": {n: dict(queries=v1q[n]["queries"],
                                pruned=v1q[n]["pruned"]) for n in results},
-        "v1_goals": v1q["goals"], "facade": facade}
+        "v1_goals": v1q["goals"], "facade": facade, "deltas": deltas,
+        "traces": traces}
+    # launches of each kernel in each repair of phase 3d
+    per_repair = lambda mode: {k: d["repairs"][mode]["launches"]
+                               for k, d in deltas.items()
+                               if mode in d["repairs"]}
+    for row in kernels:
+        mode = {"edge_relax": "blocked", "edge_relax_fused": "fused",
+                "edge_relax_partials": "v1"}.get(row["name"])
+        if mode:
+            row["launches_per_repair"] = per_repair(mode)
     return kernels + facade_rows, solves
 
 

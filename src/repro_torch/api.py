@@ -19,11 +19,16 @@ batch shape) and every solve returns one :class:`SolveResult`.
 A scalar spec runs :func:`~repro_torch.core.sssp.sssp`, a batched one
 :func:`~repro_torch.core.sssp.sssp_batch`, whose slots are bitwise the
 scalar solves.  The session runs on ``cuda`` (the config's pinned device,
-else the current card) unless opened with ``device="cpu"``.
+else the current card) unless opened with ``device="cpu"``.  With
+``EngineConfig(trace=True)`` every result carries ``trace``: a
+:class:`~repro_torch.obs.trace.SolveTrace`, or one per slot of a batch.
+``apply_delta`` belongs to the routed tier: on the single tier it raises
+``ConfigError``, as the reference's does (patch with
+:mod:`repro_torch.delta` and repair, or reopen).
 
-The sharded and routed tiers, ``tuned=``, per-round traces, asynchronous
-``submit`` and streaming deltas belong to later slices of the port and
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+The sharded and routed tiers, ``tuned=`` and asynchronous ``submit``
+belong to later slices of the port and raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ from .core.config import (ConfigError, EngineConfig, ResolvedEngine,
 from .core.graph import BlockedGraph, DeviceGraph, HostGraph
 from .core.sssp import (GOALS, SsspMetrics, normalized_metrics,
                         resolve_device, sssp, sssp_batch)
+from .obs import profiling
+from .obs.trace import materialize_trace
 from .serve.queries import _host, reconstruct_path
 
 __all__ = ["EngineConfig", "ConfigError", "SolveSpec", "SolveResult",
@@ -49,10 +56,7 @@ _LATER = {
     "sharded": "the sharded tier (ROADMAP queue 1 item 10, sharded v2/v3)",
     "routed": "the routed tier (ROADMAP queue 1 item 9, the serving plane)",
     "tuned": "tuned= (ROADMAP queue 1 item 8, the tuner)",
-    "trace": "trace=True (ROADMAP queue 1 item 7, observability)",
     "submit": "submit() (ROADMAP queue 1 item 9, the serving plane)",
-    "apply_delta": "apply_delta() (ROADMAP queue 1 item 6, streaming "
-                   "deltas)",
     "router": "router (ROADMAP queue 1 item 9, the serving plane)",
     "registry": "registry (ROADMAP queue 1 item 9, the serving plane)",
 }
@@ -355,8 +359,6 @@ class Solver:
         if config is None:
             config = EngineConfig()
         resolved = as_resolved(config, n=int(graph.n), m=int(graph.m))
-        if resolved.trace:
-            raise _later("trace")
         return cls(graph, resolved, layout=layout, gid=gid, device=device)
 
     def _open_single(self, graph, layout, device):
@@ -378,7 +380,8 @@ class Solver:
             self._check_layout(layout)
             self._layout = layout
         else:
-            self._layout = self._backend.prepare(dg, **r.layout_opts())
+            with profiling.annotate(f"repro:engine_build:{r.backend}"):
+                self._layout = self._backend.prepare(dg, **r.layout_opts())
         self._build_landmarks(dg)
 
     def _build_landmarks(self, g) -> None:
@@ -388,10 +391,13 @@ class Solver:
         self._landmarks = None
         if self.resolved.use_alt:
             from .core.landmarks import build_landmarks
-            self._landmarks = build_landmarks(
-                g, self.resolved.n_landmarks, self.resolved.landmark_strategy,
-                device=self._device, backend=self._backend,
-                fused_rounds=self.resolved.fused_rounds, layout=self._layout)
+            with profiling.annotate("repro:landmark_build"):
+                self._landmarks = build_landmarks(
+                    g, self.resolved.n_landmarks,
+                    self.resolved.landmark_strategy, device=self._device,
+                    backend=self._backend,
+                    fused_rounds=self.resolved.fused_rounds,
+                    layout=self._layout)
 
     def _check_layout(self, layout) -> None:
         """A foreign layout must match the configured backend, cover the
@@ -500,7 +506,8 @@ class Solver:
                 results[i] = SolveResult(
                     spec=spec, dist=out.dist[sl], parent=out.parent[sl],
                     metrics=SsspMetrics(*(x[sl] for x in out.metrics)),
-                    deg=self.deg, tier=self.tier)
+                    deg=self.deg, tier=self.tier,
+                    trace=None if out.trace is None else out.trace[sl])
         return results
 
     def _goal_args(self, spec: SolveSpec) -> dict:
@@ -511,20 +518,31 @@ class Solver:
     def _solve_single(self, spec: SolveSpec) -> SolveResult:
         fn = sssp_batch if spec.batched else sssp
         srcs = list(spec.sources) if spec.batched else spec.sources
-        dist, parent, metrics = fn(
-            self._dg, srcs, config=self.resolved, layout=self._layout,
-            landmarks=self._landmarks, device=self._device,
-            **self._goal_args(spec))
-        return SolveResult(spec=spec, dist=dist, parent=parent,
-                           metrics=metrics, deg=self.deg, tier=self.tier)
+        out = fn(self._dg, srcs, config=self.resolved, layout=self._layout,
+                 landmarks=self._landmarks, device=self._device,
+                 **self._goal_args(spec))
+        # a traced config returns the device ring too: one copy to the host
+        trace = materialize_trace(out[3]) if self.resolved.trace_cap > 0 \
+            else None
+        return SolveResult(spec=spec, dist=out[0], parent=out[1],
+                           metrics=out[2], deg=self.deg, tier=self.tier,
+                           trace=trace)
 
     def submit(self, spec: SolveSpec):
         """Asynchronous solves run on the routed tier: not ported yet."""
         raise _later("submit")
 
     def apply_delta(self, edits) -> dict:
-        """Streaming graph edits: not ported yet."""
-        raise _later("apply_delta")
+        """Streaming graph edits belong to the routed tier (its registry
+        patches the served layouts in place); a single-tier session owns
+        immutable prebuilt state and raises ``ConfigError``, as the
+        reference's does."""
+        self._check_open()
+        raise ConfigError(
+            f"apply_delta() needs the routed tier; tier={self.tier!r} "
+            f"sessions own immutable prebuilt layouts — use "
+            f"repro_torch.delta.patch_blocked/patch_sharded/repair, or "
+            f"reopen the session on the patched graph")
 
     # ------------------------------------------------------------------
     # lifecycle / introspection

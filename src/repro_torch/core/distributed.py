@@ -42,8 +42,12 @@ engine.
 
 The layouts (:class:`ShardedGraph`, :class:`BlockedShards`) are built on
 the host in numpy, for every shard; each rank moves only its own shard
-to its device.  v2/v3, batches, repair, the adaptive policy, tracing and
-``config=`` come with later slices and raise ``NotImplementedError``.
+to its device.  ``trace=True`` records one replicated
+:mod:`~repro_torch.obs.trace` record per loop iteration, and
+:func:`repair_distributed` re-relaxes a repaired state after an edge
+delta (:mod:`repro_torch.delta`) with the v1 round and merge.  v2/v3,
+batches, the adaptive policy and ``config=`` come with later slices and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -58,6 +62,8 @@ import torch.distributed as tdist
 
 from . import relax
 from . import sssp as single
+from ..obs import profiling
+from ..obs.trace import trace_init
 from .graph import (DEFAULT_ALPHA, DEFAULT_BETA, HostGraph, TileIndex,
                     shard_block_v, shard_geometry, slice_for_shard)
 from .relax import INF, count
@@ -73,11 +79,13 @@ __all__ = ["ShardedGraph", "shard_graph", "BlockedShards",
 DIST_BACKENDS = ("segment_min", "blocked")
 
 _LATER = {
-    "version": "the v2/v3 slice (block-sharded state, the all_to_all "
-               "exchange, fused_rounds grouping)",
-    "batch": "the v2/v3 slice, with batched and repair solves",
+    "version": "the v2/v3 slice (ROADMAP queue 1 item 10: block-sharded "
+               "state, the all_to_all exchange, fused_rounds grouping)",
+    "batch": "the v2/v3 slice (ROADMAP queue 1 item 10), with batched "
+             "solves",
+    "repair": "the v2/v3 slice (ROADMAP queue 1 item 10); version='v1' "
+              "repairs",
     "policy": "the adaptive-policy slice",
-    "trace": "the observability slice",
     "config": "the config and facade slice",
 }
 
@@ -446,9 +454,9 @@ def _v1_pull_phase(view: _ShardView, dist, parent, st, lb, ub,
     return new_dist, new_parent, metrics
 
 
-def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
-            max_iters: int, alpha: float, beta: float, goal: str,
-            goal_param: torch.Tensor, alt: Optional[relax.AltData]):
+def _rank_view(sg: ShardedGraph, blocked, group, dev):
+    """This rank's :class:`_ShardView` and, on ``blocked``, its
+    :class:`_DeviceSlabs`, on ``dev`` (``deg`` gathered once)."""
     rank = tdist.get_rank(group)
     block = sg.deg.shape[1]
     t = lambda a, dtype=None: torch.from_numpy(
@@ -472,10 +480,20 @@ def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
                             t(arrays.forced[rank])),
             base=rank * block, block=block, tile_e=meta.tile_e,
             dense_grid_tiles=meta.dense_grid_tiles)
-    c = single._consts(deg, alpha, beta)
+    return view, slabs
+
+
+def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
+            max_iters: int, alpha: float, beta: float, goal: str,
+            goal_param: torch.Tensor, alt: Optional[relax.AltData],
+            buf=None):
+    view, slabs = _rank_view(sg, blocked, group, dev)
+    c = single._consts(view.deg, alpha, beta)
     s = single._initial_state(view.n, source, dev)
     ac = None if alt is None else _make_alt_ctx(alt, source, goal_param,
                                                 view.n)
+    # every value a record reads is replicated (the state, the summed
+    # counters), so the ring is the same on every rank
     return single._solve_loop(
         view, s, c, lambda s: _v1_relax_round(view, slabs, s, ac),
         lambda s: single._transition(
@@ -483,7 +501,7 @@ def _run_v1(sg: ShardedGraph, blocked, source: int, group, dev,
             pull_phase=_v1_pull_phase, goal=goal, goal_param=goal_param,
             alt_lb=None if ac is None else ac.lb,
             bound_of=None if ac is None else ac.bound),
-        max_iters)
+        max_iters, buf)
 
 
 # ---------------------------------------------------------------------------
@@ -508,7 +526,7 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
                      goal="tree", goal_param=None, backend="segment_min",
                      blocked=None, block_v=None, tile_e=None,
                      policy="static", config=None, landmarks=None,
-                     trace=False, device=None):
+                     trace=False, trace_capacity=256, device=None):
     """Sharded SSSP from ``source`` over the ranks of ``group`` (default:
     the world group, which must be initialised).
 
@@ -528,18 +546,21 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
     :class:`~repro_torch.core.relax.AltData`) prunes a p2p query exactly
     with ALT and is ignored by the other goals.
 
+    ``trace=True`` records one record per loop iteration in a ring of
+    ``trace_capacity`` (:mod:`repro_torch.obs.trace`), replicated on
+    every rank, and returns it as a fourth output.
+
     Only ``version="v1"`` is ported; the reference's default ``"v2"``
     stays the default and raises, as do ``fused_rounds``/``capacity``
-    (v2/v3 knobs), the adaptive ``policy``, ``trace`` and ``config``.
-    Returns ``(dist, parent, metrics)`` over the padded vertex range
-    ``[0, P*B)``, replicated on every rank, as device tensors.
+    (v2/v3 knobs), the adaptive ``policy`` and ``config``.  Returns
+    ``(dist, parent, metrics)`` over the padded vertex range ``[0,
+    P*B)``, replicated on every rank, as device tensors.
     """
     if version in ("v2", "v3") or fused_rounds or capacity is not None:
         raise _later("version")
     if version != "v1":
         raise ValueError(f"unknown distributed version {version!r}")
-    asked = {"policy": policy != "static", "trace": bool(trace),
-             "config": config is not None}
+    asked = {"policy": policy != "static", "config": config is not None}
     for name, on in asked.items():
         if on:
             raise _later(name)
@@ -550,8 +571,25 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
     if alt is not None and alt.D.shape[1] != sg.n_true:
         raise ValueError(f"landmark distances span {alt.D.shape[1]} "
                          f"vertices, the graph {sg.n_true}")
+    dev = _check_group(sg, group, device, "sssp_distributed")
+    if not 0 <= int(source) < sg.n_true:
+        raise ValueError(f"source {source} out of range for n={sg.n_true}")
+    layout = _resolve_blocked(sg, backend, blocked, dev, block_v, tile_e)
+    if alt is not None:
+        alt = relax.AltData(*(t.to(dev) for t in alt))
+    buf = trace_init(trace_capacity, dev) if trace else None
+    with profiling.annotate("repro:sssp_dist_dispatch:v1"):
+        out = _run_v1(sg, layout, int(source), group, dev, int(max_iters),
+                      float(alpha), float(beta), goal, gp.to(dev), alt, buf)
+    return out if buf is None else (*out, buf)
+
+
+def _check_group(sg: ShardedGraph, group, device, what: str):
+    """The solve's device, once the group is initialised, its backend
+    matches the device (NCCL for CUDA, gloo for the CPU) and its size
+    the shard count."""
     if not tdist.is_initialized():
-        raise RuntimeError("sssp_distributed needs a process group: call "
+        raise RuntimeError(f"{what} needs a process group: call "
                            "torch.distributed.init_process_group first")
     dev = _device_for(device)
     want = "nccl" if dev.type == "cuda" else "gloo"
@@ -564,13 +602,7 @@ def sssp_distributed(sg: ShardedGraph, source, group=None, *, version="v2",
     if world != n_shards:
         raise ValueError(f"graph has {n_shards} shards, the group "
                          f"{world} ranks")
-    if not 0 <= int(source) < sg.n_true:
-        raise ValueError(f"source {source} out of range for n={sg.n_true}")
-    layout = _resolve_blocked(sg, backend, blocked, dev, block_v, tile_e)
-    if alt is not None:
-        alt = relax.AltData(*(t.to(dev) for t in alt))
-    return _run_v1(sg, layout, int(source), group, dev, int(max_iters),
-                   float(alpha), float(beta), goal, gp.to(dev), alt)
+    return dev
 
 
 def sssp_distributed_batch(*args, **kwargs):
@@ -578,6 +610,64 @@ def sssp_distributed_batch(*args, **kwargs):
     raise _later("batch")
 
 
-def repair_distributed(*args, **kwargs):
-    """Sharded incremental repair: not ported yet."""
-    raise _later("batch")
+def repair_distributed(sg: ShardedGraph, dist, parent, frontier, group=None,
+                       *, version="v2", max_iters: int = 1_000_000,
+                       capacity: int = 0, backend="segment_min",
+                       blocked=None, block_v=None, tile_e=None,
+                       device=None):
+    """Incremental repair of a sharded SSSP state after an edge delta.
+
+    ``dist``/``parent``/``frontier`` are the invalidated tentative state
+    over the true (or padded) vertex range, as
+    :func:`repro_torch.delta.repair_state` makes it from an
+    :class:`~repro_torch.delta.AppliedDelta`; ``sg`` is the patched
+    :class:`ShardedGraph` (:func:`repro_torch.delta.patch_sharded`).
+    Every rank calls it with the same arguments, as
+    :func:`sssp_distributed`.  The v1 loop relaxes full-window rounds
+    (``lb = 0``, ``ub = +inf``, no step transitions): each rank's
+    partials over its slab (``segment_min``, or with ``backend=
+    "blocked"`` one ``edge_relax_partials`` call over its
+    :func:`shard_blocked` slabs, from ``blocked=`` or built here from
+    ``sg``), one ``all_reduce(MIN)`` of packed keys and one
+    ``all_reduce(SUM)`` of counters a round, and the replicated commit;
+    the loop goes on while the round improved a vertex, a flag every
+    rank reads from the replicated state.  The result is bitwise the
+    single-device repair's (:func:`repro_torch.delta.repair`).
+
+    Returns ``(dist, parent, metrics)`` over the padded ``n_pad`` range
+    (slice ``[:n]`` for the true vertices), replicated; the metrics
+    count only the repair's own work.  ``version`` ``"v2"``/``"v3"``
+    (the reference's default) raise ``NotImplementedError``, as
+    ``capacity`` (v3's) does.
+    """
+    if version in ("v2", "v3") or capacity:
+        raise _later("repair")
+    if version != "v1":
+        raise ValueError(f"unknown version {version!r}; expected v1/v2/v3")
+    dev = _check_group(sg, group, device, "repair_distributed")
+    layout = _resolve_blocked(sg, backend, blocked, dev, block_v, tile_e)
+    view, slabs = _rank_view(sg, layout, group, dev)
+    n_pad = view.n
+
+    def padded(x, dtype, value):
+        x = torch.as_tensor(x).to(dev, dtype)
+        return torch.cat([x, torch.full((n_pad - x.shape[0],), value,
+                                        dtype=dtype, device=dev)])
+    dist = padded(dist, torch.float32, INF)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    s = SsspState(dist=dist, parent=padded(parent, torch.int32, -1),
+                  frontier=padded(frontier, torch.bool, False), lb=zero,
+                  ub=torch.full((), INF, device=dev), st=zero,
+                  done=torch.zeros((), dtype=torch.bool, device=dev),
+                  metrics=single._zero_metrics(dev))
+    with profiling.annotate("repro:repair_dist_dispatch:v1"):
+        # the state is replicated, so every rank reads the same flag
+        go, syncs = bool(s.frontier.any()), 1
+        for _ in range(max_iters):
+            if not go:
+                break
+            s = _v1_relax_round(view, slabs, s)
+            go, syncs = bool(s.frontier.any()), syncs + 1
+    metrics = s.metrics._replace(n_host_syncs=torch.full(
+        (), float(syncs), dtype=torch.float32, device=dev))
+    return s.dist, s.parent, metrics

@@ -123,13 +123,21 @@ def select_landmarks(row_ptr: np.ndarray, dst: np.ndarray,
 class LandmarkSet:
     """A graph's ALT artifact: ``D`` the ``[L, N]`` f32 distance tensor
     (``D[l, v] = d(landmarks[l], v)``, +inf where unreached) on the device
-    that solves with it, ``sym`` the symmetry verdict and ``max_hops`` the
-    hop bound behind ``delta``."""
+    that solves with it, ``sym`` the symmetry verdict, ``max_hops`` the
+    hop bound behind ``delta``, and ``generation`` the registry
+    generation the set was built against (-1: unmanaged)."""
     landmarks: np.ndarray          # [L] int64 vertex ids
     D: torch.Tensor                # [L, N] f32 weighted distances
     strategy: str
     sym: bool
     max_hops: int
+    generation: int = -1
+    # a stale set survived an increase/remove-only edge delta: its old
+    # distances are still admissible *lower* bounds on the new graph
+    # (d_old <= d_new), but the reverse difference and the seeded d(s,t)
+    # upper bound are not; alt_data drops to forward-only bounds by
+    # reporting sym=0 (alt_seed_ub then returns +inf)
+    stale: bool = False
 
     @property
     def n_landmarks(self) -> int:
@@ -142,14 +150,18 @@ class LandmarkSet:
 
     @property
     def alt_data(self) -> AltData:
-        """The operands a p2p solve takes, on ``D``'s device."""
+        """The operands a p2p solve takes, on ``D``'s device (``sym`` 0
+        for a stale set)."""
         scalar = lambda x: torch.tensor(np.float32(x), device=self.D.device)
         return AltData(D=self.D, delta=scalar(self.delta),
-                       sym=scalar(1.0 if self.sym else 0.0))
+                       sym=scalar(1.0 if (self.sym and not self.stale)
+                                  else 0.0))
 
 
 def save(lm: LandmarkSet, path) -> None:
-    """Write ``lm`` to ``path`` (``.npz``, the reference's format)."""
+    """Write ``lm`` to ``path`` (``.npz``, the reference's format).
+    ``generation``/``stale`` are session state and are not written: a
+    loaded set starts unmanaged (``generation=-1``) and fresh."""
     np.savez(path, landmarks=lm.landmarks, D=lm.D.cpu().numpy(),
              strategy=np.asarray(lm.strategy), sym=np.asarray(lm.sym),
              max_hops=np.asarray(lm.max_hops))

@@ -3,7 +3,9 @@ single device (port of ``repro.core.sssp``): the full tree, the
 early-exit goals (p2p, bounded, knear) and ALT-pruned p2p queries,
 unidirectional or bidirectional, under the static or the adaptive
 stepping policy, one source at a time (:func:`sssp`) or a batch of
-sources in one loop (:func:`sssp_batch`).
+sources in one loop (:func:`sssp_batch`), with an optional per-round
+trace (:mod:`repro_torch.obs.trace`); and the repair loop of streaming
+deltas (:func:`repair_relax`).
 
 The reference flattens the solve into one ``lax.while_loop`` on the
 device.  Here the loop is Python and the state stays in device tensors
@@ -39,15 +41,18 @@ import numpy as np
 import torch
 
 from . import relax, stats, stepping, traversal
+from ..obs import profiling
+from ..obs.trace import TraceBuf, trace_append, trace_init
 from .config import (P2P_MODES, ConfigError, EngineConfig,
                      FacadeDeprecationWarning, as_resolved, resolve_devices)
-from .graph import DeviceGraph, HostGraph, degree_bucket
+from .graph import BlockedGraph, DeviceGraph, HostGraph, degree_bucket
 from .relax import INF, INT_MAX, count
 
 __all__ = ["sssp", "sssp_batch", "sssp_p2p", "sssp_bounded", "sssp_knear",
-           "prepare_layout", "SsspMetrics", "LOGICAL_METRIC_FIELDS",
-           "PHYSICAL_METRIC_FIELDS", "metrics_dict", "normalized_metrics",
-           "GOALS", "P2P_MODES", "goal_param_array", "INF", "INT_MAX"]
+           "repair_relax", "prepare_layout", "SsspMetrics",
+           "LOGICAL_METRIC_FIELDS", "PHYSICAL_METRIC_FIELDS", "metrics_dict",
+           "normalized_metrics", "GOALS", "P2P_MODES", "goal_param_array",
+           "INF", "INT_MAX"]
 
 # Early-exit query goals.  Each stops once its answer is settled (every
 # vertex with dist < lb is final, relax.settled_mask):
@@ -365,15 +370,65 @@ def _initial_state(n: int, source: int, dev) -> SsspState:
                      metrics=metrics0)
 
 
+# the SsspMetrics fields a trace record holds as f32 deltas
+_TRACE_PHYSICAL = ("n_tiles_scanned", "n_tiles_dense", "n_invocations")
+
+
+class _TraceSnap(NamedTuple):
+    """What a trace record reads of the state before an iteration, copied
+    (the batched loop writes rows of its state in place)."""
+    frontier: torch.Tensor   # frontier size
+    window: torch.Tensor     # lb, ub, st on the last axis
+    done: torch.Tensor
+    counts: torch.Tensor     # the logical counters on the last axis
+    physical: torch.Tensor   # the _TRACE_PHYSICAL counters
+
+
+def _trace_snap(s: SsspState) -> _TraceSnap:
+    m = s.metrics
+    return _TraceSnap(
+        frontier=count(s.frontier),
+        window=torch.stack([s.lb, s.ub, s.st], dim=-1),
+        done=s.done.clone(),
+        counts=torch.stack([getattr(m, f) for f in LOGICAL_METRIC_FIELDS],
+                           dim=-1),
+        physical=torch.stack([getattr(m, f) for f in _TRACE_PHYSICAL],
+                             dim=-1))
+
+
+def _trace_record(s0: _TraceSnap, s1: SsspState, buf: TraceBuf,
+                  rows=None) -> None:
+    """Append the record of one iteration, from the state before it
+    (``s0``) and after it (``s1``), to ``buf`` (the reference's
+    ``_trace_record``); on a stacked state, for the slots in ``rows``.
+    Every counter column is the iteration's exact delta; ``iter`` is the
+    ring's write count, which is the iteration's index, since a record is
+    written every iteration that a solve (or a slot) runs."""
+    m1 = s1.metrics
+    counts = (torch.stack([getattr(m1, f) for f in LOGICAL_METRIC_FIELDS],
+                          dim=-1) - s0.counts).unbind(-1)
+    physical = (torch.stack([getattr(m1, f) for f in _TRACE_PHYSICAL],
+                            dim=-1) - s0.physical).unbind(-1)
+    # the transition ran iff it advanced a step (or ended the solve)
+    stepped = (counts[1] > 0) | (s1.done & ~s0.done)
+    ivals = dict(iter=buf.n, frontier=s0.frontier, stepped=stepped,
+                 **dict(zip(LOGICAL_METRIC_FIELDS, counts)))
+    fvals = dict(zip(("lb", "ub", "st"), s0.window.unbind(-1)),
+                 **dict(zip(_TRACE_PHYSICAL, physical)))
+    trace_append(buf, ivals, fvals, rows)
+
+
 def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
-                max_iters: int):
+                max_iters: int, buf: TraceBuf | None = None):
     """The stepping loop: a relaxation call, the bootstrap tightening, one
     host read of ``(done, any(frontier))``, and the step transition when
-    the frontier is empty.  ``g`` needs ``deg``; returns ``(dist,
-    parent, metrics)``."""
+    the frontier is empty.  With ``buf`` every iteration that counts
+    appends its record (the dropped last round does not).  ``g`` needs
+    ``deg``; returns ``(dist, parent, metrics)``."""
     syncs = 0
     for _ in range(max_iters):
         prev = s
+        snap = None if buf is None else _trace_snap(s)
         s = relax_step(s)
         s = _bootstrap_ub(g, s, c.high_d0)
         done, any_front = torch.stack([s.done, s.frontier.any()]).tolist()
@@ -385,6 +440,8 @@ def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
             break
         if not any_front:
             s = transition(s)
+        if buf is not None:
+            _trace_record(snap, s, buf)
     metrics = s.metrics._replace(n_host_syncs=torch.full(
         (), float(syncs), dtype=torch.float32, device=g.deg.device))
     return s.dist, s.parent, metrics
@@ -408,13 +465,13 @@ def _policy_transition(policy: str, params, device, transition):
 def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
          max_iters: int, alpha: float, beta: float, fused_rounds: int = 0,
          goal: str = "tree", goal_param=None, alt=None,
-         policy: str = "static"):
+         policy: str = "static", buf: TraceBuf | None = None):
     """One SSSP computation; returns ``(dist, parent, metrics)``.
     ``fused_rounds > 0`` (blocked layouts) relaxes through the fused
     kernel, up to that many rounds per call.  ``goal_param`` is a 0-d
     device tensor; ``alt`` (an :class:`relax.AltData`, p2p only) prunes
     with the landmark bounds toward the target; ``policy`` is
-    ``"static"`` or ``"adaptive"``."""
+    ``"static"`` or ``"adaptive"``; ``buf`` records the iterations."""
     c = _consts(g.deg, alpha, beta)
     s = _initial_state(g.n, source, g.device)
     alt_lb = bound_of = None
@@ -442,7 +499,8 @@ def _run(g: DeviceGraph, layout, source: int, backend: relax.RelaxBackend,
         policy, c.params, g.device,
         lambda s, **ps: _transition(g, s, c, goal=goal,
                                     goal_param=goal_param, alt_lb=alt_lb,
-                                    bound_of=bound_of, **ps)), max_iters)
+                                    bound_of=bound_of, **ps)), max_iters,
+        buf)
 
 
 def _pick(fwd: torch.Tensor, a: SsspState, b: SsspState) -> SsspState:
@@ -523,6 +581,66 @@ def _run_bidi(g: DeviceGraph, layout, source: int, target: int, backend,
     return sf.dist, sf.parent, metrics
 
 
+def repair_relax(layout, dist, parent, frontier, *, backend="segment_min",
+                 max_iters=1_000_000, fused_rounds=0):
+    """Monotone re-relaxation to fixpoint from a repaired tentative state
+    (the engine hook of :mod:`repro_torch.delta`).
+
+    Runs synchronized full-window rounds (``lb = 0``, ``ub = +inf``)
+    through ``backend`` on ``layout`` (``segment_min``: the
+    ``DeviceGraph``; ``blocked``: a ``BlockedGraph``, one ``edge_relax``
+    call a round), or with ``fused_rounds > 0`` through the fused kernel
+    (blocked layouts only; at ``lb = 0`` it runs one round a call, as the
+    reference's does), until no distance improves or ``max_iters`` calls
+    ran.  Each round's frontier
+    is exactly the vertices the previous round improved, so the work
+    follows the delta's blast radius, not the graph.  From a valid
+    upper-bound state whose frontier covers every vertex that can start
+    an improvement (:func:`repro_torch.delta.repair` builds one), the
+    fixpoint dist is bitwise a from-scratch solve's on the patched graph
+    (the same relaxation primitives and tie-breaks as the stepping loop,
+    and the rounded fixpoint does not depend on the schedule), and so is
+    parent wherever two paths do not tie exactly in f32.
+
+    The loop reads the host once per call (whether the frontier is
+    empty); no step transition runs.  Metrics start from zero and count
+    only the repair's own work.  Returns ``(dist, parent, metrics)`` on
+    the layout's device.
+    """
+    be = relax.get_backend(backend)
+    if fused_rounds > 0 and not isinstance(layout, BlockedGraph):
+        raise ConfigError(
+            "fused_rounds needs a blocked layout for repair; got "
+            f"{type(layout).__name__}")
+    dev = layout.w.device
+    dist, parent, frontier = (torch.as_tensor(x).to(dev, dtype) for x, dtype
+                              in ((dist, torch.float32),
+                                  (parent, torch.int32),
+                                  (frontier, torch.bool)))
+    n = dist.shape[0]
+    if parent.shape != (n,) or frontier.shape != (n,):
+        raise ValueError("dist/parent/frontier shapes disagree")
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    s = SsspState(dist=dist, parent=parent, frontier=frontier, lb=zero,
+                  ub=torch.full((), INF, device=dev), st=zero,
+                  done=torch.zeros((), dtype=torch.bool, device=dev),
+                  metrics=_zero_metrics(dev))
+    if fused_rounds > 0:
+        step = lambda s: _fused_relax_rounds(layout, s, fused_rounds)
+    else:
+        step = lambda s: _relax_round(be, layout, s)
+    with profiling.annotate("repro:repair_dispatch"):
+        go, syncs = bool(frontier.any()), 1
+        for _ in range(max_iters):
+            if not go:
+                break
+            s = step(s)
+            go, syncs = bool(s.frontier.any()), syncs + 1
+    metrics = s.metrics._replace(n_host_syncs=torch.full(
+        (), float(syncs), dtype=torch.float32, device=dev))
+    return s.dist, s.parent, metrics
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another; with no card and no explicit CPU request, this raises."""
@@ -560,7 +678,9 @@ def prepare_layout(g, backend="segment_min", *, device=None,
     ``backend_opts`` are ``block_v``/``tile_e``."""
     _check_layout_opts(backend_opts)
     g = _on_device(g, resolve_device(device))
-    return relax.get_backend(backend).prepare(g, **backend_opts)
+    be = relax.get_backend(backend)
+    with profiling.annotate(f"repro:prepare_layout:{be.name}"):
+        return be.prepare(g, **backend_opts)
 
 
 _CONFIG_FIELDS = frozenset(f.name for f in dataclasses.fields(EngineConfig))
@@ -572,8 +692,7 @@ def _engine_args(g, config, landmarks, loose: dict):
     The loose keywords are the reference's: the engine knobs and any
     other :class:`EngineConfig` field, except ``use_kernel``, which the
     port has no use for (``TypeError``).  Explicit ``landmarks`` are ALT
-    data: a loose config that passes them gets ``use_alt=True``.  Per-round
-    tracing raises ``NotImplementedError``."""
+    data: a loose config that passes them gets ``use_alt=True``."""
     unknown = sorted(set(loose) - (_CONFIG_FIELDS - {"use_kernel"}))
     if unknown:
         raise TypeError(f"unknown engine options {unknown}")
@@ -584,12 +703,7 @@ def _engine_args(g, config, landmarks, loose: dict):
     config = EngineConfig.from_loose(
         config, "engine",
         defaults=None if landmarks is None else {"use_alt": True}, **loose)
-    r = as_resolved(config, n=g.n, m=g.m).require("single")
-    if r.trace:
-        raise NotImplementedError(
-            "trace=True (per-round solve traces) is not ported yet; it "
-            "comes with the observability slice (ROADMAP queue 1 item 7)")
-    return r
+    return as_resolved(config, n=g.n, m=g.m).require("single")
 
 
 def _check_layout_given_once(layout, loose: dict) -> None:
@@ -631,7 +745,7 @@ def _prepare(g, r, device, sources, layout, landmarks, goal):
             if alt is None:
                 raise ConfigError("p2p_mode='bidirectional' needs a landmark "
                                   "set (use_alt=True / landmarks=...)")
-            if r.policy != "static":
+            if r.policy != "static" or r.trace_cap > 0:
                 raise ConfigError("p2p_mode='bidirectional' supports only "
                                   "policy='static' without tracing")
     return be, g, layout, alt
@@ -662,8 +776,10 @@ def sssp(g, source, *, backend=None, layout=None, max_iters=None,
     and is ignored by the other goals; ``use_alt=True`` without it
     builds a set for the call; ``p2p_mode="bidirectional"`` (which needs
     landmarks) runs the meet-in-the-middle p2p solve.  Returns ``(dist,
-    parent, metrics)`` as device tensors.  ``trace=True`` belongs to a
-    later slice and raises ``NotImplementedError``.
+    parent, metrics)`` as device tensors, or ``(dist, parent, metrics,
+    trace_buf)`` when the config traces (``EngineConfig(trace=True)``:
+    one record per loop iteration in a ring of ``trace_capacity``;
+    :func:`repro_torch.obs.materialize_trace` copies it to the host).
     """
     loose = dict(backend_opts, backend=backend, max_iters=max_iters,
                  alpha=alpha, beta=beta, fused_rounds=fused_rounds,
@@ -678,13 +794,16 @@ def sssp(g, source, *, backend=None, layout=None, max_iters=None,
     _check_goal_bounds(goal, gp_host, g.n)
     be, g, layout, alt = _prepare(g, r, device, [source], layout, landmarks,
                                   goal)
-    if goal == "p2p" and r.p2p_mode == "bidirectional":
-        return _run_bidi(g, layout, int(source), int(gp_host), be,
-                         r.max_iters, float(r.alpha), float(r.beta),
-                         r.fused_rounds, alt)
-    return _run(g, layout, int(source), be, r.max_iters, float(r.alpha),
-                float(r.beta), r.fused_rounds, goal, gp_host.to(g.device),
-                alt, r.policy)
+    with profiling.annotate("repro:sssp_dispatch"):
+        if goal == "p2p" and r.p2p_mode == "bidirectional":
+            return _run_bidi(g, layout, int(source), int(gp_host), be,
+                             r.max_iters, float(r.alpha), float(r.beta),
+                             r.fused_rounds, alt)
+        buf = trace_init(r.trace_cap, g.device) if r.trace_cap > 0 else None
+        out = _run(g, layout, int(source), be, r.max_iters, float(r.alpha),
+                   float(r.beta), r.fused_rounds, goal, gp_host.to(g.device),
+                   alt, r.policy, buf)
+    return out if buf is None else (*out, buf)
 
 
 def _shim(name: str, replacement: str) -> None:
@@ -773,7 +892,7 @@ def _slots(active: list, n_slots: int, dev) -> relax.Slots:
 
 def _run_batch(g: DeviceGraph, layout, sources: list, backend, max_iters,
                alpha: float, beta: float, fused_rounds: int, goal: str, gp,
-               alt, policy: str):
+               alt, policy: str, buf: TraceBuf | None = None):
     """``len(sources)`` solves in one loop over a stacked ``[S, n]`` state.
 
     Each iteration relaxes every slot still running in one backend call
@@ -785,7 +904,10 @@ def _run_batch(g: DeviceGraph, layout, sources: list, backend, max_iters,
     transition finished it drops this iteration's round, as the one-slot
     loop does, and leaves the batch; so every slot's dist, parent and
     logical counters are its single solve's, bit for bit.  ``gp`` holds
-    the per-slot goal parameters ``[S]`` on the device."""
+    the per-slot goal parameters ``[S]`` on the device.  ``buf`` (a
+    stacked ring, one per slot) gets a record for each slot that ran the
+    iteration, as the reference's vmapped loop leaves a finished slot's
+    ring as it was."""
     n_slots, dev = len(sources), g.device
     c = _consts(g.deg, alpha, beta)
     s = _initial_states(g.n, sources, dev)
@@ -828,6 +950,7 @@ def _run_batch(g: DeviceGraph, layout, sources: list, backend, max_iters,
     syncs = [0] * n_slots
     for _ in range(max_iters):
         prev = s
+        snap = None if buf is None else _trace_snap(s)
         s = relax_step(s, active, slots)
         s = _bootstrap_ub(g, s, c.high_d0)
         done, any_front = torch.stack([s.done, s.frontier.any(dim=1)]
@@ -861,6 +984,8 @@ def _run_batch(g: DeviceGraph, layout, sources: list, backend, max_iters,
                 for x, y in zip(ps, ps_i):
                     x[i] = y
                 _set_row(s, i, row)
+        if buf is not None:
+            _trace_record(snap, s, buf, slots.ids.long())
     metrics = s.metrics._replace(n_host_syncs=torch.tensor(
         syncs, dtype=torch.float32).to(dev))
     return s.dist, s.parent, metrics
@@ -884,7 +1009,10 @@ def sssp_batch(g, sources, *, backend=None, layout=None, max_iters=None,
     while the rest keep stepping.  So every slot's ``dist``, ``parent``
     and logical counters are bitwise those of :func:`sssp` from
     ``sources[i]`` with ``goal_params[i]`` (and the reference's
-    ``sssp_batch``, whose vmapped loop freezes a finished slot).
+    ``sssp_batch``, whose vmapped loop freezes a finished slot).  A
+    traced config adds a fourth output, a ring per slot (``[S, cap,
+    cols]`` planes) that :func:`repro_torch.obs.materialize_trace` turns
+    into one ``SolveTrace`` per slot.
 
     Two cases run slot by slot inside each iteration, with the same
     per-slot result: with ``fused_rounds > 0`` the fused kernel runs once
@@ -915,17 +1043,22 @@ def sssp_batch(g, sources, *, backend=None, layout=None, max_iters=None,
     _check_goal_bounds(goal, gp_host, g.n)
     be, g, layout, alt = _prepare(g, r, device, sources, layout, landmarks,
                                   goal)
-    if goal == "p2p" and r.p2p_mode == "bidirectional":
-        outs = [_run_bidi(g, layout, s, int(t), be, r.max_iters,
-                          float(r.alpha), float(r.beta), r.fused_rounds, alt)
-                for s, t in zip(sources, gp_host.tolist())]
-        return (torch.stack([o[0] for o in outs]),
-                torch.stack([o[1] for o in outs]),
-                SsspMetrics(*(torch.stack(f) for f in
-                              zip(*(o[2] for o in outs)))))
-    return _run_batch(g, layout, sources, be, r.max_iters, float(r.alpha),
-                      float(r.beta), r.fused_rounds, goal,
-                      gp_host.to(g.device), alt, r.policy)
+    with profiling.annotate("repro:sssp_batch_dispatch"):
+        if goal == "p2p" and r.p2p_mode == "bidirectional":
+            outs = [_run_bidi(g, layout, s, int(t), be, r.max_iters,
+                              float(r.alpha), float(r.beta), r.fused_rounds,
+                              alt)
+                    for s, t in zip(sources, gp_host.tolist())]
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]),
+                    SsspMetrics(*(torch.stack(f) for f in
+                                  zip(*(o[2] for o in outs)))))
+        buf = trace_init(r.trace_cap, g.device, len(sources)) \
+            if r.trace_cap > 0 else None
+        out = _run_batch(g, layout, sources, be, r.max_iters, float(r.alpha),
+                         float(r.beta), r.fused_rounds, goal,
+                         gp_host.to(g.device), alt, r.policy, buf)
+    return out if buf is None else (*out, buf)
 
 
 def metrics_dict(metrics: SsspMetrics) -> dict:

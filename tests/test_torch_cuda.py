@@ -1180,3 +1180,99 @@ def test_cuda_batched_facade_matches_single_solves(card):
             for f in LOGICAL_METRIC_FIELDS:
                 assert int(getattr(res.metrics, f)[i]) == int(
                     getattr(one.metrics, f)), (spec.kind, i, f)
+
+
+# ---------------------------------------------------------------------------
+# streaming deltas and traces on the card
+# ---------------------------------------------------------------------------
+
+def _delta_case(seed=3):
+    """kronecker(10, 8): a mixed edit batch (removals and reweights of
+    random edges, additions) and an addition-only one, from numpy."""
+    from repro_torch.delta import EdgeDelta
+    g = kronecker(10, 8, seed=1)
+    rng = np.random.default_rng(seed)
+    und = np.flatnonzero(g.src < g.dst)
+    key = g.src[und].astype(np.int64) * g.n + g.dst[und]
+    und = und[np.sort(np.unique(key, return_index=True)[1])]
+    pick = rng.choice(und, 24, replace=False)
+    pairs = [(int(g.src[e]), int(g.dst[e])) for e in pick]
+    adds = [(int(u), int(v), float(np.float32(rng.uniform(0.1, 1.0))))
+            for u, v in rng.integers(0, g.n, (12, 2)) if u != v]
+    mixed = EdgeDelta(remove=pairs[:12], add=adds, reweight=[
+        (u, v, float(np.float32(g.w[e]) * rng.uniform(0.5, 2.0)))
+        for (u, v), e in zip(pairs[12:], pick[12:])])
+    grow = EdgeDelta(add=[(int(u), int(v), 0.5) for u, v in
+                          rng.integers(0, g.n, (300, 2)) if u != v])
+    return g, mixed, grow
+
+
+@pytest.mark.parametrize("which", ["mixed", "grow"])
+def test_cuda_patched_layout_equals_rebuild(card, which):
+    """``patch_blocked`` on the card's layout (one bucket of 256-slot
+    tiles): the patched tensors and the vertex->tile index equal a
+    rebuild's, on the card; in place where the tile count held."""
+    from repro_torch.delta import patch_blocked
+    g, mixed, grow = _delta_case()
+    layout = build_blocked(g, device=card)
+    ptr = layout.src.data_ptr()
+    new, new_host, _ = patch_blocked(layout, mixed if which == "mixed"
+                                     else grow, host=g)
+    want = build_blocked(new_host, device=card)
+    assert new.slab_ptr == want.slab_ptr
+    assert new.dense_grid_tiles == want.dense_grid_tiles
+    for f in ("src", "dst", "w", "tile_dst", "tile_first",
+              "bucket_nonempty", "deg"):
+        assert getattr(new, f).is_cuda and torch.equal(
+            getattr(new, f), getattr(want, f)), f
+    for a, b in zip(new.index, want.index):
+        assert a.is_cuda and torch.equal(a, b)
+    assert (new.src.data_ptr() == ptr) == (want.src.numel()
+                                           == layout.src.numel())
+    if which == "grow":
+        assert new.src.data_ptr() != ptr
+
+
+def test_cuda_repair_matches_segment_min(card):
+    """``repair`` on ``blocked`` (edge_relax) and fused
+    (edge_relax_fused) on the card, bitwise the plain ``segment_min``
+    repair and a from-scratch solve of the patched graph, with the
+    kernels' launches counted."""
+    from repro_torch.delta import patch_blocked, repair
+    g, mixed, _ = _delta_case()
+    src = int(np.argmax(g.deg))
+    d0, p0, _ = sssp(g, src, backend="blocked", device=card)
+    new_layout, new_host, applied = patch_blocked(
+        build_blocked(g, device=card), mixed, host=g)
+    plain = repair(new_host.to_device(card), new_host, d0, p0, applied)
+    scratch = sssp(new_host, src, backend="blocked", device=card)
+    assert torch.equal(plain[0], scratch[0])
+    assert torch.equal(plain[1], scratch[1])
+    for fused, counter in ((0, "edge_relax"), (4, "edge_relax_fused")):
+        ops.LAUNCHES.reset()
+        got = repair(new_layout, new_host, d0, p0, applied,
+                     backend="blocked", fused_rounds=fused)
+        assert getattr(ops.LAUNCHES, counter) > 0, counter
+        assert torch.equal(got[0], plain[0]), fused
+        assert torch.equal(got[1], plain[1]), fused
+        assert {f: metrics_dict(got[2])[f] for f in LOGICAL_METRIC_FIELDS} \
+            == {f: metrics_dict(plain[2])[f] for f in LOGICAL_METRIC_FIELDS}
+
+
+def test_cuda_traced_solve_equals_untraced(card):
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.obs import materialize_trace
+    g = road_grid(24, seed=2)
+    for cfg in (dict(backend="blocked"),
+                dict(backend="blocked", fused_rounds=4),
+                dict(backend="blocked", policy="adaptive")):
+        d, p, m, buf = sssp(g, 5, device=card,
+                            config=EngineConfig(trace=True, **cfg))
+        d0, p0, m0 = sssp(g, 5, device=card, config=EngineConfig(**cfg))
+        assert torch.equal(d, d0) and torch.equal(p, p0), cfg
+        t = materialize_trace(buf)
+        sums = t.counter_sums()
+        md = metrics_dict(m)
+        assert md == metrics_dict(m0)
+        for f in LOGICAL_METRIC_FIELDS:
+            assert sums[f] + (f == "n_extended") == md[f], (cfg, f)

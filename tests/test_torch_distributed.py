@@ -567,18 +567,29 @@ def test_v1_queries_over_ranks_match_single_device(world, name, backend,
 @pytest.mark.parametrize("kw", [
     dict(), dict(version="v2"), dict(version="v3"),
     dict(version="v1", fused_rounds=4), dict(version="v1", capacity=8),
-    dict(version="v1", policy="adaptive"), dict(version="v1", trace=True),
+    dict(version="v1", policy="adaptive"),
     dict(version="v1", config=object())],
     ids=["default-v2", "v2", "v3", "fused_rounds", "capacity", "policy",
-         "trace", "config"])
+         "config"])
 def test_later_slices_raise(kw):
+    """v2/v3 and their knobs, batches, the adaptive policy and ``config=``
+    raise; ``trace=True`` and the v1 repair are ported
+    (``test_torch_obs.py``, ``test_torch_delta.py``), and the repair
+    raises at v2 (its default, the reference's), v3 and v3's
+    ``capacity``."""
     _, _, tsg, _, _ = _layouts("road16", 1)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tdistributed.sssp_distributed(tsg, 0, device="cpu", **kw)
-    for entry in (tdistributed.sssp_distributed_batch,
-                  tdistributed.repair_distributed):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            entry(tsg, [0], device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tdistributed.sssp_distributed_batch(tsg, [0], device="cpu")
+    n = tsg.n_true
+    state = (np.full(n, np.inf, np.float32), np.full(n, -1, np.int32),
+             np.zeros(n, bool))
+    # v1 repairs; with v3's capacity it raises as v3 does
+    rkw = dict(version="v1", capacity=8) if kw.get("version") == "v1" \
+        else {k: v for k, v in kw.items() if k == "version"}
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tdistributed.repair_distributed(tsg, *state, device="cpu", **rkw)
 
 
 def test_needs_a_process_group():

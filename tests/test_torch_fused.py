@@ -155,8 +155,8 @@ def test_fused_solve_matches_reference_and_unfused(name):
 def test_fused_rounds_needs_the_blocked_backend():
     """The reference's config checks: fused rounds need a blocked backend
     and a count >= 0 (``ConfigError``, a ``ValueError``); with them, a
-    dict is not a config, the adaptive policy solves bitwise as the
-    unfused adaptive solve, and tracing belongs to a later slice."""
+    dict is not a config, and the adaptive policy and a traced solve run
+    bitwise as the unfused ones (dist and parent)."""
     _, hg = _graph("road16")
     with pytest.raises(ValueError, match="needs a blocked backend"):
         sssp(hg, 0, backend="segment_min", fused_rounds=4, device="cpu")
@@ -164,7 +164,7 @@ def test_fused_rounds_needs_the_blocked_backend():
         sssp(hg, 0, backend="blocked", fused_rounds=-1, device="cpu")
     for later, exc in ((dict(config={}), ConfigError),
                        (dict(policy="adaptive"), None),
-                       (dict(trace=True), NotImplementedError)):
+                       (dict(trace=True), None)):
         if exc is None:
             fused = sssp(hg, 0, backend="blocked", fused_rounds=4,
                          device="cpu", **later)

@@ -1,5 +1,6 @@
 """The port stands alone: ``import repro_torch``, CPU solves (single
-device, fused, sharded v1, ALT p2p with a landmark build, bidirectional),
+device, fused, sharded v1, ALT p2p with a landmark build, bidirectional,
+a delta's patch and repair, a traced solve),
 CPU serving of the LM and the recsys path (embedding layer, MIND) load
 neither jax nor the reference package,
 ``chip_smoke.py`` and the card-side tests import neither, entry points
@@ -46,9 +47,19 @@ with tempfile.TemporaryDirectory() as tmp:
                                 backend="blocked", block_v=64, tile_e=64,
                                 device="cpu")
     tdist.destroy_process_group()
+from repro_torch import delta, obs
+new_host, applied = delta.patch_host(g, delta.EdgeDelta(
+    add=[(0, g.n - 1, 0.25)]))
+dr, _, _, _ = delta.repair(new_host.to_device("cpu"), new_host, d, p,
+                           applied)
+*_, buf = sssp(new_host, 0, device="cpu", trace=True)
+text = obs.to_prometheus(obs.MetricsRegistry().snapshot())
 loaded = sorted(k for k in sys.modules
                 if k.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"loaded": loaded,
+                  "repaired": bool(dr.equal(sssp(new_host, 0,
+                                                 device="cpu")[0])),
+                  "traced": obs.materialize_trace(buf).n_records > 0,
                   "launches": LAUNCHES.edge_relax + LAUNCHES.edge_relax_fused
                   + LAUNCHES.edge_relax_partials + LAUNCHES.edge_relax_alt
                   + LAUNCHES.edge_relax_fused_alt,
@@ -70,6 +81,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert res["launches"] == 0           # CPU tensors: the plain version
     assert res["reached"] > 1 and res["fused_same"] and res["v1_same"]
     assert res["p2p_same"]
+    assert res["repaired"] and res["traced"]
 
 
 _LM_PROBE = """
@@ -165,12 +177,27 @@ def test_unported_architectures_raise():
         configs.get("llama-7b")
 
 
+_STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/obs/trace.py",
+               "src/repro_torch/obs/metrics.py",
+               "src/repro_torch/obs/profiling.py")
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py",
                                   "tools/edge_relax_ablation.py",
                                   "tools/embedding_bag_grid.py",
                                   "src/repro_torch/api.py",
                                   "src/repro_torch/core/config.py",
-                                  "src/repro_torch/serve/queries.py"])
+                                  "src/repro_torch/serve/queries.py",
+                                  "src/repro_torch/delta/__init__.py",
+                                  "src/repro_torch/delta/edits.py",
+                                  "src/repro_torch/delta/patch.py",
+                                  "src/repro_torch/delta/repair.py",
+                                  "src/repro_torch/obs/__init__.py",
+                                  "src/repro_torch/obs/trace.py",
+                                  "src/repro_torch/obs/metrics.py",
+                                  "src/repro_torch/obs/export.py",
+                                  "src/repro_torch/obs/profiling.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -185,7 +212,9 @@ def test_card_side_files_import_no_jax(path):
             names.add(node.module)
     roots = {n.split(".")[0] for n in names}
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
-    assert "repro_torch" in roots
+    # modules that keep their own copy of a reference module import
+    # nothing of the package
+    assert "repro_torch" in roots or path in _STANDALONE, path
 
 
 def test_entry_point_needs_a_card_unless_told_cpu():

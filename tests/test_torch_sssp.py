@@ -211,7 +211,7 @@ def test_prepared_layout_and_metrics():
     (dict(config={}), ConfigError, "expected EngineConfig"),
     (dict(fused_rounds=4), ValueError, "fused"),
     (dict(policy="adaptive"), None, None),
-    (dict(trace=True), NotImplementedError, "observab"),
+    (dict(trace=True), None, None),
     (dict(bogus_opt=1), TypeError, "bogus_opt"),
     (dict(goal_params=[1]), TypeError, "goal_params"),
     (dict(goal="p2p", goal_param=3, p2p_mode="bidirectional"), ValueError,
@@ -219,17 +219,18 @@ def test_prepared_layout_and_metrics():
 def test_later_slices_raise(kw, exc, match):
     """Each option behaves as the reference's: a dict is not a config
     (``ConfigError``), fused rounds on the default ``segment_min`` backend
-    raise ``ConfigError`` (a ``ValueError``), the adaptive policy solves
-    (bitwise the reference's), tracing still belongs to a later slice
-    (``NotImplementedError`` naming it), an unknown keyword raises
+    raise ``ConfigError`` (a ``ValueError``), the adaptive policy and a
+    traced solve run (bitwise the reference's), an unknown keyword raises
     ``TypeError`` naming it, and the bidirectional p2p mode without
     landmarks raises ``ConfigError``."""
     rg = rgen.road_grid(4, seed=1)
     hg = convert.from_reference(ref_arrays(rg), "cpu")
     if exc is None:
         from repro.core.config import EngineConfig
-        ref = _np(ref_sssp(rg.to_device(), 0, config=EngineConfig(**kw)))
-        assert_same(ref, _port(sssp(hg, 0, device="cpu", **kw)), str(kw))
+        ref = _np(ref_sssp(rg.to_device(), 0,
+                           config=EngineConfig(**kw))[:3])
+        assert_same(ref, _port(sssp(hg, 0, device="cpu", **kw)[:3]),
+                    str(kw))
         return
     with pytest.raises(exc, match=match):
         sssp(hg, 0, device="cpu", **kw)

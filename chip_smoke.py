@@ -47,9 +47,11 @@ Phases, in order; any failure exits non-zero:
    shortest-path-tree solve from the max-degree source of
    ``kronecker(20, 16, seed=1)`` and of ``road_grid(1024, seed=5)``, on
    the blocked backend (the ``edge_relax`` kernel), on the blocked
-   backend with ``fused_rounds=4`` (the ``edge_relax_fused`` kernel) and
-   on ``segment_min`` (plain torch).  ``dist``/``parent`` must be bitwise
-   equal and the logical counters equal across the three, each kernel
+   backend with ``fused_rounds=4`` (the ``edge_relax_fused`` kernel) and,
+   on kronecker only (``PLAIN_GRAPHS``: road_grid's plain solves, 28.6
+   and 33.6 s on an H100, are cut for phase 3f's time), on
+   ``segment_min`` (plain torch).  ``dist``/``parent`` must be bitwise
+   equal and the logical counters equal across the solves, each kernel
    must have launched in its own solve, the fused solve must not launch
    ``edge_relax`` and, on the road graph, must make at most half the
    unfused solve's invocations, and ``dist`` must match scipy's float64
@@ -64,9 +66,10 @@ Phases, in order; any failure exits non-zero:
    each solved five ways: p2p without landmarks on ``blocked``; with
    landmarks on ``blocked`` (``edge_relax``'s ALT branch), on ``blocked``
    with ``fused_rounds=4`` (``edge_relax_fused``'s ALT branch),
-   bidirectionally on ``blocked``, and on ``segment_min`` (plain).
+   bidirectionally on ``blocked``, and, on kronecker only
+   (``PLAIN_GRAPHS``), on ``segment_min`` (plain).
    ``dist[t]`` and the reconstructed path must be bitwise equal across
-   the five, ``dist[t]`` must equal the tree solve's (same source) or
+   the solves, ``dist[t]`` must equal the tree solve's (same source) or
    scipy Dijkstra's at ``rtol=1e-4``, the three unidirectional ALT solves
    must have equal logical counters, some candidate must be pruned on
    each graph, each ALT solve must launch its ALT kernel and the unpruned
@@ -79,13 +82,14 @@ Phases, in order; any failure exits non-zero:
    four counters bitwise equal).  Then the sharded v1 engine on
    kronecker(20,16) and road_grid(1024) (``sssp_distributed``, one rank),
    on ``blocked`` (the ``edge_relax_partials`` kernel, which must
-   launch, with no launch of the other two) and on ``segment_min``: both
-   bitwise equal to the single-device blocked solve, with equal logical
-   counters, and matching Dijkstra.  Then queries on the v1 engine:
-   both kronecker pairs of the p2p phase and road_grid's pair 2 with its
+   launch, with no launch of the other two) and, on kronecker, on
+   ``segment_min``: each bitwise equal to the single-device blocked
+   solve, with equal logical counters, and matching Dijkstra.  Then
+   queries on the v1 engine: both kronecker pairs of the p2p phase and road_grid's pair 2 with its
    landmark sets, on ``blocked`` (``edge_relax_partials``' ALT branch,
-   which must launch, with no other kernel) and on ``segment_min``:
-   ``dist[t]`` and the path bitwise the unpruned single-device query's,
+   which must launch, with no other kernel) and, on kronecker, on
+   ``segment_min``: ``dist[t]`` and the path bitwise the unpruned
+   single-device query's,
    ``n_relax`` and ``n_pruned`` the single-device ALT query's, some
    candidate pruned on each graph; a ``bounded`` and a ``knear`` query
    on kronecker, settled entries equal to the tree solve's.  Then that
@@ -120,8 +124,8 @@ Phases, in order; any failure exits non-zero:
    unfused batch.  Then an ``EngineConfig(policy="adaptive")`` tree
    solve on kronecker: dist bitwise the static solve's, parents too but
    where both are exact f32 ties, matching Dijkstra; the same for
-   a road_grid(1024) ``bounded`` query (the 5th percentile of its tree's
-   distances) under the adaptive policy against the static one (the
+   a road_grid(1024) ``bounded`` query (the 1st percentile of its tree's
+   distances, cut from the 5th in PR 25) under the adaptive policy against the static one (the
    adaptive road tree solve took 105 s on an H100, more than this phase
    has), then
    on road_grid(1024) a batched ``knear`` spec (4 seeded sources, k =
@@ -167,6 +171,43 @@ Phases, in order; any failure exits non-zero:
    ``repro:`` ranges seen, device kernel time over the unprofiled wall
    time (the busy share) and the top kernels; a trace with no CUDA
    kernel fails.
+3f. The tuner and the serving plane on kronecker(20,16)
+   (:func:`serving_phase`).  ``repro_torch.tune.tune`` over a ``blocked``
+   base in ``TUNE_SPACE`` (alpha 1.5/3/6 x beta 0.7/0.9 x both policies x
+   fused_rounds 0/4), budget 6, 2 probe sources, into a temporary
+   ``TunedStore``, each candidate's session on the phase-3 layout: no
+   parity reject, the winner no worse than the baseline, ``edge_relax``
+   (and ``edge_relax_fused`` when a fused candidate ran) launched, and
+   ``Solver.open(..., tuned=store)`` overlaying the winner with a tree
+   solve bitwise the baseline's (``[tune]`` line: evaluations, seconds,
+   winner, objective reduction, the trajectory).  Then
+   ``Solver.open(hg, EngineConfig(tier="routed", backend="blocked",
+   use_alt=True, devices=(card, card), max_batch=8))``: two schedulers on
+   the one card, the graph placed on both (``plan_placement``), warmed up
+   (engine build, landmarks, one p2p batch), then 64 seeded queries (16
+   each of tree, p2p, bounded, knear, interleaved) through ``submit``
+   from this thread; every future must resolve, both schedulers serve,
+   ``edge_relax_batch`` and ``edge_relax_batch_alt`` must launch (zeroed
+   just before the first submit, read after the last answer; no
+   one-state launch), and every answer must be bitwise the single
+   tier's batched specs of the same queries, finalized alike (dist,
+   parents but at verified exact f32 ties, the logical counters, p2p
+   paths).  The same queries go once more straight to one scheduler (one
+   thread, queued while its worker is stopped so that it forms full
+   batches; answers bitwise the routed ones), and 8 tree and 8 p2p
+   queries once more, a full batch on each scheduler, with a 0.5 s window
+   of their serving under ``torch.profiler`` (:func:`busy_window`: the
+   card's busy share).  Then phase 3d's kronecker delta A through
+   the routed tier's
+   ``apply_delta`` with two cached trees: one engine patched (the served
+   layout cloned, then patched), no replica rebuilt, each repaired tree
+   (``repair_relax`` on the patched layout, ``edge_relax`` launched)
+   bitwise a from-scratch solve on the patched layout, which is a
+   fixpoint with tight parents, and a routed query after the delta
+   equal to it.  ``[serving]`` lines: queries/s routed and through the
+   single tier, batches, occupancy, launches, and the delta's seconds by
+   part (``patch_host``, ``patch_blocked_with``, ``repair_state``,
+   ``repair_relax``).
 4. The language-model serving path (qwen3-0.6b at full width, weights
    drawn on the card from a ``torch.Generator`` seeded with 0):
    ``ServeEngine(max_batch=8, s_cache=4096, prompt_pad=256)`` in
@@ -297,6 +338,13 @@ BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core rate
 KRON = dict(scale=20, edge_factor=16, seed=1)
 ROAD = dict(side=1024, seed=5)
 FUSED_ROUNDS = 4
+# the graphs whose tree solve and ALT p2p queries also run on segment_min,
+# single-device and v1 (no kernel; on road_grid(1024) the tree solves took
+# 28.6 and 33.6 s in chip run C of PR 24, the two single-device and the
+# v1 ALT queries 15.4, 8.5 and 9.8 s in PR 25's run B, the time phase 3f
+# needs): road_grid's blocked and fused solves are held against each
+# other and Dijkstra instead, its ALT queries against the unpruned one
+PLAIN_GRAPHS = ("kronecker(20,16)",)
 
 
 T0 = time.perf_counter()
@@ -753,9 +801,9 @@ class IndexSeconds:
 
 
 def main_path(graphs, device):
-    """Three solves per graph; returns per-graph results.  The launch
-    counters are zeroed just before each kernel's solve and read just
-    after it."""
+    """Three solves per graph (two off ``PLAIN_GRAPHS``); returns
+    per-graph results.  The launch counters are zeroed just before each
+    kernel's solve and read just after it."""
     from repro_torch.core.graph import build_blocked
     from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
     from repro_torch.kernels.edge_relax.ops import LAUNCHES
@@ -782,17 +830,22 @@ def main_path(graphs, device):
                                    layout=bg, fused_rounds=FUSED_ROUNDS)
         fused_launches = LAUNCHES.edge_relax_fused
         stray = LAUNCHES.edge_relax
-        pd, pp, pm, ps, pt = solve(dg, source, "segment_min", device)
-        kmd, fmd, pmd = metrics_dict(km), metrics_dict(fm), metrics_dict(pm)
-        for what, d, p, md in (("blocked", kd, kp, kmd),
-                               ("fused", fd, fp, fmd)):
-            if not (bitwise_equal(d, pd) and p.equal(pp)):
-                raise AssertionError(f"{name}: {what} and segment_min "
-                                     "differ")
-            bad = [f for f in LOGICAL_METRIC_FIELDS if md[f] != pmd[f]]
+        kmd, fmd = metrics_dict(km), metrics_dict(fm)
+        pd = pp = pmd = ps = pt = None
+        checks = [("fused", fd, fp, fmd, "blocked", kd, kp, kmd)]
+        if name in PLAIN_GRAPHS:
+            pd, pp, pm, ps, pt = solve(dg, source, "segment_min", device)
+            pmd = metrics_dict(pm)
+            checks = [(what, d, p, md, "segment_min", pd, pp, pmd)
+                      for what, d, p, md in (("blocked", kd, kp, kmd),
+                                             ("fused", fd, fp, fmd))]
+        for what, d, p, md, other, od, op, omd in checks:
+            if not (bitwise_equal(d, od) and p.equal(op)):
+                raise AssertionError(f"{name}: {what} and {other} differ")
+            bad = [f for f in LOGICAL_METRIC_FIELDS if md[f] != omd[f]]
             if bad:
                 raise AssertionError(f"{name}: {what} logical counters "
-                                     f"differ from segment_min: {bad}")
+                                     f"differ from {other}: {bad}")
         if launches <= 0:
             raise AssertionError(f"{name}: the edge_relax kernel never ran")
         if fused_launches <= 0 or stray:
@@ -810,7 +863,7 @@ def main_path(graphs, device):
         reached = int(np.isfinite(kd.cpu().numpy()).sum())
         solves = [("blocked", ks, kmd, launches, kt),
                   ("fused", fs, fmd, fused_launches, ft),
-                  ("segment_min", ps, pmd, None, pt)]
+                  ("segment_min", ps, pmd, None, pt)][:2 + (pd is not None)]
         for what, secs, md, n_launch, phases in solves:
             spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
                              for k, v in phases.items())
@@ -903,6 +956,8 @@ def p2p_path(results, device):
         for s, t in pairs:
             solves = {}
             for what, backend, opts, counter in P2P_SOLVES:
+                if backend == "segment_min" and name not in PLAIN_GRAPHS:
+                    continue
                 kw = dict(opts, goal="p2p", goal_param=t)
                 if what != "unpruned":
                     kw["landmarks"] = lm
@@ -932,7 +987,7 @@ def p2p_path(results, device):
                         f"{name} ({s}, {t}) {what}: d(s,t) "
                         f"{float(r['dist_t'])!r} or its path differs from "
                         f"the unpruned solve's {float(base['dist_t'])!r}")
-            for what in ALT_SOLVES[1:]:
+            for what in [w for w in ALT_SOLVES[1:] if w in solves]:
                 bad = [f for f in LOGICAL_METRIC_FIELDS
                        if solves[what]["metrics"][f]
                        != solves["alt"]["metrics"][f]]
@@ -950,7 +1005,8 @@ def p2p_path(results, device):
                     raise AssertionError(f"{name} ({s}, {t}): d(s,t) {d_t!r} "
                                          f"against Dijkstra's {want!r}")
             pruned += sum(solves[w]["metrics"]["n_pruned"]
-                          for w in ALT_SOLVES + ("alt bidirectional",))
+                          for w in ALT_SOLVES + ("alt bidirectional",)
+                          if w in solves)
             relax0 = base["metrics"]["n_relax"]
             for what, r in solves.items():
                 md = r["metrics"]
@@ -1564,9 +1620,9 @@ def partials_vs_plain(results, device, seed: int = 2,
 def sharded_path(results, device):
     """The v1 engine on each graph at world size 1 over NCCL: a blocked
     solve (``edge_relax_partials``, launch counters zeroed just before it
-    and read just after) and a ``segment_min`` solve, each bitwise equal
-    to the single-device blocked solve with equal logical counters, and
-    matching Dijkstra."""
+    and read just after) and, on ``PLAIN_GRAPHS``, a ``segment_min``
+    solve, each bitwise equal to the single-device blocked solve with
+    equal logical counters, and matching Dijkstra."""
     from repro_torch.core.distributed import shard_blocked, shard_graph
     from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict
     from repro_torch.kernels.edge_relax.ops import LAUNCHES
@@ -1587,12 +1643,16 @@ def sharded_path(results, device):
                                    sharded=True, blocked=layout)
         launches = LAUNCHES.edge_relax_partials
         stray = (LAUNCHES.edge_relax, LAUNCHES.edge_relax_fused)
-        sd, sp, sm, ss, st = solve(sg, source, "segment_min", device,
-                                   sharded=True)
+        v1_solves = [("v1 blocked", vd, vp, metrics_dict(vm), vs, launches,
+                      vt)]
+        ss = st = None
+        if name in PLAIN_GRAPHS:
+            sd, sp, sm, ss, st = solve(sg, source, "segment_min", device,
+                                       sharded=True)
+            v1_solves.append(("v1 segment_min", sd, sp, metrics_dict(sm),
+                              ss, None, st))
         want = res["metrics"]
-        vmd, smd = metrics_dict(vm), metrics_dict(sm)
-        for what, d, p, md in (("v1 blocked", vd, vp, vmd),
-                               ("v1 segment_min", sd, sp, smd)):
+        for what, d, p, md, *_ in v1_solves:
             if not (bitwise_equal(d[:n], res["dist"])
                     and p[:n].equal(res["parent"])):
                 raise AssertionError(f"{name}: {what} and the single-device "
@@ -1606,9 +1666,7 @@ def sharded_path(results, device):
             raise AssertionError(
                 f"{name}: the v1 blocked solve launched edge_relax_partials "
                 f"{launches} times and edge_relax/edge_relax_fused {stray}")
-        v1_solves = [("v1 blocked", vs, vmd, launches, vt),
-                     ("v1 segment_min", ss, smd, None, st)]
-        for what, secs, md, n_launch, phases in v1_solves:
+        for what, _, _, md, secs, n_launch, phases in v1_solves:
             spans = " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
                              for k, v in phases.items())
             log(f"[solve] {name} {what}: source={source} {secs!r} s, "
@@ -1620,7 +1678,7 @@ def sharded_path(results, device):
                 f"tiles_scanned={int(md['n_tiles_scanned'])} {spans}")
         res.update(shard_layout=layout, sharded=sg, v1_launches=launches,
                    v1_solve_s=vs, v1_plain_solve_s=ss, v1_phases=vt,
-                   v1_plain_phases=st, v1_metrics=vmd)
+                   v1_plain_phases=st, v1_metrics=v1_solves[0][3])
 
 
 # ---------------------------------------------------------------------------
@@ -1659,7 +1717,8 @@ def v1_queries(results, p2p, device):
             dist_t, path = p2p[name]["exact"][s, t]
             single = q["solves"]["alt"]
             solves = {}
-            for backend in ("blocked", "segment_min"):
+            for backend in ("blocked", "segment_min")[
+                    :1 + (name in PLAIN_GRAPHS)]:
                 kw = dict(goal="p2p", goal_param=t, landmarks=lm)
                 if backend == "blocked":
                     kw["blocked"] = layout
@@ -1699,7 +1758,8 @@ def v1_queries(results, p2p, device):
                 solves[backend] = dict(metrics=md, seconds=secs,
                                        phases=phases, launches=alt_n)
             bad = [f for f in LOGICAL_METRIC_FIELDS
-                   if solves["blocked"]["metrics"][f]
+                   if "segment_min" in solves
+                   and solves["blocked"]["metrics"][f]
                    != solves["segment_min"]["metrics"][f]]
             if bad:
                 raise AssertionError(f"{name} ({s}, {t}) v1: blocked and "
@@ -1848,7 +1908,9 @@ def measure_partials(res, device):
 
 FACADE_SLOTS = 8
 ROAD_KNEAR = (4, 1000)           # road_grid's batched knear: sources, k
-ROAD_ADAPTIVE_QUANTILE = 0.05    # road_grid's adaptive bounded query
+# road_grid's adaptive bounded query (cut from the 5th percentile in PR 25
+# for phase 3f's time: 22.7 s adaptive against 4.9 s static, run B)
+ROAD_ADAPTIVE_QUANTILE = 0.01
 
 
 def timed(fn, device):
@@ -2816,6 +2878,346 @@ def trace_phase(results, facade, device) -> dict:
         device)
     out["profiles"] = profiles
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3f: the tuner and the serving plane (the routed tier) on kronecker
+# ---------------------------------------------------------------------------
+
+# fused_rounds first: within the budget, coordinate descent reaches the
+# axes in this order, and a fused candidate runs edge_relax_fused
+TUNE_SPACE = {"fused_rounds": (0, 4), "alpha": (1.5, 3.0, 6.0),
+              "beta": (0.7, 0.9), "policy": ("static", "adaptive")}
+TUNE_BUDGET = 6
+ROUTED_PER_KIND = 16             # queries of each kind through the router
+ROUTED_BATCH = 8                 # the schedulers' max_batch
+ROUTED_KINDS = ("tree", "p2p", "bounded", "knear")
+# the routed busy share: profile this many seconds of two schedulers
+# serving one full batch each, after this many from their start (the
+# profiler's processing costs about 0.2 ms a kernel on the host, and the
+# serving launches tens of thousands of kernels a second)
+BUSY_WINDOW_S, BUSY_SKIP_S = 0.5, 0.2
+
+
+def tuner_phase(res, device) -> dict:
+    """The tuner on kronecker(20,16) over a ``blocked`` base in
+    ``TUNE_SPACE`` (budget ``TUNE_BUDGET``, 2 probe sources) into a
+    temporary ``TunedStore``, every candidate's sessions on the phase-3
+    layout; then ``Solver.open(..., tuned=store)``, whose tree solve from
+    the max-degree source must be bitwise the baseline's.  Launches of
+    ``edge_relax`` and ``edge_relax_fused`` are counted over the tune."""
+    import tempfile
+
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.tune import TUNED_FIELDS, TunedStore, tune
+    name = "kronecker(20,16)"
+    dg, bg, s = res["graph"], res["layout"], res["source"]
+    base = EngineConfig(backend="blocked")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = TunedStore(Path(tmp) / "tuned.json")
+        LAUNCHES.reset()
+        result, secs = timed(lambda: tune(
+            dg, base, gid="kron", budget=TUNE_BUDGET, seed=0, restarts=0,
+            n_sources=2, space=TUNE_SPACE, store=store, device=device,
+            layout=bg), device)
+        launches = dict(edge_relax=LAUNCHES.edge_relax,
+                        edge_relax_fused=LAUNCHES.edge_relax_fused)
+        if result.n_parity_rejects or result.n_evals > TUNE_BUDGET \
+                or result.best_objective > result.baseline_objective:
+            raise AssertionError(
+                f"{name} tune: {result.n_evals} evaluations, "
+                f"{result.n_parity_rejects} parity rejects, objective "
+                f"{result.best_objective!r} against the baseline's "
+                f"{result.baseline_objective!r}")
+        tried = {r["config"]["fused_rounds"] for r in result.trajectory}
+        if launches["edge_relax"] <= 0 or (
+                FUSED_ROUNDS in tried and launches["edge_relax_fused"] <= 0):
+            raise AssertionError(f"{name} tune: kernel launches {launches} "
+                                 f"over candidates with fused_rounds {tried}")
+        want = Solver.open(dg, base, layout=bg, device=device).solve(
+            SolveSpec.tree(s))
+        tuned = Solver.open(dg, base, layout=bg, device=device, tuned=store,
+                            gid="kron")
+        winner = {f: getattr(result.best_config, f) for f in TUNED_FIELDS}
+        if {f: getattr(tuned.config, f) for f in TUNED_FIELDS} != winner:
+            raise AssertionError(f"{name}: Solver.open(tuned=) overlaid "
+                                 f"{tuned.config} for the winner {winner}")
+        got = tuned.solve(SolveSpec.tree(s))
+        if not (bitwise_equal(got.dist, want.dist)
+                and got.parent.equal(want.parent)):
+            raise AssertionError(f"{name}: the tuned session's tree solve "
+                                 "differs from the baseline's")
+    rows = [dict(eval=r["eval"], origin=r["origin"],
+                 objective=r["objective"], accepted=r["accepted"],
+                 **{k: r["config"][k] for k in TUNE_SPACE})
+            for r in result.trajectory]
+    log(f"[tune] {name}: {result.n_evals} evaluations in {secs!r} s, "
+        f"winner {winner}, objective {result.best_objective!r} against "
+        f"the baseline's {result.baseline_objective!r} (reduction "
+        f"{result.reduction!r}), {result.n_parity_rejects} parity rejects, "
+        f"launches {launches}; Solver.open(tuned=) solves bitwise the "
+        f"baseline; trajectory {json.dumps(rows)}")
+    return dict(seconds=secs, n_evals=result.n_evals, winner=winner,
+                objective=result.best_objective,
+                baseline=result.baseline_objective,
+                reduction=result.reduction, launches=launches,
+                trajectory=rows)
+
+
+def routed_queries(res, seed: int = 61):
+    """``ROUTED_PER_KIND`` seeded queries of each kind on kronecker's
+    non-isolated vertices, interleaved by kind: trees, p2p to random
+    targets, bounded at the 40th percentile of the phase-3 tree's
+    distances, knear with k from 10 to 5,000.  Returns ``(kind, source,
+    parameter)`` triples."""
+    hg = res["host"]
+    rng = np.random.default_rng(seed)
+    nz = np.flatnonzero(hg.deg > 0)
+    d = res["dist"]
+    bound = float(np.float32(torch.quantile(
+        d[torch.isfinite(d)].double(), 0.4).item()))
+    ks = (10, 100, 1000, 5000)
+    out = []
+    for i in range(ROUTED_PER_KIND):
+        s = [int(v) for v in rng.choice(nz, 5, replace=False)]
+        out += [("tree", s[0], None), ("p2p", s[1], s[4]),
+                ("bounded", s[2], bound), ("knear", s[3], ks[i % 4])]
+    return out
+
+
+def spec_of(kind, sources, params):
+    from repro_torch.api import SolveSpec
+    if kind == "tree":
+        return SolveSpec.tree(sources)
+    return getattr(SolveSpec, kind)(sources, params)
+
+
+def routed_phase(res, device) -> dict:
+    """The routed tier on kronecker(20,16): ``Solver(EngineConfig(tier=
+    "routed", backend="blocked", use_alt=True))`` with two schedulers on
+    the one card (its graph placed on both), warmed up, then fed the 64
+    queries of :func:`routed_queries` through ``submit`` from this
+    thread.  Every future must resolve, both schedulers must serve, the
+    batched launches are counted (zeroed just before the first submit,
+    read after the last answer), and every answer must be bitwise the
+    single tier's for the same query (its batched specs of up to
+    ``ROUTED_BATCH`` slots, finalized as the scheduler finalizes):
+    dist, parent (but at verified exact f32 ties) and the logical
+    counters.  Then phase 3d's delta A through the routed tier's
+    ``apply_delta``, with two cached trees repaired: each bitwise a
+    from-scratch solve on the patched engine's layout, a routed query
+    after the delta equal to it, and no replica rebuilt."""
+    from repro_torch.api import EngineConfig, Solver
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, sssp
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.serve import registry as registry_mod
+    from repro_torch.serve.queries import Query, finalize
+    name = "kronecker(20,16)"
+    hg, dg, bg = res["host"], res["graph"], res["layout"]
+    queries = routed_queries(res)
+    cfg = EngineConfig(tier="routed", backend="blocked", use_alt=True,
+                       devices=(device, device), max_batch=ROUTED_BATCH)
+    solver = Solver.open(hg, cfg)
+    router = solver.router
+    router.plan_placement({solver.gid: 1.0})
+    _, warm_s = timed(lambda: solver.warmup(kinds=("p2p",)), device)
+    LAUNCHES.reset()
+    sync(device)
+    t0 = time.perf_counter()
+    futs = [solver.submit(spec_of(k, s, p)) for k, s, p in queries]
+    answers = [f.result(timeout=600) for f in futs]
+    sync(device)
+    routed_s = time.perf_counter() - t0
+    launches = dict(edge_relax_batch=LAUNCHES.edge_relax_batch,
+                    edge_relax_batch_alt=LAUNCHES.edge_relax_batch_alt)
+    stray = dict(edge_relax=LAUNCHES.edge_relax,
+                 edge_relax_alt=LAUNCHES.edge_relax_alt,
+                 edge_relax_fused=LAUNCHES.edge_relax_fused)
+    served = sorted({a.served_by for a in answers})
+    stats = router.stats()
+    if min(launches.values()) <= 0 or any(stray.values()):
+        raise AssertionError(f"{name} routed: launches {launches}, "
+                             f"one-state launches {stray}")
+    if served != ["dev0", "dev1"]:
+        raise AssertionError(f"{name} routed: served by {served}, not by "
+                             "both schedulers of the card")
+    log(f"[serving] {name}: {len(queries)} queries ({ROUTED_PER_KIND} each "
+        f"of {', '.join(ROUTED_KINDS)}) through submit in {routed_s!r} s "
+        f"({len(queries) / routed_s!r} queries/s) on {router.n_devices} "
+        f"schedulers of one card, {stats['n_batches']} batches, occupancy "
+        f"{stats['occupancy']!r}, launches {launches}; engine build, "
+        f"landmarks and a p2p batch (warmup) {warm_s!r} s")
+    kw = {"p2p": "target", "bounded": "bound", "knear": "k"}
+    qobjs = [Query(gid=solver.gid, source=s, kind=k,
+                   **({kw[k]: p} if k in kw else {}))
+             for k, s, p in queries]
+
+    # one scheduler thread alone: the same queries straight to scheduler
+    # 0, queued while its worker is stopped (so it forms full batches)
+    sched = router.schedulers[0]
+    n0 = sched.n_batches
+    sched.stop()
+    futs = [sched.submit(q) for q in qobjs]
+    sync(device)
+    t0 = time.perf_counter()
+    sched.start()
+    alone = [f.result(timeout=600) for f in futs]
+    sync(device)
+    one_s = time.perf_counter() - t0
+    for q, a, b in zip(qobjs, alone, answers):
+        if not (np.array_equal(a.dist.view(np.int32), b.dist.view(np.int32))
+                and np.array_equal(a.parent, b.parent)):
+            raise AssertionError(f"{name}: {q} served by one scheduler "
+                                 "differs from the two schedulers' answer")
+    log(f"[serving] {name}: the same queries to one scheduler thread alone "
+        f"in {one_s!r} s ({len(queries) / one_s!r} queries/s, "
+        f"{sched.n_batches - n0} batches), answers bitwise the routed ones")
+
+    # the yardstick: the single tier's batched specs of the same queries
+    single, open_s = timed(lambda: Solver.open(dg, EngineConfig(
+        backend="blocked", use_alt=True), layout=bg, device=device), device)
+    groups = {k: [i for i, q in enumerate(queries) if q[0] == k]
+              for k in ROUTED_KINDS}
+    want = [None] * len(queries)
+    sync(device)
+    t0 = time.perf_counter()
+    for kind, idx in groups.items():
+        for lo in range(0, len(idx), ROUTED_BATCH):
+            part = idx[lo:lo + ROUTED_BATCH]
+            spec = spec_of(kind, [queries[i][1] for i in part],
+                           None if kind == "tree"
+                           else [queries[i][2] for i in part])
+            out = single.solve(spec)
+            for j, i in enumerate(part):
+                want[i] = (out.dist[j], out.parent[j],
+                           type(out.metrics)(*(m[j] for m in out.metrics)))
+    sync(device)
+    single_s = time.perf_counter() - t0
+    ties = 0
+    for q, a, (d, par, m) in zip(qobjs, answers, want):
+        kind, s = q.kind, q.source
+        w = finalize(q, hg.deg, d, par, m)
+        ties += same_tree_up_to_ties(
+            hg, torch.from_numpy(a.dist), torch.from_numpy(a.parent),
+            torch.from_numpy(w.dist), torch.from_numpy(w.parent), None,
+            f"{name} routed {kind} from {s}")
+        logical = lambda md: {f: md[f] for f in (
+            "n_steps", "n_rounds", "n_relax", "n_updates", "n_pruned",
+            "nFrontier", "nSync", "nTrav", "reachable")}
+        if logical(a.metrics) != logical(w.metrics) \
+                or (kind == "p2p" and a.paths() != w.path):
+            raise AssertionError(f"{name} routed {kind} from {s}: counters "
+                                 "or path differ from the single tier's")
+    log(f"[serving] {name}: the same queries through the single tier's "
+        f"batched specs (up to {ROUTED_BATCH} slots) in {single_s!r} s "
+        f"({len(queries) / single_s!r} queries/s; routed/single "
+        f"{routed_s / single_s!r}); session open (landmarks) {open_s!r} s; "
+        f"every routed answer bitwise the single tier's ({ties} parents "
+        "at exact f32 ties)")
+
+    # the card's busy share while both schedulers serve: 8 tree and 8
+    # p2p queries queued alternately with the workers stopped (so dev0
+    # takes the trees and dev1 the p2p queries, a full batch each)
+    trees = [q for q in qobjs if q.kind == "tree"][:ROUTED_BATCH]
+    pairs = [q for q in qobjs if q.kind == "p2p"][:ROUTED_BATCH]
+    router.stop()
+    futs = [router.submit(q) for pair in zip(trees, pairs) for q in pair]
+    router.start()
+    time.sleep(BUSY_SKIP_S)
+    prof = busy_window(f"{name} routed: {ROUTED_BATCH} tree queries on "
+                       f"dev0 and {ROUTED_BATCH} p2p on dev1, a "
+                       f"{BUSY_WINDOW_S} s window", BUSY_WINDOW_S)
+    by = {f.result(timeout=600).served_by for f in futs}
+    if by != {"dev0", "dev1"}:
+        raise AssertionError(f"{name}: the profiled batches were served by "
+                             f"{by}")
+
+    # phase 3d's delta A through the routed tier, with cached trees
+    trees = [(s, a) for (k, s, _), a in zip(queries, answers)
+             if k == "tree"][:2]
+    reg = solver.registry
+    for s, a in trees:
+        reg.cache_result(solver.gid, s, a.dist, a.parent)
+    delta = make_deltas(res, DELTA_SEEDS[name])["A mixed"]
+    names = ("patch_host", "patch_blocked_with", "repair_state",
+             "repair_relax")
+    LAUNCHES.reset()
+    with HostTimes(registry_mod, names) as host:
+        report, delta_s = timed(lambda: solver.apply_delta(delta), device)
+    repair_launches = LAUNCHES.edge_relax
+    eng = reg.peek(solver.gid, device=device)
+    if report["engines_patched"] != 1 or report["results_repaired"] != 2 \
+            or router.n_rebuilds or eng is None or repair_launches <= 0:
+        raise AssertionError(f"{name} routed apply_delta: "
+                             f"{report['engines_patched']} engines patched, "
+                             f"{report['results_repaired']} trees repaired, "
+                             f"{router.n_rebuilds} rebuilds, "
+                             f"{repair_launches} edge_relax launches")
+    delta_ties = 0
+    for s, _ in trees:
+        d, p, _ = sssp(eng.g, s, backend="blocked", layout=eng.layout,
+                       device=device)
+        check_fixpoint(eng.g, d, p, s, f"{name} from scratch after delta A")
+        d2, p2 = reg.cached_result(solver.gid, s)
+        delta_ties += same_tree_up_to_ties(
+            report["host"], torch.from_numpy(d2).to(device),
+            torch.from_numpy(p2).to(device), d, p, None,
+            f"{name} routed repair of the tree from {s}")
+        after = solver.submit(spec_of("tree", s, None)).result(timeout=600)
+        if not (bitwise_equal(torch.from_numpy(after.dist).to(device), d)
+                and torch.from_numpy(after.parent).to(device).equal(p)):
+            raise AssertionError(f"{name}: a routed tree query after the "
+                                 "delta differs from a from-scratch solve")
+    solver.close()
+    log(f"[serving] {name} delta A through the routed apply_delta: "
+        f"{delta_s!r} s, of which patch_host "
+        f"{host.s['patch_host']!r} s, patch_blocked_with (a clone of the "
+        f"served layout) {host.s['patch_blocked_with']!r} s, repair_state "
+        f"{host.s['repair_state']!r} s and repair_relax "
+        f"{host.s['repair_relax']!r} s for {len(trees)} cached trees "
+        f"({repair_launches} edge_relax launches); each repaired tree "
+        f"bitwise a from-scratch solve on the patched layout ({delta_ties} "
+        "tie parents), routed queries after it too, no replica rebuilt")
+    return dict(queries=len(queries), routed_s=routed_s, single_s=single_s,
+                routed_qps=len(queries) / routed_s,
+                single_qps=len(queries) / single_s, one_scheduler_s=one_s,
+                busy_share=prof["busy_share"], warm_s=warm_s,
+                open_s=open_s, launches=launches, served=served,
+                batches=stats["n_batches"], occupancy=stats["occupancy"],
+                tie_parents=ties, delta_s=delta_s,
+                delta_parts={n: host.s[n] for n in names},
+                repair_launches=repair_launches, delta_tie_parents=delta_ties)
+
+
+def busy_window(what: str, seconds: float) -> dict:
+    """Profile the card (CUDA activity only) for ``seconds`` of host
+    time while other threads drive it: device kernel time over the
+    window (the busy share) and the top kernels.  A window with no CUDA
+    kernel fails (:func:`trace_kernels`)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        time.sleep(seconds)
+        wall = time.perf_counter() - t0
+    kern = trace_kernels(prof.key_averages(), what)
+    device_s = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:5]
+    out = dict(window_s=wall, device_s=device_s, busy_share=device_s / wall,
+               kernels=sum(e.count for e in kern),
+               top={e.key[:60]: dict(count=e.count,
+                                     ms=e.self_device_time_total / 1e3)
+                    for e in top})
+    log(f"[profile] {what}: " + json.dumps(out))
+    return out
+
+
+def serving_phase(results, device) -> dict:
+    """Phase 3f: :func:`tuner_phase` and :func:`routed_phase`."""
+    res = results["kronecker(20,16)"]
+    return dict(tuner=tuner_phase(res, device),
+                routed=routed_phase(res, device))
 
 
 # ---------------------------------------------------------------------------
@@ -4078,6 +4480,8 @@ def report(graphs, device):
     mark("phase 3d (deltas)")
     traces = trace_phase(results, facade, device)
     mark("phase 3e (traces)")
+    serving = serving_phase(results, device)
+    mark("phase 3f (tuner, serving plane)")
 
     per_graph = {name: measure(res, device) for name, res in results.items()}
     for name, m in per_graph.items():
@@ -4234,7 +4638,7 @@ def report(graphs, device):
         "v1_queries": {n: dict(queries=v1q[n]["queries"],
                                pruned=v1q[n]["pruned"]) for n in results},
         "v1_goals": v1q["goals"], "facade": facade, "deltas": deltas,
-        "traces": traces}
+        "traces": traces, "serving": serving}
     # launches of each kernel in each repair of phase 3d
     per_repair = lambda mode: {k: d["repairs"][mode]["launches"]
                                for k, d in deltas.items()
@@ -4244,6 +4648,15 @@ def report(graphs, device):
                 "edge_relax_partials": "v1"}.get(row["name"])
         if mode:
             row["launches_per_repair"] = per_repair(mode)
+    # launches on phase 3f's paths: the tuner's candidates, the 64 routed
+    # queries and the routed tier's repair of two cached trees
+    tuner, routed = serving["tuner"], serving["routed"]
+    kernels[0]["launches_tuner"] = tuner["launches"]["edge_relax"]
+    kernels[0]["launches_routed_repair"] = routed["repair_launches"]
+    kernels[2]["launches_tuner"] = tuner["launches"]["edge_relax_fused"]
+    for row in facade_rows:
+        row["launches_routed"] = routed["launches"][
+            row["name"].replace("[alt]", "_alt")]
     return kernels + facade_rows, solves
 
 

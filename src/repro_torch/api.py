@@ -1,11 +1,15 @@
 """Unified solver facade: ``Solver.open(graph, config).solve(spec)`` (port
-of ``repro.api``, the single tier).
+of ``repro.api``, the single and routed tiers).
 
-A :class:`Solver` session owns the device graph, the backend's layout and
-the ALT landmark set of one graph, resolved once from an
-:class:`~repro_torch.core.config.EngineConfig`; every query is a
-declarative :class:`SolveSpec` (goal kind + sources + goal parameters +
-batch shape) and every solve returns one :class:`SolveResult`.
+A :class:`Solver` session owns what one graph needs on its tier,
+resolved once from an :class:`~repro_torch.core.config.EngineConfig`:
+on the single tier the device graph, the backend's layout and the ALT
+landmark set; on the routed tier a
+:class:`~repro_torch.serve.registry.GraphRegistry` and a
+:class:`~repro_torch.serve.router.QueryRouter` over per-device
+schedulers.  Every query is a declarative :class:`SolveSpec` (goal kind
++ sources + goal parameters + batch shape) and every solve returns one
+:class:`SolveResult`.
 
 ::
 
@@ -16,23 +20,29 @@ batch shape) and every solve returns one :class:`SolveResult`.
     res.distance(), res.paths()                       # lazy shaping
     batch = solver.solve(SolveSpec.tree([s0, s1, s2]))  # one batched loop
 
-A scalar spec runs :func:`~repro_torch.core.sssp.sssp`, a batched one
-:func:`~repro_torch.core.sssp.sssp_batch`, whose slots are bitwise the
-scalar solves.  The session runs on ``cuda`` (the config's pinned device,
-else the current card) unless opened with ``device="cpu"``.  With
-``EngineConfig(trace=True)`` every result carries ``trace``: a
-:class:`~repro_torch.obs.trace.SolveTrace`, or one per slot of a batch.
-``apply_delta`` belongs to the routed tier: on the single tier it raises
-``ConfigError``, as the reference's does (patch with
-:mod:`repro_torch.delta` and repair, or reopen).
+On the single tier a scalar spec runs :func:`~repro_torch.core.sssp.sssp`,
+a batched one :func:`~repro_torch.core.sssp.sssp_batch`, whose slots are
+bitwise the scalar solves.  On the routed tier every slot is a query
+submitted to the router, batched by the schedulers with the other
+queries in flight, and the answers are the finalized per-query ones
+(each kind's settled entries, tentative values masked), as served
+traffic sees them; ``submit`` returns a ``Future`` and starts the
+router's workers, and ``apply_delta`` patches the served graph in place.
+The session runs on ``cuda`` (the config's pinned devices, else the
+visible cards) unless opened with ``device="cpu"``.  With
+``EngineConfig(trace=True)`` every single-tier result carries ``trace``:
+a :class:`~repro_torch.obs.trace.SolveTrace`, or one per slot of a
+batch.  ``tuned=`` (a :class:`~repro_torch.tune.TunedStore` or its path)
+overlays the store's tuned fields for ``gid``.
 
-The sharded and routed tiers, ``tuned=`` and asynchronous ``submit``
-belong to later slices of the port and raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+The sharded tier belongs to a later slice of the port and raises
+``NotImplementedError`` naming ROADMAP queue 1 item 10.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+from concurrent.futures import Future
 from typing import Any, Optional, Tuple, Union
 
 import numpy as np
@@ -46,7 +56,7 @@ from .core.sssp import (GOALS, SsspMetrics, normalized_metrics,
                         resolve_device, sssp, sssp_batch)
 from .obs import profiling
 from .obs.trace import materialize_trace
-from .serve.queries import _host, reconstruct_path
+from .serve.queries import Query, _host, reconstruct_path
 
 __all__ = ["EngineConfig", "ConfigError", "SolveSpec", "SolveResult",
            "Solver"]
@@ -54,11 +64,6 @@ __all__ = ["EngineConfig", "ConfigError", "SolveSpec", "SolveResult",
 # what a later slice brings (ROADMAP queue 1)
 _LATER = {
     "sharded": "the sharded tier (ROADMAP queue 1 item 10, sharded v2/v3)",
-    "routed": "the routed tier (ROADMAP queue 1 item 9, the serving plane)",
-    "tuned": "tuned= (ROADMAP queue 1 item 8, the tuner)",
-    "submit": "submit() (ROADMAP queue 1 item 9, the serving plane)",
-    "router": "router (ROADMAP queue 1 item 9, the serving plane)",
-    "registry": "registry (ROADMAP queue 1 item 9, the serving plane)",
 }
 
 
@@ -204,8 +209,11 @@ class SolveResult:
     """The one result type every solve returns.
 
     ``dist``/``parent`` are ``[N]`` (single spec) or ``[S, N]`` (batch
-    spec) tensors on the session's device; ``metrics`` is the engine's
-    :class:`~repro_torch.core.sssp.SsspMetrics` (0-d or ``[S]`` leaves).
+    spec) tensors on the session's device (numpy arrays on the routed
+    tier); ``metrics`` is the engine's
+    :class:`~repro_torch.core.sssp.SsspMetrics` (0-d or ``[S]`` leaves),
+    and on the routed tier the per-query normalized metric dict (a list
+    of them for a batch spec).
     Iterating the result unpacks ``(dist, parent, metrics)``.  Shaping is
     lazy: :meth:`paths`, :meth:`distance`, :meth:`nearest` and
     :meth:`normalized` copy to the host only what they read, and accept
@@ -218,8 +226,8 @@ class SolveResult:
     metrics: Any
     deg: np.ndarray
     tier: str
-    served_by: Optional[Any] = None
-    trace: Optional[Any] = None
+    served_by: Optional[Any] = None     # routed: per-slot scheduler names
+    trace: Optional[Any] = None         # SolveTrace | list[SolveTrace]
 
     def __iter__(self):
         return iter((self.dist, self.parent, self.metrics))
@@ -300,6 +308,12 @@ class SolveResult:
 
     def normalized(self, *, slot: Optional[int] = None) -> dict:
         """Paper §4 normalized metrics for one computation."""
+        if isinstance(self.metrics, dict):
+            return self.metrics
+        if isinstance(self.metrics, list):        # routed batch
+            if slot is None:
+                raise ValueError("batched result: pass slot=")
+            return self.metrics[slot]
         m = self.metrics
         if self.batched:
             if slot is None:
@@ -309,28 +323,38 @@ class SolveResult:
 
 
 class Solver:
-    """One opened solving session over one graph, on the single tier.
+    """One opened solving session over one graph, on the single or the
+    routed tier.
 
     Build with :meth:`open`; the session owns the resolved engine
-    (:class:`~repro_torch.core.config.ResolvedEngine`), the device graph,
-    the backend's layout and, with ``use_alt``, the landmark set, so
-    repeated :meth:`solve` calls amortize every preprocessing step.
-    Usable as a context manager.
+    (:class:`~repro_torch.core.config.ResolvedEngine`) and its tier's
+    state (single: the device graph, the backend's layout and, with
+    ``use_alt``, the landmark set; routed: the registry and the router),
+    so repeated :meth:`solve` calls amortize every preprocessing step.
+    Usable as a context manager (``close`` stops the routed tier's
+    workers).
     """
 
     def __init__(self, graph, resolved: ResolvedEngine, *, layout=None,
-                 gid: str = "default", device=None):
+                 gid: str = "default", device=None, tuned=None):
         self.resolved = resolved
         self.config = resolved.config
         self.tier = resolved.tier
         self.gid = gid
+        self._tuned = tuned
         self._host = graph
         self.deg = _host(graph.deg)
         self.n = int(self.deg.shape[0])
         self._closed = False
-        if self.tier != "single":
+        if self.tier == "single":
+            self._open_single(graph, layout, device)
+        elif self.tier == "routed":
+            if layout is not None:
+                raise ConfigError("the routed tier builds layouts through "
+                                  "its registry; drop layout=")
+            self._open_routed(graph, device)
+        else:
             raise _later(self.tier)
-        self._open_single(graph, layout, device)
 
     # ------------------------------------------------------------------
     # construction
@@ -345,21 +369,35 @@ class Solver:
         ``graph`` is a :class:`~repro_torch.core.graph.HostGraph` or
         :class:`~repro_torch.core.graph.DeviceGraph`; ``config`` an
         :class:`EngineConfig` (default: single-device ``segment_min``).
-        ``layout`` reuses a prebuilt layout (validated against the config
-        and the graph here).  ``device`` places the session (default: the
-        config's first pinned device, else ``cuda``; ``"cpu"`` runs the
-        plain versions of the kernels).  ``tuned=`` raises
-        ``NotImplementedError`` (the tuner is a later slice).
+        ``layout`` reuses a prebuilt single-tier layout (validated
+        against the config and the graph here).  ``device`` places the
+        session (default: the config's pinned devices, else ``cuda``;
+        ``"cpu"`` runs the plain versions of the kernels); on the routed
+        tier it is the one device its router serves on.
+
+        ``tuned`` is a :class:`~repro_torch.tune.TunedStore` (or a path
+        to one): the store's tuned fields for ``gid``
+        (:data:`~repro_torch.tune.TUNED_FIELDS`) are overlaid onto
+        ``config`` before resolution on the single tier, and handed to
+        the routed tier's registry, which overlays them per graph.  A
+        missing or stale entry leaves ``config`` as it is.
         """
         if not isinstance(graph, (HostGraph, DeviceGraph)):
             raise TypeError(f"expected HostGraph or DeviceGraph, got "
                             f"{type(graph)}")
-        if tuned is not None:
-            raise _later("tuned")
         if config is None:
             config = EngineConfig()
-        resolved = as_resolved(config, n=int(graph.n), m=int(graph.m))
-        return cls(graph, resolved, layout=layout, gid=gid, device=device)
+        if tuned is not None and not hasattr(tuned, "apply"):
+            from .tune.store import TunedStore
+            tuned = TunedStore(tuned)
+        n, m = int(graph.n), int(graph.m)
+        resolved = as_resolved(config, n=n, m=m)
+        if tuned is not None and resolved.tier != "routed":
+            tuned_cfg = tuned.apply(gid, graph, config, n=n, m=m)
+            if tuned_cfg != config:
+                resolved = as_resolved(tuned_cfg, n=n, m=m)
+        return cls(graph, resolved, layout=layout, gid=gid, device=device,
+                   tuned=tuned)
 
     def _open_single(self, graph, layout, device):
         r = self.resolved
@@ -446,6 +484,19 @@ class Solver:
             raise ConfigError(f"layout is on {where}, the session on "
                               f"{self._device}")
 
+    def _open_routed(self, graph, device):
+        from .serve.registry import GraphRegistry
+        from .serve.router import QueryRouter
+        devices = ([resolve_device(device)] if device is not None
+                   else self.resolved.resolve_devices())
+        self._registry = GraphRegistry(
+            config=self.config, tuned=self._tuned,
+            device=devices[0] if devices else None)
+        self._registry.register(self.gid, graph)
+        self._router = QueryRouter(self._registry, devices=devices,
+                                   config=self.config)
+        self._router_started = False      # submit() starts workers lazily
+
     # ------------------------------------------------------------------
     # solving
     # ------------------------------------------------------------------
@@ -460,6 +511,8 @@ class Solver:
         if not isinstance(spec, SolveSpec):
             raise TypeError(f"expected SolveSpec, got {type(spec)}")
         spec.check_bounds(self.n)
+        if self.tier == "routed":
+            return self._solve_routed(spec)
         return self._solve_single(spec)
 
     def solve_many(self, specs) -> list:
@@ -468,7 +521,9 @@ class Solver:
 
         The specs are grouped by goal kind; all slots of one kind run as
         one :func:`~repro_torch.core.sssp.sssp_batch` call, and each
-        spec's rows are sliced back out of its group's result.
+        spec's rows are sliced back out of its group's result.  The
+        routed tier solves each spec in turn (its schedulers group the
+        queries themselves).
         """
         specs = list(specs)
         for spec in specs:
@@ -477,7 +532,7 @@ class Solver:
         self._check_open()
         for spec in specs:
             spec.check_bounds(self.n)
-        if len(specs) <= 1:
+        if len(specs) <= 1 or self.tier == "routed":
             return [self.solve(s) for s in specs]
         groups: dict = {}
         for i, spec in enumerate(specs):
@@ -528,47 +583,149 @@ class Solver:
                            metrics=out[2], deg=self.deg, tier=self.tier,
                            trace=trace)
 
-    def submit(self, spec: SolveSpec):
-        """Asynchronous solves run on the routed tier: not ported yet."""
-        raise _later("submit")
+    def _route(self, spec: SolveSpec) -> list:
+        """Submit one query per slot of ``spec`` to the router; returns
+        their futures in slot order."""
+        params = spec.slot_params()
+        srcs = spec.sources if spec.batched else (spec.sources,)
+        name = {"p2p": "target", "bounded": "bound", "knear": "k"}
+        futs = []
+        for i, s in enumerate(srcs):
+            kw = {name[spec.kind]: params[i]} if spec.kind in name else {}
+            futs.append(self._router.submit(
+                Query(gid=self.gid, source=int(s), kind=spec.kind, **kw)))
+        return futs
+
+    def _routed_result(self, spec: SolveSpec, results) -> SolveResult:
+        """Stack the per-query answers of ``spec``'s slots."""
+        if spec.batched:
+            dist = np.stack([r.dist for r in results])
+            parent = np.stack([r.parent for r in results])
+            metrics = [r.metrics for r in results]
+            served = [r.served_by for r in results]
+        else:
+            (r,) = results
+            dist, parent, metrics, served = (r.dist, r.parent, r.metrics,
+                                             r.served_by)
+        return SolveResult(spec=spec, dist=dist, parent=parent,
+                           metrics=metrics, deg=self.deg, tier=self.tier,
+                           served_by=served)
+
+    def _solve_routed(self, spec: SolveSpec) -> SolveResult:
+        futs = self._route(spec)
+        self._router.drain()
+        return self._routed_result(spec, [f.result(timeout=600)
+                                          for f in futs])
+
+    def submit(self, spec: SolveSpec) -> Future:
+        """Submit a spec asynchronously; returns a
+        :class:`concurrent.futures.Future` resolving to the
+        :class:`SolveResult` (or to the first slot's exception).
+
+        Routed tier only: the first ``submit`` starts the router's
+        background workers (one thread per device entry plus the mesh
+        scheduler), and every slot is enqueued without a synchronous
+        drain; slots of one spec may land in different batches, even on
+        different devices.  ``solve()`` remains the synchronous path.
+        """
+        self._check_open()
+        if not isinstance(spec, SolveSpec):
+            raise TypeError(f"expected SolveSpec, got {type(spec)}")
+        if self.tier != "routed":
+            raise ConfigError(
+                f"submit() needs the routed tier (async serving plane); "
+                f"this session resolved tier={self.tier!r} — open with "
+                f"tier='routed' or use solve()")
+        spec.check_bounds(self.n)
+        if not self._router_started:
+            self._router.start()          # idempotent on live schedulers
+            self._router_started = True
+        futs = self._route(spec)
+        agg: Future = Future()
+        agg.set_running_or_notify_cancel()
+        remaining = [len(futs)]
+        lock = threading.Lock()
+
+        def one_done(f):
+            with lock:
+                remaining[0] -= 1
+                last = remaining[0] == 0
+            if agg.done():
+                return
+            if f.cancelled() or f.exception() is not None:
+                agg.set_exception(f.exception() if not f.cancelled()
+                                  else RuntimeError(f"query of {spec} was "
+                                                    "cancelled"))
+                return
+            if last:
+                try:
+                    agg.set_result(self._routed_result(
+                        spec, [x.result() for x in futs]))
+                except BaseException as e:      # never leave agg pending
+                    if not agg.done():
+                        agg.set_exception(e)
+
+        for f in futs:
+            f.add_done_callback(one_done)
+        return agg
 
     def apply_delta(self, edits) -> dict:
-        """Streaming graph edits belong to the routed tier (its registry
-        patches the served layouts in place); a single-tier session owns
-        immutable prebuilt state and raises ``ConfigError``, as the
-        reference's does."""
+        """Apply an :class:`~repro_torch.delta.EdgeDelta` to the session's
+        graph in place (routed tier): delegates to
+        :meth:`~repro_torch.serve.registry.GraphRegistry.apply_delta`
+        (cached engines patched, not rebuilt; placed replicas reused;
+        cached tree states repaired), and queries submitted afterwards
+        serve the patched graph.  A single-tier session owns immutable
+        prebuilt state and raises ``ConfigError``, as the reference's
+        does (patch with :mod:`repro_torch.delta` and repair, or
+        reopen)."""
         self._check_open()
-        raise ConfigError(
-            f"apply_delta() needs the routed tier; tier={self.tier!r} "
-            f"sessions own immutable prebuilt layouts — use "
-            f"repro_torch.delta.patch_blocked/patch_sharded/repair, or "
-            f"reopen the session on the patched graph")
+        if self.tier != "routed":
+            raise ConfigError(
+                f"apply_delta() needs the routed tier; tier={self.tier!r} "
+                f"sessions own immutable prebuilt layouts — use "
+                f"repro_torch.delta.patch_blocked/patch_sharded/repair, or "
+                f"reopen the session on the patched graph")
+        report = self._registry.apply_delta(self.gid, edits)
+        self._host = report["host"]
+        self.deg = np.asarray(report["host"].deg)
+        return report
 
     # ------------------------------------------------------------------
     # lifecycle / introspection
     # ------------------------------------------------------------------
 
     @property
-    def device_graph(self) -> DeviceGraph:
-        """The session's device-resident graph."""
-        return self._dg
+    def device_graph(self):
+        """The single tier's device-resident graph (None when routed)."""
+        return getattr(self, "_dg", None)
 
     @property
     def landmarks(self):
-        """The session's ALT landmark set (``use_alt`` configs), or None."""
-        return self._landmarks
+        """The single tier's ALT landmark set (``use_alt`` configs), or
+        None; the routed tier's sets live in its registry
+        (:meth:`~repro_torch.serve.registry.GraphRegistry.landmark_set`)."""
+        return getattr(self, "_landmarks", None)
 
     @property
     def router(self):
-        raise _later("router")
+        """The routed tier's :class:`~repro_torch.serve.router.QueryRouter`
+        (serving stats, placement, warmup); None on the single tier."""
+        return getattr(self, "_router", None)
 
     @property
     def registry(self):
-        raise _later("registry")
+        """The routed tier's registry; None on the single tier."""
+        return getattr(self, "_registry", None)
 
     def warmup(self, kinds=("tree",), batch_sizes=None) -> list:
         """One solve per kind and batch size, from the max-degree vertex,
-        so that later solves do not carry the first use of each kernel."""
+        so that later solves do not carry the first use of each kernel
+        (the routed tier delegates to its router, at ``max_batch``)."""
+        if self.tier == "routed":
+            return self._router.warmup(
+                kinds=kinds,
+                batch_sizes=batch_sizes or (self.resolved.max_batch,))
         src = int(np.argmax(self.deg))
         rows = []
         for kind in kinds:
@@ -584,7 +741,11 @@ class Solver:
         return rows
 
     def close(self) -> None:
+        if self._closed:
+            return
         self._closed = True
+        if self.router is not None:
+            self._router.stop(cancel_pending=True)
 
     def __enter__(self) -> "Solver":
         return self

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
@@ -26,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict = {}
+# one build and load at a time: host threads that launch kernels (the
+# serving plane's schedulers) may reach their first call together
+_load_lock = threading.Lock()
 
 
 def sources() -> dict:
@@ -80,7 +84,8 @@ def build_all(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library ``name`` (building it first if needed)."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
     return lib

@@ -19,17 +19,26 @@ packed keys, which every call leaves cleared, and the schedule (a row of
 each per slot); for the fused kernel the same plus the
 touched list, two frontier lists, two planes of path marks and the round
 scalars (:class:`_FusedScratch`), also left clean.  Calls on one device
-must therefore be ordered on one stream.  A call may be captured in a
-CUDA graph only after an eager call of the same sizes has made its
-scratch; the graph then holds that scratch's addresses, which stay valid
-because the cache never evicts (about 8 B a tile and 8 B a destination
-per layout size for a one-round kernel, 8 B a tile and 22 B a
-destination for the fused one) and drops an entry only when a launch on
-it failed.  Each wrapper allocates only its outputs.
+must therefore be ordered on one stream.  Calls from several host
+threads on one device are safe when they launch on one stream (a
+thread's current stream is the device's default stream unless it sets
+another, as the serving plane's scheduler threads do not): each scratch
+entry has a lock, held from the lookup of the entry through the C
+launch's return, so the prepass, relax and unpack launches of two calls
+never interleave, and the stream runs one call's launches after the
+other's, each leaving the scratch clean.  The cache's inserts and the
+launch counts (:data:`LAUNCHES`) take a module lock.  A call may be
+captured in a CUDA graph only after an eager call of the same sizes has
+made its scratch; the graph then holds that scratch's addresses, which
+stay valid because the cache never evicts (about 8 B a tile and 8 B a
+destination per layout size for a one-round kernel, 8 B a tile and 22 B
+a destination for the fused one) and drops an entry only when a launch
+on it failed.  Each wrapper allocates only its outputs.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -71,6 +80,18 @@ class _Counter:
 
 LAUNCHES = _Counter()
 
+# guards LAUNCHES, the scratch caches' inserts and _LOCKS
+_LOCK = threading.Lock()
+# (cache name, cache key) -> the lock of that scratch entry: held from the
+# lookup through the C launch's return (see the module's docstring)
+_LOCKS: dict = {}
+
+
+def _count(name: str) -> None:
+    """Add one launch to ``LAUNCHES.<name>`` (exact under threads)."""
+    with _LOCK:
+        setattr(LAUNCHES, name, getattr(LAUNCHES, name) + 1)
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 # edge_relax_launch and edge_relax_partials_launch
@@ -103,16 +124,28 @@ _SCRATCH: dict = {}
 
 
 def _cached(cache: dict, key, what: str, make):
-    """``cache[key]``, made by ``make()`` on first use.  A graph capture
-    cannot make it: its buffers must outlive the capture."""
-    bufs = cache.get(key)
-    if bufs is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"{what} scratch of these sizes does not "
-                               "exist yet: make one eager call before "
-                               "capturing")
-        bufs = cache[key] = make()
-    return bufs
+    """``(cache[key], lock)``: the buffers, made by ``make()`` on first use
+    (a graph capture cannot make them: they must outlive the capture),
+    and the entry's lock, which the caller holds while it launches on
+    them."""
+    with _LOCK:
+        bufs = cache.get(key)
+        if bufs is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{what} scratch of these sizes does not "
+                                   "exist yet: make one eager call before "
+                                   "capturing")
+            bufs = cache[key] = make()
+        lock = _LOCKS.setdefault((what, key), threading.Lock())
+    return bufs, lock
+
+
+def _drop(cache: dict, key, bufs) -> None:
+    """Forget a scratch entry a failed launch may have left dirty (the
+    caller holds its lock; a later call makes a clean one)."""
+    with _LOCK:
+        if cache.get(key) is bufs:
+            del cache[key]
 
 
 def _scratch(dev, nt: int, n_out: int, slots: int = 1):
@@ -120,9 +153,9 @@ def _scratch(dev, nt: int, n_out: int, slots: int = 1):
     for a one-state call): ``flags`` int32 ``[slots, nt + 1]`` (a word
     per tile, then the schedule's append counter; all 0), ``sched`` int32
     ``[slots, nt]`` and ``keys`` int64 ``[slots, n_out]`` (all
-    ``EMPTY_KEY``).  Returns ``(cache key, buffers)``."""
+    ``EMPTY_KEY``).  Returns ``(cache key, buffers, lock)``."""
     key = (dev, nt, n_out, slots)
-    return key, _cached(_SCRATCH, key, "edge_relax", lambda: (
+    return key, *_cached(_SCRATCH, key, "edge_relax", lambda: (
         torch.zeros(slots, nt + 1, dtype=torch.int32, device=dev),
         torch.empty(slots, nt, dtype=torch.int32, device=dev),
         torch.full((slots, n_out), EMPTY_KEY, dtype=torch.int64,
@@ -196,13 +229,13 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
     alt = _check_alt(("alt_lb", "prune_bound"), (alt_lb, prune_bound),
                      (lead + (n_out,), lead), (torch.float32,) * 2, dev)
     fn = _library(name, _BATCH_ARGTYPES if extra else _ROUND_ARGTYPES)
-    key, (flags, sched, keys) = _scratch(dev, nt, n_out,
-                                         lead[0] if extra else 1)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     vals = empty(lead + (n_out,), torch.float32)
     wins = empty(lead + (n_out,), torch.int32)
     counts = empty(lead + (4,), torch.int32)
-    with torch.cuda.device(dev):
+    key, bufs, lock = _scratch(dev, nt, n_out, lead[0] if extra else 1)
+    flags, sched, keys = bufs
+    with lock, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dist.data_ptr(), paths.data_ptr(), parent.data_ptr(),
                  src.data_ptr(), dst.data_ptr(), w.data_ptr(),
@@ -211,11 +244,11 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
                  _ptr(alt_lb), _ptr(prune_bound), n_src, nt, tile_e, n_out,
                  *extra, flags.data_ptr(), sched.data_ptr(), keys.data_ptr(),
                  vals.data_ptr(), wins.data_ptr(), counts.data_ptr(), stream)
+        if err != 0:
+            _drop(_SCRATCH, key, bufs)  # a flag or key may be left set
     if err != 0:
-        _SCRATCH.pop(key, None)        # a flag or key may be left set
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    counter = f"{name}_alt" if alt else name
-    setattr(LAUNCHES, counter, getattr(LAUNCHES, counter) + 1)
+    _count(f"{name}_alt" if alt else name)
     return vals, wins, counts
 
 
@@ -305,7 +338,7 @@ _FUSED_SCRATCH: dict = {}
 
 def _fused_scratch(dev, nt: int, n_out: int):
     """The cached scratch of a fused call; returns ``(cache key,
-    _FusedScratch)``."""
+    _FusedScratch, lock)``."""
     key = (dev, nt, n_out)
     i32 = dict(dtype=torch.int32, device=dev)
 
@@ -318,7 +351,7 @@ def _fused_scratch(dev, nt: int, n_out: int):
             lists=torch.empty(2, n_out, **i32),
             marks=torch.zeros(2, n_out, dtype=torch.uint8, device=dev),
             scal=torch.zeros(8, **i32))
-    return key, _cached(_FUSED_SCRATCH, key, "edge_relax_fused", make)
+    return key, *_cached(_FUSED_SCRATCH, key, "edge_relax_fused", make)
 
 
 def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
@@ -353,13 +386,13 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
                      ((n_out,), (), (), ()),
                      (torch.float32,) * 3 + (torch.int32,), dev)
     fn = _library("edge_relax_fused", _FUSED_ARGTYPES, "edge_relax_fused")
-    key, s = _fused_scratch(dev, nt, n_out)
     empty = lambda size, dtype: torch.empty(size, dtype=dtype, device=dev)
     dist_out = empty(n_out, torch.float32)
     parent_out = empty(n_out, torch.int32)
     front_out = empty(n_out, torch.bool)
     counts = empty(8, torch.int32)
-    with torch.cuda.device(dev):
+    key, s, lock = _fused_scratch(dev, nt, n_out)
+    with lock, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dist.data_ptr(), parent.data_ptr(), frontier.data_ptr(),
                  deg.data_ptr(), src.data_ptr(), dst.data_ptr(),
@@ -370,13 +403,11 @@ def _edge_relax_fused_cuda(dist, parent, frontier, deg, src, dst, w,
                  n_out, fused_rounds, dist_out.data_ptr(),
                  parent_out.data_ptr(), front_out.data_ptr(),
                  counts.data_ptr(), *(b.data_ptr() for b in s), stream)
+        if err != 0:
+            _drop(_FUSED_SCRATCH, key, s)  # a key, flag or mark may be set
     if err != 0:
-        _FUSED_SCRATCH.pop(key, None)  # a key, flag or mark may be left set
         raise RuntimeError(f"edge_relax_fused launch failed: {_error(err)}")
-    if alt:
-        LAUNCHES.edge_relax_fused_alt += 1
-    else:
-        LAUNCHES.edge_relax_fused += 1
+    _count("edge_relax_fused_alt" if alt else "edge_relax_fused")
     return dist_out, parent_out, front_out, counts
 
 

@@ -1,1 +1,3 @@
-"""Serving of the port: the LM continuous-batching engine."""
+"""Serving of the port: the SSSP serving plane (``queries``, ``registry``,
+``scheduler``, ``router``, ``sssp_service``) and the LM continuous-batching
+engine (``engine``)."""

@@ -292,24 +292,50 @@ def test_out_of_range_specs_and_closed_solver():
     s.close()
 
 
-@pytest.mark.parametrize("what,item", [
-    ("sharded", "item 10"), ("routed", "item 9"), ("tuned", "item 8"),
-    ("submit", "item 9"), ("router", "item 9"), ("registry", "item 9")])
-def test_later_slices_raise_naming_their_roadmap_item(what, item):
+# the ids name the ROADMAP item that ported each entry point (the tuner,
+# item 8; the serving plane, item 9); what is left of them is the sharded
+# tier, item 10
+@pytest.mark.parametrize("what", [
+    "sharded", "routed", "tuned", "submit", "router", "registry"], ids=[
+    "sharded-item 10", "routed-item 9", "tuned-item 8", "submit-item 9",
+    "router-item 9", "registry-item 9"])
+def test_later_slices_raise_naming_their_roadmap_item(what, tmp_path):
     """What later slices bring raises ``NotImplementedError`` naming its
-    ROADMAP item.  Traces (item 7) and deltas (item 6) are ported: a
-    traced session and the single tier's ``apply_delta`` are held in
-    ``test_torch_obs.py`` and ``test_torch_delta.py``."""
+    ROADMAP item: the sharded tier (item 10), whether opened directly or
+    reached through the entry points items 8 and 9 ported (the routed
+    tier, ``tuned=`` and the tuner, ``submit``, the router and the
+    registry; they are held in ``test_torch_tune.py``,
+    ``test_torch_routed.py``, ``test_torch_router.py`` and
+    ``test_torch_registry.py``).  Traces (item 7) and deltas (item 6) are
+    held in ``test_torch_obs.py`` and ``test_torch_delta.py``."""
+    from repro_torch.serve.queries import Query
+    from repro_torch.tune import tune
     _, hg = _road()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        if what in ("sharded", "routed"):
+    sharded = EngineConfig(tier="routed", shard_threshold_n=1,
+                           devices=("cpu",))
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 10"):
+        if what == "sharded":
             Solver.open(hg, EngineConfig(tier=what), device="cpu")
         elif what == "tuned":
-            Solver.open(hg, tuned="tuned.json", device="cpu")
+            tune(hg, EngineConfig(tier="sharded"), budget=2, device="cpu",
+                 store=None)
         else:
-            s = Solver.open(hg, device="cpu")
-            attr = getattr(s, what)
-            attr(SolveSpec.tree(0)) if callable(attr) else None
+            s = Solver.open(hg, sharded)
+            assert s.tier == "routed" and s.registry.tier(s.gid) == "sharded"
+            try:
+                if what == "routed":
+                    s.solve(SolveSpec.tree(0))
+                elif what == "submit":
+                    s.submit(SolveSpec.tree([0, 1])).result(timeout=60)
+                elif what == "router":
+                    fut = s.router.submit(Query(gid=s.gid, source=0))
+                    s.router.drain()
+                    fut.result(timeout=0)
+                else:
+                    s.registry.engine(s.gid)
+            finally:
+                s.close()
 
 
 def test_entry_needs_a_card_unless_told_cpu():

@@ -17,6 +17,8 @@ separately rounded multiplies and adds), and the recsys layer on the
 card bitwise against the same call on the CPU.
 """
 import itertools
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -1276,3 +1278,152 @@ def test_cuda_traced_solve_equals_untraced(card):
         assert md == metrics_dict(m0)
         for f in LOGICAL_METRIC_FIELDS:
             assert sums[f] + (f == "n_extended") == md[f], (cfg, f)
+
+
+# ---------------------------------------------------------------------------
+# two host threads on one card: the wrappers serialize their cached scratch
+# ---------------------------------------------------------------------------
+
+THREAD_CALLS = 200
+
+
+def _twin_layouts(card):
+    """Two blocked layouts of the same edges (so the same tile and
+    destination counts, hence one scratch entry) with different random
+    weights."""
+    rng = np.random.default_rng(11)
+    n, m = 900, 5000
+    u, v = rng.integers(0, n // 2, m), rng.integers(0, n, m)
+    keep = u != v
+    return [build_blocked(build_csr(n, u[keep], v[keep],
+                                    rng.integers(1, 4, keep.sum())
+                                    .astype(np.float64)),
+                          block_v=256, tile_e=64, device=card)
+            for _ in range(2)]
+
+
+def _in_two_threads(work):
+    """Run ``work(0)`` and ``work(1)`` in two threads started together,
+    with a short switch interval; returns their exceptions."""
+    errors = []
+    start = threading.Barrier(2)
+
+    def run(i):
+        try:
+            start.wait(timeout=30)
+            work(i)
+        except BaseException as e:       # reported by the test
+            errors.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    return errors
+
+
+def test_cuda_two_threads_relax_bucket(card):
+    """Two threads call ``relax_bucket`` ``THREAD_CALLS`` times each on
+    different slabs and states of the same sizes (one scratch entry,
+    the default stream): every result is bitwise its plain version, the
+    launches are counted exactly and the scratch is left clean."""
+    rng = np.random.default_rng(12)
+    cases = []
+    for bg in _twin_layouts(card):
+        states = []
+        for _ in range(4):
+            dist, paths, parent, lb, ub = _state(rng, bg, -1, card, lb=0.0,
+                                                 ub=np.inf)
+            args = (dist, paths, parent, bg.src, bg.dst, bg.w,
+                    bg.tile_first, lb, ub)
+            kw = dict(tile_e=bg.tile_e, n_out=bg.n_out)
+            states.append((args, kw, bg.index,
+                           ref.edge_relax_partials_ref(*args, **kw)))
+        cases.append(states)
+
+    def work(i):
+        for k in range(THREAD_CALLS):
+            args, kw, index, want = cases[i][k % 4]
+            got = ops.relax_bucket(*args, index=index, **kw)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (i, k)
+            assert torch.equal(got[1], want[1]), (i, k)
+            assert got[2].tolist() == want[2].tolist(), (i, k)
+
+    before = ops.LAUNCHES.edge_relax
+    assert _in_two_threads(work) == []
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES.edge_relax == before + 2 * THREAD_CALLS
+    for flags, _, keys in ops._SCRATCH.values():
+        assert not bool(flags.any())
+        assert bool((keys == ref.EMPTY_KEY).all())
+
+
+def test_cuda_two_threads_relax_fused(card):
+    """The same for ``relax_fused`` (4 rounds a call): every result
+    bitwise its plain version, launches exact, scratch left clean."""
+    rng = np.random.default_rng(13)
+    cases = []
+    for bg in _twin_layouts(card):
+        states = []
+        for _ in range(4):
+            dist, front, parent, lb, ub = _state(rng, bg, 40, card)
+            args = (dist, parent, front, bg.deg, bg.src, bg.dst, bg.w,
+                    bg.tile_first, lb, ub)
+            kw = dict(tile_e=bg.tile_e, fused_rounds=4)
+            states.append((args, kw, bg.index,
+                           ref.edge_relax_fused_ref(*args, **kw)))
+        cases.append(states)
+
+    def work(i):
+        for k in range(THREAD_CALLS):
+            args, kw, index, want = cases[i][k % 4]
+            got = ops.relax_fused(*args, index=index, **kw)
+            assert torch.equal(got[0].view(torch.int32),
+                               want[0].view(torch.int32)), (i, k)
+            for a, b in zip(got[1:], want[1:]):
+                assert torch.equal(a, b), (i, k)
+
+    before = ops.LAUNCHES.edge_relax_fused
+    assert _in_two_threads(work) == []
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES.edge_relax_fused == before + 2 * THREAD_CALLS
+    _assert_fused_scratch_clean("two threads")
+
+
+def test_cuda_routed_two_schedulers_match_single_tier(card):
+    """The routed tier with two schedulers on the card (the graph placed
+    on both) answers mixed queries submitted at once bitwise as the
+    single tier's batched specs do, each scheduler serving some."""
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    g = kronecker(10, 8, seed=3)
+    nz = np.flatnonzero(g.deg > 0)
+    rng = np.random.default_rng(14)
+    specs = []
+    for _ in range(6):
+        s, t = (int(v) for v in rng.choice(nz, 2, replace=False))
+        specs += [SolveSpec.tree(s), SolveSpec.p2p(s, t),
+                  SolveSpec.bounded(s, 1.5), SolveSpec.knear(s, 20)]
+    cfg = dict(backend="blocked", use_alt=True, block_v=256, tile_e=64)
+    with Solver.open(g, EngineConfig(tier="routed", devices=(card, card),
+                                     max_batch=4, **cfg)) as routed:
+        routed.router.plan_placement({routed.gid: 1.0})
+        futs = [routed.submit(spec) for spec in specs]
+        got = [f.result(timeout=300) for f in futs]
+        single = Solver.open(g, EngineConfig(tier="routed",
+                                             devices=(card,), max_batch=4,
+                                             **cfg))
+        want = [single.solve(spec) for spec in specs]
+        single.close()
+    assert {r.served_by for r in got} == {"dev0", "dev1"}
+    for spec, a, b in zip(specs, got, want):
+        assert np.array_equal(a.dist.view(np.int32), b.dist.view(np.int32)), \
+            spec
+        assert np.array_equal(a.parent, b.parent), spec
+        assert a.metrics["n_relax"] == b.metrics["n_relax"], spec

@@ -178,6 +178,7 @@ def test_unported_architectures_raise():
 
 
 _STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/tune/objective.py",
                "src/repro_torch/obs/trace.py",
                "src/repro_torch/obs/metrics.py",
                "src/repro_torch/obs/profiling.py")
@@ -186,6 +187,7 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
 @pytest.mark.parametrize("path", ["chip_smoke.py", "tests/test_torch_cuda.py",
                                   "tools/edge_relax_ablation.py",
                                   "tools/embedding_bag_grid.py",
+                                  "tools/serving_phase.py",
                                   "src/repro_torch/api.py",
                                   "src/repro_torch/core/config.py",
                                   "src/repro_torch/serve/queries.py",
@@ -197,7 +199,17 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "src/repro_torch/obs/trace.py",
                                   "src/repro_torch/obs/metrics.py",
                                   "src/repro_torch/obs/export.py",
-                                  "src/repro_torch/obs/profiling.py"])
+                                  "src/repro_torch/obs/profiling.py",
+                                  "src/repro_torch/tune/__init__.py",
+                                  "src/repro_torch/tune/objective.py",
+                                  "src/repro_torch/tune/search.py",
+                                  "src/repro_torch/tune/store.py",
+                                  "src/repro_torch/serve/registry.py",
+                                  "src/repro_torch/serve/scheduler.py",
+                                  "src/repro_torch/serve/router.py",
+                                  "src/repro_torch/serve/sssp_service.py",
+                                  "src/repro_torch/kernels/edge_relax/"
+                                  "ops.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -215,6 +227,47 @@ def test_card_side_files_import_no_jax(path):
     # modules that keep their own copy of a reference module import
     # nothing of the package
     assert "repro_torch" in roots or path in _STANDALONE, path
+
+
+_SERVING_PROBE = """
+import json, sys, tempfile
+from repro_torch.api import EngineConfig, SolveSpec, Solver
+from repro_torch.data.generators import kronecker
+from repro_torch.delta import EdgeDelta
+from repro_torch.serve.sssp_service import SsspRequest, SsspService
+from repro_torch.tune import TunedStore, tune
+g = kronecker(7, 4, seed=1)
+with tempfile.TemporaryDirectory() as tmp:
+    store = TunedStore(tmp + "/tuned.json")
+    res = tune(g, budget=3, restarts=0, n_sources=1, store=store,
+               device="cpu")
+    with Solver.open(g, EngineConfig(tier="routed", devices=("cpu",) * 2,
+                                     backend="blocked", use_alt=True),
+                     tuned=store) as s:
+        r = s.submit(SolveSpec.p2p([0, 3], [5, 9])).result(timeout=120)
+        s.apply_delta(EdgeDelta(add=[(0, g.n - 1, 0.5)]))
+        after = s.solve(SolveSpec.tree(0))
+svc = SsspService(g, max_batch=2, device="cpu")
+svc.submit(SsspRequest(rid=0, source=1))
+svc.run()
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "evals": res.n_evals,
+                  "served": sorted(set(r.served_by)),
+                  "after": float(after.dist[g.n - 1])}))
+"""
+
+
+def test_serving_plane_and_tuner_import_no_jax():
+    """A tune, a routed session over two CPU entries (submit, a delta,
+    a solve) and the service load neither jax nor the reference."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _SERVING_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["evals"] >= 2
+    assert res["after"] <= 0.5 and res["served"]
 
 
 def test_entry_point_needs_a_card_unless_told_cpu():

@@ -102,6 +102,39 @@ Phases, in order; any failure exits non-zero:
    graphs are scale 26-27 (its road network has 24M vertices), and the
    numpy generator needs about a minute at scale 20 and about four times
    that per step of scale, which the run's time limit does not hold.
+3b2. The sharded engines v2 and v3 (:func:`v2_path`), at world size 1
+   over the NCCL group of phase 3.  First ``edge_relax_partials`` against
+   its plain version at the call shape v2 makes (the rank's own ``[B]``
+   state, no slice of a replicated one) on the P = 1 layout of each graph
+   at the mid-solve window.  On kronecker(20,16): v2 and v3 ``blocked``
+   tree solves, v2 ``blocked`` with ``fused_rounds=4`` (grouped complete
+   rounds) and v2 ``segment_min``; on road_grid(1024) a v2 ``blocked``
+   ``bounded`` query to a quarter of the tree's largest distance
+   (``ROAD_V2_BOUND_FRACTION``: a cut of depth, and its v3 solve is cut,
+   for the run's time; kronecker's v3 takes both exchanges).  Each tree
+   bitwise the single-device blocked solve with equal logical counters
+   and matching Dijkstra, the bounded query's settled entries bitwise
+   the tree solve's; each ``blocked``
+   solve must launch ``edge_relax_partials`` and neither ``edge_relax``
+   nor ``edge_relax_fused`` (counters zeroed just before it and read
+   just after), and the v3 solve must take at least one compact
+   exchange.  ``[v2]`` lines: seconds beside v1's, rounds, host
+   syncs (v3 reads its overflow flag once an exchange), invocations,
+   launches, exchanges by path (``distributed.EXCHANGES``) and
+   ``PhaseTimes`` (the loop, transitions, rounds and the collectives by
+   kind).  Then on kronecker: ALT p2p on v2 ``blocked`` for the
+   ``V1_PAIRS`` (the ALT branch alone launched; ``dist[t]`` and the path
+   bitwise the unpruned single-device query's, ``n_relax`` and
+   ``n_pruned`` the single-device ALT query's); a v2 batched tree spec
+   of 8 sources (``sssp_distributed_batch``), each slot bitwise its
+   single-device solve; phase 3d's delta A repaired at v2 and v3 on
+   ``blocked`` shards (``repair_distributed``), each bitwise the
+   single-device repair; and the sharded tier:
+   ``Solver(EngineConfig(tier="sharded", backend="blocked"))`` solving
+   a tree and a knear spec, and a ``GraphRegistry`` with
+   ``shard_threshold_n=1`` behind a ``QueryRouter``, 4 tree queries
+   through the mesh scheduler (one ``ShardedGraphEngine`` batch), every
+   answer bitwise the single-device solves.
 3c. The facade (``repro_torch.api``: ``Solver``, ``SolveSpec``,
    ``sssp_batch`` underneath), on the graphs and layouts above.  First
    ``edge_relax`` over slots against its plain version on 20 seeded
@@ -685,18 +718,29 @@ class PhaseTimes:
     ``core/distributed.py``'s ``_v1_relax_round`` and its two
     collectives, ``_merge_partials`` (the MIN of packed keys) and
     ``_sum`` (the counters), which run inside the relaxation calls and
-    transitions.  The events are recorded on the stream with no
-    synchronize, so the solve keeps its own host reads; a span runs from
-    the call's first launch to its last, the host's launch gaps
-    included, since the loop's host read leaves the stream idle when the
-    call begins."""
+    transitions; for v2/v3 (whose loop is ``_solve_loop`` too)
+    ``_v2_transition``, ``_v2_round`` and the collectives by kind:
+    ``_exchange_dense`` (the reduce-scatter), ``_exchange_compact`` (v3's
+    all-to-all), ``_overflow`` (v3's MAX of the flag and its host read),
+    ``_sum``, ``_all_min`` (the MINs) and ``_gather`` (the result).  The
+    events are recorded on the stream with no synchronize, so the solve
+    keeps its own host reads; a span runs from the call's first launch to
+    its last, the host's launch gaps included, since the loop's host read
+    leaves the stream idle when the call begins."""
     TARGETS = (("core.sssp", "_solve_loop"),
                ("core.sssp", "_transition"),
                ("core.sssp", "_relax_round"),
                ("core.sssp", "_fused_relax_rounds"),
                ("core.distributed", "_v1_relax_round"),
                ("core.distributed", "_merge_partials"),
-               ("core.distributed", "_sum"))
+               ("core.distributed", "_sum"),
+               ("core.distributed", "_v2_transition"),
+               ("core.distributed", "_v2_round"),
+               ("core.distributed", "_exchange_dense"),
+               ("core.distributed", "_exchange_compact"),
+               ("core.distributed", "_overflow"),
+               ("core.distributed", "_all_min"),
+               ("core.distributed", "_gather"))
 
     def __enter__(self):
         self.saved = []
@@ -736,13 +780,13 @@ class PhaseTimes:
 def solve(g, source, backend, device, *, sharded=False, **opts):
     """One timed solve; returns ``(dist, parent, metrics, seconds,
     phases)`` with ``phases`` from :class:`PhaseTimes`.  ``sharded``
-    solves the :class:`ShardedGraph` ``g`` with the v1 engine over the
-    world process group."""
+    solves the :class:`ShardedGraph` ``g`` over the world process group
+    with the engine ``opts["version"]`` names (default v1)."""
     mod = importlib.import_module(
         f"repro_torch.core.{'distributed' if sharded else 'sssp'}")
     entry = mod.sssp_distributed if sharded else mod.sssp
     if sharded:
-        opts["version"] = "v1"
+        opts.setdefault("version", "v1")
     with PhaseTimes() as phases:
         sync(device)
         t0 = time.perf_counter()
@@ -770,8 +814,9 @@ def warm_up(device):
                           ("segment_min", {})):
         solve(g, int(np.argmax(g.deg)), backend, device, **opts)
     for backend in ("blocked", "segment_min"):
-        solve(shard_graph(g, 1), int(np.argmax(g.deg)), backend, device,
-              sharded=True)
+        for version in ("v1", "v2", "v3"):
+            solve(shard_graph(g, 1), int(np.argmax(g.deg)), backend, device,
+                  sharded=True, version=version)
     from repro_torch.core.sssp import sssp_batch
     sssp_batch(g, [int(np.argmax(g.deg)), 0], backend="blocked",
                device=device)
@@ -1899,6 +1944,357 @@ def measure_partials(res, device):
               index=index)
     return round_numbers("relax_partials", args + (lb, ub), kw,
                          "on the main path's layout")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b2: the sharded engines v2 and v3 (world size 1, NCCL)
+# ---------------------------------------------------------------------------
+
+# the v2/v3 solves of each graph: (label, keyword arguments); road_grid's
+# is its v2 blocked tree solve: its v3 solve (47.0 s in PR 26's chip run
+# C, 68.3 s in run D, where the whole smoke took 1,289 s) and its
+# segment_min solve are cut for the smoke's time
+V2_SOLVES = {
+    "kronecker(20,16)": (
+        ("v2 blocked", dict(version="v2", backend="blocked")),
+        ("v3 blocked", dict(version="v3", backend="blocked")),
+        ("v2 blocked fused", dict(version="v2", backend="blocked",
+                                  fused_rounds=FUSED_ROUNDS)),
+        ("v2 segment_min", dict(version="v2", backend="segment_min"))),
+    "road_grid(1024)": (
+        ("v2 blocked bounded", dict(version="v2", backend="blocked",
+                                    goal="bounded")),),
+}
+# road_grid's v2 solve is a bounded query to this fraction of the tree
+# solve's largest distance, a cut of depth for the run's time (its tree
+# solve took 40.6 s in PR 26's chip run F and 59.4 s on run D's slower
+# host, where the whole smoke would have run past its limit)
+ROAD_V2_BOUND_FRACTION = 0.25
+
+
+def phase_spans(phases) -> str:
+    return " ".join(f"{k}={v['calls']}x/{v['s']!r}s"
+                    for k, v in phases.items())
+
+
+def v2_solve(sg, source, device, **kw):
+    """One timed sharded solve with the kernel launches and exchanges
+    counted (zeroed just before it, read just after); returns ``(dist,
+    parent, metrics dict, seconds, phases, launches, exchanges)``."""
+    from repro_torch.core.distributed import EXCHANGES
+    from repro_torch.core.sssp import metrics_dict
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    backend = kw.pop("backend")
+    LAUNCHES.reset()
+    EXCHANGES.reset()
+    d, p, m, secs, phases = solve(sg, source, backend, device, sharded=True,
+                                  **kw)
+    return (d, p, metrics_dict(m), secs, phases, dict(vars(LAUNCHES)),
+            EXCHANGES.as_dict())
+
+
+def check_partials_only(what, launches, blocked: bool, alt: bool = False):
+    """On ``blocked`` the partials kernel (``alt``: its ALT branch) must
+    have launched and no other edge-relax kernel; on ``segment_min``
+    none."""
+    mine = "edge_relax_partials" + ("_alt" if alt else "")
+    others = {k: v for k, v in launches.items() if k != mine and v}
+    if others or (launches[mine] > 0) != blocked:
+        raise AssertionError(f"{what}: kernel launches {launches}")
+
+
+def v2_path(results, p2p, device) -> dict:
+    """Phase 3b2 (see the module docstring): the v2 and v3 engines at
+    world size 1 over NCCL on both graphs, each solve bitwise the
+    single-device blocked solve with equal logical counters and matching
+    Dijkstra (road_grid's a bounded query, its settled entries bitwise the
+    tree solve's); on kronecker also ALT p2p, a batched tree spec, delta A's
+    repairs, a sharded-tier ``Solver`` and a ``ShardedGraphEngine``
+    behind the router's mesh scheduler."""
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS
+    out = {}
+    for name, res in results.items():
+        sg, layout, n = res["sharded"], res["shard_layout"], res["host"].n
+        # the partials kernel at v2's call shape: the rank's own [B] state
+        # (tensors of their own, no slice of a replicated one)
+        arrays, meta = layout
+        block = meta.n_src_blocks * meta.block_v
+        dist, paths, parent, lb, ub = mid_solve_window(res, block, device)
+        args, index = shard_inputs(arrays, 0, block, dist, paths, parent,
+                                   device)
+        args = tuple(a.clone() for a in args[:3]) + args[3:]
+        partials_pair(args, lb, ub, dict(tile_e=meta.tile_e, n_out=block,
+                                         index=index),
+                      f"{name} P=1, the v2 call shape")
+        rows = {}
+        for what, kw in V2_SOLVES[name]:
+            blocked = kw["backend"] == "blocked"
+            goal = kw.get("goal", "tree")
+            if goal == "bounded":
+                dist = res["dist"]
+                kw = dict(kw, goal_param=float(
+                    dist[torch.isfinite(dist)].max()) * ROAD_V2_BOUND_FRACTION)
+            d, p, md, secs, phases, launches, ex = v2_solve(
+                sg, res["source"], device,
+                **dict(kw, **({"blocked": layout} if blocked else {})))
+            full = f"{name} {what}"
+            if goal == "bounded":
+                # the settled entries are the tree solve's, which matched
+                # the single-device solves' counters and Dijkstra
+                if not settled_as_tree(goal, kw["goal_param"], d[:n], p[:n],
+                                       res["dist"], res["parent"]):
+                    raise AssertionError(f"{full}: the settled entries "
+                                         "differ from the single-device "
+                                         "tree solve's")
+                full += f" (bound {kw['goal_param']!r})"
+            else:
+                if not (bitwise_equal(d[:n], res["dist"])
+                        and p[:n].equal(res["parent"])):
+                    raise AssertionError(f"{full}: differs from the "
+                                         "single-device blocked solve")
+                bad = [f for f in LOGICAL_METRIC_FIELDS
+                       if md[f] != res["metrics"][f]]
+                if bad:
+                    raise AssertionError(f"{full}: logical counters "
+                                         f"differ: {bad}")
+                check_against_dijkstra(res["dijkstra"], d[:n])
+            check_partials_only(full, launches, blocked)
+            n_launch = launches["edge_relax_partials"]
+            log(f"[v2] {full}: source={res['source']} {secs!r} s (v1 "
+                f"blocked {res.get('v1_solve_s')!r} s), "
+                f"rounds={md['n_rounds']} "
+                f"steps={md['n_steps']} host_syncs={int(md['n_host_syncs'])} "
+                f"invocations={int(md['n_invocations'])} "
+                f"launches={n_launch} exchanges dense={ex['dense']} "
+                f"compact={ex['compact']} {phase_spans(phases)}")
+            rows[what] = dict(seconds=secs, launches=n_launch, exchanges=ex,
+                              phases=phases, n_rounds=md["n_rounds"],
+                              n_host_syncs=int(md["n_host_syncs"]),
+                              n_invocations=int(md["n_invocations"]))
+        out[name] = dict(solves=rows)
+    compact = sum(r["exchanges"]["compact"] for o in out.values()
+                  for w, r in o["solves"].items() if w.startswith("v3"))
+    if compact <= 0:
+        raise AssertionError("no v3 solve took a compact exchange")
+    name = "kronecker(20,16)"
+    res = results[name]
+    out[name].update(queries=v2_queries(res, p2p[name], device),
+                     batch=v2_batch(res, device),
+                     repairs=v2_repairs(name, res, device),
+                     tier=v2_tier(res, device))
+    return out
+
+
+def v2_queries(res, p2p, device) -> list:
+    """ALT p2p on v2 ``blocked`` for the ``V1_PAIRS``: ``dist[t]`` and
+    the path bitwise the unpruned single-device query's, ``n_relax`` and
+    ``n_pruned`` the single-device ALT query's, only the ALT branch of
+    the partials kernel launched."""
+    from repro_torch.serve.queries import reconstruct_path
+    name, rows = "kronecker(20,16)", []
+    for qi in V1_PAIRS[name]:
+        q = p2p["queries"][qi]
+        s, t = q["source"], q["target"]
+        dist_t, path = p2p["exact"][s, t]
+        single = q["solves"]["alt"]
+        d, p, md, secs, phases, launches, ex = v2_solve(
+            res["sharded"], s, device, version="v2", backend="blocked",
+            blocked=res["shard_layout"], goal="p2p", goal_param=t,
+            landmarks=p2p["landmarks"])
+        what = f"{name} ({s}, {t}) v2 alt blocked"
+        check_partials_only(what, launches, True, alt=True)
+        if not (bitwise_equal(d[t:t + 1], dist_t)
+                and reconstruct_path(p.cpu().numpy(), s, t) == path):
+            raise AssertionError(f"{what}: d(s,t) or its path differs from "
+                                 "the unpruned single-device query's")
+        if (md["n_relax"], md["n_pruned"]) != (single["n_relax"],
+                                               single["n_pruned"]) \
+                or md["n_pruned"] <= 0:
+            raise AssertionError(f"{what}: n_relax/n_pruned "
+                                 f"{md['n_relax']}/{md['n_pruned']}, the "
+                                 f"single-device ALT query's "
+                                 f"{single['n_relax']}/{single['n_pruned']}")
+        n_launch = launches["edge_relax_partials_alt"]
+        log(f"[p2p] {what}: {secs!r} s (single-device {single['seconds']!r}"
+            f" s), d={float(dist_t)!r}, rounds={md['n_rounds']} "
+            f"host_syncs={int(md['n_host_syncs'])} n_relax={md['n_relax']} "
+            f"n_pruned={md['n_pruned']} ALT launches={n_launch} exchanges "
+            f"dense={ex['dense']} {phase_spans(phases)}")
+        rows.append(dict(source=s, target=t, seconds=secs,
+                         launches=n_launch, n_relax=md["n_relax"],
+                         n_pruned=md["n_pruned"]))
+    return rows
+
+
+def v2_batch(res, device) -> dict:
+    """A v2 ``blocked`` batched tree spec of ``FACADE_SLOTS`` sources (the
+    max-degree one and seeded others), each slot bitwise the
+    single-device solve from its source with equal logical counters."""
+    from repro_torch.core.distributed import EXCHANGES, sssp_distributed_batch
+    from repro_torch.core.sssp import sssp
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    hg = res["host"]
+    rng = np.random.default_rng(37)
+    nz = np.flatnonzero(hg.deg > 0)
+    srcs = [res["source"]] + [int(v) for v in rng.choice(
+        nz[nz != res["source"]], FACADE_SLOTS - 1, replace=False)]
+    LAUNCHES.reset()
+    EXCHANGES.reset()
+    (d, p, m), secs = timed(lambda: sssp_distributed_batch(
+        res["sharded"], srcs, version="v2", backend="blocked",
+        blocked=res["shard_layout"], device=device), device)
+    launches, ex = dict(vars(LAUNCHES)), EXCHANGES.as_dict()
+    check_partials_only("kronecker(20,16) v2 batch", launches, True)
+    single_s = 0.0
+    for i, s in enumerate(srcs):
+        (sd, sp, sm), one_s = timed(lambda: sssp(
+            res["graph"], s, backend="blocked", layout=res["layout"],
+            device=device), device)
+        single_s += one_s
+        if not (bitwise_equal(d[i, :hg.n], sd) and p[i, :hg.n].equal(sp)) \
+                or slot_metrics(m, i) != slot_metrics(sm):
+            raise AssertionError(f"kronecker(20,16) v2 batch slot {i} "
+                                 f"(source {s}) differs from its "
+                                 "single-device solve")
+    n_launch = launches["edge_relax_partials"]
+    log(f"[v2] kronecker(20,16) v2 batch of {len(srcs)} tree sources: "
+        f"{secs!r} s beside {single_s!r} s single-device, launches="
+        f"{n_launch} exchanges dense={ex['dense']}; every slot bitwise its "
+        "single-device solve")
+    return dict(slots=len(srcs), seconds=secs, single_s=single_s,
+                launches=n_launch)
+
+
+def v2_repairs(name, res, device) -> dict:
+    """Delta A repaired at v2 and v3 on ``blocked`` shards
+    (``repair_distributed``), each bitwise the single-device repair
+    (``repro_torch.delta.repair`` on a patched copy of the phase-3
+    layout: dist, parent, logical counters) and its dist bitwise the
+    from-scratch solve's on the patched graph."""
+    from repro_torch.core.distributed import (EXCHANGES, repair_distributed,
+                                              shard_blocked)
+    from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
+    from repro_torch.delta import (patch_blocked_with, patch_host,
+                                   patch_sharded_with, repair, repair_state)
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    hg, n = res["host"], res["host"].n
+    delta = make_deltas(res, DELTA_SEEDS[name])["A mixed"]
+    new_host, applied = patch_host(hg, delta)
+    patched = patch_blocked_with(clone_layout(res["layout"]), hg, new_host,
+                                 applied)
+    rd, rp, rm, _ = repair(patched, new_host, res["dist"], res["parent"],
+                           applied, backend="blocked")
+    rmd = metrics_dict(rm)
+    sd, _, _ = sssp(new_host.to_device(device), res["source"],
+                    backend="blocked", layout=patched, device=device)
+    if not bitwise_equal(rd, sd):
+        raise AssertionError(f"{name} A: the single-device repair's dist "
+                             "differs from the from-scratch solve's")
+    sg = patch_sharded_with(res["sharded"], new_host, applied)
+    shards = shard_blocked(sg, device=device)
+    d_i, p_i, front, _ = repair_state(new_host, res["dist"], res["parent"],
+                                      applied)
+    out = {}
+    for version in ("v2", "v3"):
+        LAUNCHES.reset()
+        EXCHANGES.reset()
+        (d, p, m), secs = timed(lambda: repair_distributed(
+            sg, d_i, p_i, front, version=version, backend="blocked",
+            blocked=shards, device=device), device)
+        launches, ex = dict(vars(LAUNCHES)), EXCHANGES.as_dict()
+        md = metrics_dict(m)
+        what = f"{name} A repair {version}"
+        check_partials_only(what, launches, True)
+        if not (bitwise_equal(d[:n], rd) and p[:n].equal(rp)) or any(
+                md[f] != rmd[f] for f in LOGICAL_METRIC_FIELDS):
+            raise AssertionError(f"{what}: differs from the single-device "
+                                 "repair")
+        its = int(md["n_host_syncs"])
+        log(f"[delta] {what} (world size 1, blocked shards): {secs!r} s, "
+            f"host_syncs={its} rounds={md['n_rounds']} edge_relax_partials "
+            f"launches={launches['edge_relax_partials']} exchanges "
+            f"dense={ex['dense']} compact={ex['compact']}; bitwise the "
+            "single-device repair, dist bitwise the from-scratch solve's")
+        out[version] = dict(seconds=secs, host_syncs=its,
+                            launches=launches["edge_relax_partials"],
+                            exchanges=ex)
+    return out
+
+
+def v2_tier(res, device) -> dict:
+    """The sharded tier at world size 1: ``Solver(EngineConfig(tier=
+    "sharded", backend="blocked"))`` (v2) solving a tree and a knear spec,
+    and a ``GraphRegistry`` whose graph is sharded (``shard_threshold_n=1``)
+    behind a ``QueryRouter``: 4 tree queries through the mesh scheduler,
+    one ``ShardedGraphEngine`` batch; every answer bitwise the
+    single-device solves."""
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    from repro_torch.core.sssp import sssp
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.serve.queries import Query
+    from repro_torch.serve.registry import GraphRegistry, ShardedGraphEngine
+    from repro_torch.serve.router import QueryRouter
+    hg, n, src = res["host"], res["host"].n, res["source"]
+    solver, open_s = timed(lambda: Solver.open(hg, EngineConfig(
+        tier="sharded", backend="blocked"), device=device), device)
+    k = 1000
+    LAUNCHES.reset()
+    tree, tree_s = timed(lambda: solver.solve(SolveSpec.tree(src)), device)
+    knear = solver.solve(SolveSpec.knear(src, k))
+    check_partials_only("sharded-tier Solver", dict(vars(LAUNCHES)), True)
+    solver_launches = LAUNCHES.edge_relax_partials
+    if not (bitwise_equal(tree.dist, res["dist"])
+            and tree.parent.equal(res["parent"])) \
+            or slot_metrics(tree.metrics) != {
+                f: res["metrics"][f] for f in slot_metrics(tree.metrics)}:
+        raise AssertionError("kronecker(20,16): the sharded-tier Solver's "
+                             "tree differs from the single-device solve")
+    want = sssp(res["graph"], src, backend="blocked", layout=res["layout"],
+                goal="knear", goal_param=k, device=device)
+    if not (bitwise_equal(knear.dist, want[0])
+            and knear.parent.equal(want[1])):
+        raise AssertionError("kronecker(20,16): the sharded-tier knear "
+                             "differs from the single-device query")
+    reg = GraphRegistry(shard_threshold_n=1, shard_backend="blocked",
+                        shard_devices=[device], device=device)
+    reg.register("kron", hg)
+    # FIFO and no rounds feedback: the eccentricity hints' host BFS (4
+    # over kronecker, about 6 s in chip runs C and E, PR 26) would order
+    # or be fed by 4 queries of one batch
+    router = QueryRouter(reg, devices=[device], max_batch=4,
+                         ecc_batching=False, feedback=False)
+    rng = np.random.default_rng(53)
+    srcs = [src] + [int(v) for v in rng.choice(n, 3, replace=False)]
+    eng, build_s = timed(lambda: reg.engine("kron"), device)
+    if not isinstance(eng, ShardedGraphEngine):
+        raise AssertionError(f"the registry built a {type(eng).__name__}")
+    LAUNCHES.reset()
+    t0 = time.perf_counter()
+    futs = [router.submit(Query(gid="kron", source=s)) for s in srcs]
+    router.drain()
+    answers = [f.result(timeout=600) for f in futs]
+    serve_s = time.perf_counter() - t0
+    check_partials_only("mesh scheduler", dict(vars(LAUNCHES)), True)
+    mesh_launches = LAUNCHES.edge_relax_partials
+    for s, a in zip(srcs, answers):
+        sd, sp, _ = sssp(res["graph"], s, backend="blocked",
+                         layout=res["layout"], device=device)
+        if a.served_by != "mesh" or not (
+                np.array_equal(a.dist.view(np.int32),
+                               sd.cpu().numpy().view(np.int32))
+                and np.array_equal(a.parent, sp.cpu().numpy())):
+            raise AssertionError(f"the mesh scheduler's tree from {s} "
+                                 "differs from the single-device solve")
+    stats = router.stats()
+    log(f"[v2] kronecker(20,16) sharded tier: Solver.open {open_s!r} s, "
+        f"tree {tree_s!r} s, knear k={k} bitwise; registry build "
+        f"{build_s!r} s, {len(srcs)} tree queries through the mesh "
+        f"scheduler in {serve_s!r} s ({stats['n_batches']} batches), each "
+        "bitwise the single-device solve")
+    return dict(open_s=open_s, tree_s=tree_s, build_s=build_s,
+                serve_s=serve_s, queries=len(srcs),
+                batches=stats["n_batches"], launches=solver_launches,
+                mesh_launches=mesh_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -4474,6 +4870,8 @@ def report(graphs, device):
         f"{partials_alt_vs_plain(results, v1q, device)} shard calls bitwise "
         "equal")
     mark("v1 queries")
+    v2 = v2_path(results, p2p, device)
+    mark("phase 3b2 (v2, v3)")
     facade_rows, facade = facade_phase(results, p2p, device)
     mark("phase 3c (facade)")
     deltas = delta_phase(results, device)
@@ -4516,6 +4914,16 @@ def report(graphs, device):
     v1_alt_launches = {n: [q["solves"]["blocked"]["launches"]
                            for q in v1q[n]["queries"]] for n in results}
     ahead, fahead = alt["kronecker(20,16)"], fused_alt["kronecker(20,16)"]
+    # edge_relax_partials' launches on phase 3b2's paths
+    kv2 = v2["kronecker(20,16)"]
+    v2_launches = {f"{n} {w}": r["launches"] for n in results
+                   for w, r in v2[n]["solves"].items()}
+    v2_launches.update({
+        "kronecker(20,16) v2 batch": kv2["batch"]["launches"],
+        **{f"kronecker(20,16) A repair {v}": r["launches"]
+           for v, r in kv2["repairs"].items()},
+        "kronecker(20,16) sharded-tier Solver": kv2["tier"]["launches"],
+        "kronecker(20,16) mesh scheduler": kv2["tier"]["mesh_launches"]})
 
     def alt_launches(kinds):
         """Launches of an ALT kernel over the p2p phase's solves of
@@ -4591,7 +4999,8 @@ def report(graphs, device):
         "name": "edge_relax_partials", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
         "replaces": "src/repro/kernels/edge_relax/edge_relax.py:522",
-        "launches": sum(r["v1_launches"] for r in results.values()),
+        "launches": sum(r["v1_launches"] for r in results.values())
+        + sum(v2_launches.values()),
         "max_abs_err": max(m["max_abs_err"] for m in partials.values()),
         "ms": phead["ms"], "plain_ms": phead["plain_ms"],
         "bound_ms": phead["bound_ms"], "bound_by": "bytes",
@@ -4599,17 +5008,21 @@ def report(graphs, device):
         "per_graph": by_graph(partials),
         "launches_per_solve": {n: r["v1_launches"]
                                for n, r in results.items()},
+        "launches_v2_v3": v2_launches,
     }, {
         "name": "edge_relax_partials[alt]", "route": "cuda",
         "source": "src/repro_torch/kernels/edge_relax/csrc/edge_relax.cu",
         "replaces": "src/repro/kernels/edge_relax/edge_relax.py:497",
-        "launches": sum(map(sum, v1_alt_launches.values())),
+        "launches": sum(map(sum, v1_alt_launches.values()))
+        + sum(q["launches"] for q in v2["kronecker(20,16)"]["queries"]),
         "max_abs_err": max(m["max_abs_err"] for m in partials_alt.values()),
         "ms": pahead["ms"], "plain_ms": pahead["plain_ms"],
         "bound_ms": pahead["bound_ms"], "bound_by": "bytes",
         "library_ms": pahead["library_ms"],
         "per_graph": by_graph(partials_alt),
         "launches_per_query": v1_alt_launches,
+        "launches_per_v2_query": [
+            q["launches"] for q in v2["kronecker(20,16)"]["queries"]],
     }]
     solves = {"solves": {n: dict(
         solve_s=r["solve_s"], fused_solve_s=r["fused_solve_s"],
@@ -4637,7 +5050,8 @@ def report(graphs, device):
         "goals": p2p["goals"],
         "v1_queries": {n: dict(queries=v1q[n]["queries"],
                                pruned=v1q[n]["pruned"]) for n in results},
-        "v1_goals": v1q["goals"], "facade": facade, "deltas": deltas,
+        "v1_goals": v1q["goals"], "v2": v2, "facade": facade,
+        "deltas": deltas,
         "traces": traces, "serving": serving}
     # launches of each kernel in each repair of phase 3d
     per_repair = lambda mode: {k: d["repairs"][mode]["launches"]

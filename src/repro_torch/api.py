@@ -1,10 +1,12 @@
 """Unified solver facade: ``Solver.open(graph, config).solve(spec)`` (port
-of ``repro.api``, the single and routed tiers).
+of ``repro.api``: the single, sharded and routed tiers).
 
 A :class:`Solver` session owns what one graph needs on its tier,
 resolved once from an :class:`~repro_torch.core.config.EngineConfig`:
 on the single tier the device graph, the backend's layout and the ALT
-landmark set; on the routed tier a
+landmark set; on the sharded tier the graph's shards and, on
+``blocked``, their layout, with this rank's shard kept on its device (a
+:class:`~repro_torch.core.distributed.DeviceShard`); on the routed tier a
 :class:`~repro_torch.serve.registry.GraphRegistry` and a
 :class:`~repro_torch.serve.router.QueryRouter` over per-device
 schedulers.  Every query is a declarative :class:`SolveSpec` (goal kind
@@ -35,8 +37,14 @@ a :class:`~repro_torch.obs.trace.SolveTrace`, or one per slot of a
 batch.  ``tuned=`` (a :class:`~repro_torch.tune.TunedStore` or its path)
 overlays the store's tuned fields for ``gid``.
 
-The sharded tier belongs to a later slice of the port and raises
-``NotImplementedError`` naming ROADMAP queue 1 item 10.
+On the sharded tier (``EngineConfig(tier="sharded")``) a scalar spec
+runs :func:`~repro_torch.core.distributed.sssp_distributed` and a batched
+one :func:`~repro_torch.core.distributed.sssp_distributed_batch`, at the
+config's ``shard_version`` (v2 by default), over the ranks of the
+``torch.distributed`` world group, one shard a rank.  That tier is SPMD:
+every rank opens the session and solves the same specs (at world size 1,
+one card, that is the one process), and the session raises without an
+initialised group.  Its answers are the single tier's, bit for bit.
 """
 from __future__ import annotations
 
@@ -60,16 +68,6 @@ from .serve.queries import Query, _host, reconstruct_path
 
 __all__ = ["EngineConfig", "ConfigError", "SolveSpec", "SolveResult",
            "Solver"]
-
-# what a later slice brings (ROADMAP queue 1)
-_LATER = {
-    "sharded": "the sharded tier (ROADMAP queue 1 item 10, sharded v2/v3)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_LATER[what]} is not ported yet")
-
 
 def _as_id_tuple(v) -> Tuple[int, ...]:
     return tuple(int(x) for x in v)
@@ -323,13 +321,14 @@ class SolveResult:
 
 
 class Solver:
-    """One opened solving session over one graph, on the single or the
-    routed tier.
+    """One opened solving session over one graph, on the single, the
+    sharded or the routed tier.
 
     Build with :meth:`open`; the session owns the resolved engine
     (:class:`~repro_torch.core.config.ResolvedEngine`) and its tier's
     state (single: the device graph, the backend's layout and, with
-    ``use_alt``, the landmark set; routed: the registry and the router),
+    ``use_alt``, the landmark set; sharded: the shards, their blocked
+    layout and the landmark set; routed: the registry and the router),
     so repeated :meth:`solve` calls amortize every preprocessing step.
     Usable as a context manager (``close`` stops the routed tier's
     workers).
@@ -348,13 +347,14 @@ class Solver:
         self._closed = False
         if self.tier == "single":
             self._open_single(graph, layout, device)
-        elif self.tier == "routed":
-            if layout is not None:
-                raise ConfigError("the routed tier builds layouts through "
-                                  "its registry; drop layout=")
+            return
+        if layout is not None:
+            raise ConfigError(f"the {self.tier} tier builds its own "
+                              f"layouts; drop layout=")
+        if self.tier == "routed":
             self._open_routed(graph, device)
         else:
-            raise _later(self.tier)
+            self._open_sharded(graph, device)
 
     # ------------------------------------------------------------------
     # construction
@@ -373,7 +373,9 @@ class Solver:
         against the config and the graph here).  ``device`` places the
         session (default: the config's pinned devices, else ``cuda``;
         ``"cpu"`` runs the plain versions of the kernels); on the routed
-        tier it is the one device its router serves on.
+        tier it is the one device its router serves on, on the sharded
+        tier this rank's device (default: the config's pinned device of
+        this rank, else ``cuda:<local rank>``).
 
         ``tuned`` is a :class:`~repro_torch.tune.TunedStore` (or a path
         to one): the store's tuned fields for ``gid``
@@ -484,6 +486,44 @@ class Solver:
             raise ConfigError(f"layout is on {where}, the session on "
                               f"{self._device}")
 
+    def _open_sharded(self, graph, device):
+        import torch.distributed as tdist
+        from .core.distributed import (_device_for, device_shard,
+                                       shard_blocked, shard_graph)
+        from .serve.registry import _host_graph
+        r = self.resolved
+        if not tdist.is_initialized():
+            raise RuntimeError(
+                "the sharded tier needs a process group: call "
+                "torch.distributed.init_process_group first (one rank a "
+                "shard; world size 1 on one card)")
+        world, rank = tdist.get_world_size(), tdist.get_rank()
+        pinned = r.resolve_devices()
+        if device is None and pinned is not None:
+            if len(pinned) != world:
+                raise ConfigError(f"config pins {len(pinned)} device(s) "
+                                  f"for a world of {world} rank(s)")
+            device = pinned[rank]
+        self._device = _device_for(device)
+        with profiling.annotate("repro:engine_build:sharded"):
+            self._sg = shard_graph(_host_graph(graph), world)
+            blocked = None
+            if r.shard_backend == "blocked":
+                blocked = shard_blocked(self._sg, device=self._device,
+                                        **r.blocked_opts())
+            # this rank's shard on its device, kept for every solve
+            self._shard = device_shard(self._sg, blocked,
+                                       device=self._device)
+        # the landmark set: one build on this rank's device, the same on
+        # every rank
+        self._landmarks = None
+        if r.use_alt:
+            from .core.landmarks import build_landmarks
+            with profiling.annotate("repro:landmark_build"):
+                self._landmarks = build_landmarks(
+                    graph, r.n_landmarks, r.landmark_strategy,
+                    device=self._device)
+
     def _open_routed(self, graph, device):
         from .serve.registry import GraphRegistry
         from .serve.router import QueryRouter
@@ -513,17 +553,18 @@ class Solver:
         spec.check_bounds(self.n)
         if self.tier == "routed":
             return self._solve_routed(spec)
-        return self._solve_single(spec)
+        return self._solve_local(spec)
 
     def solve_many(self, specs) -> list:
         """Solve several specs (mixed goal kinds welcome): one
         :class:`SolveResult` per input spec, in order.
 
         The specs are grouped by goal kind; all slots of one kind run as
-        one :func:`~repro_torch.core.sssp.sssp_batch` call, and each
-        spec's rows are sliced back out of its group's result.  The
-        routed tier solves each spec in turn (its schedulers group the
-        queries themselves).
+        one batched call (:func:`~repro_torch.core.sssp.sssp_batch`, or
+        :func:`~repro_torch.core.distributed.sssp_distributed_batch` on the
+        sharded tier), and each spec's rows are sliced back out of its
+        group's result.  The routed tier solves each spec in turn (its
+        schedulers group the queries themselves).
         """
         specs = list(specs)
         for spec in specs:
@@ -554,7 +595,7 @@ class Solver:
                 **({} if kind == "tree" else
                    {{"p2p": "target", "bounded": "bound",
                      "knear": "k"}[kind]: tuple(params)}))
-            out = self._solve_single(merged)
+            out = self._solve_local(merged)
             for i, (lo, hi) in zip(idxs, slots):
                 spec = specs[i]
                 sl = slice(lo, hi) if spec.batched else lo
@@ -570,12 +611,23 @@ class Solver:
             return {"goal": spec.kind, "goal_params": spec.slot_params()}
         return {"goal": spec.kind, "goal_param": spec.goal_param}
 
-    def _solve_single(self, spec: SolveSpec) -> SolveResult:
-        fn = sssp_batch if spec.batched else sssp
+    def _solve_local(self, spec: SolveSpec) -> SolveResult:
+        """One spec on the single or the sharded tier, in one call."""
         srcs = list(spec.sources) if spec.batched else spec.sources
-        out = fn(self._dg, srcs, config=self.resolved, layout=self._layout,
-                 landmarks=self._landmarks, device=self._device,
-                 **self._goal_args(spec))
+        if self.tier == "single":
+            fn = sssp_batch if spec.batched else sssp
+            out = fn(self._dg, srcs, config=self.resolved,
+                     layout=self._layout, landmarks=self._landmarks,
+                     device=self._device, **self._goal_args(spec))
+        else:
+            from .core.distributed import (sssp_distributed,
+                                           sssp_distributed_batch)
+            fn = sssp_distributed_batch if spec.batched else sssp_distributed
+            out = fn(self._sg, srcs, config=self.resolved,
+                     shard=self._shard, landmarks=self._landmarks,
+                     device=self._device, **self._goal_args(spec))
+            # padding vertices never leave the facade
+            out = (out[0][..., :self.n], out[1][..., :self.n], *out[2:])
         # a traced config returns the device ring too: one copy to the host
         trace = materialize_trace(out[3]) if self.resolved.trace_cap > 0 \
             else None
@@ -697,13 +749,14 @@ class Solver:
 
     @property
     def device_graph(self):
-        """The single tier's device-resident graph (None when routed)."""
+        """The single tier's device-resident graph (None on the other
+        tiers)."""
         return getattr(self, "_dg", None)
 
     @property
     def landmarks(self):
-        """The single tier's ALT landmark set (``use_alt`` configs), or
-        None; the routed tier's sets live in its registry
+        """The single or sharded tier's ALT landmark set (``use_alt``
+        configs), or None; the routed tier's sets live in its registry
         (:meth:`~repro_torch.serve.registry.GraphRegistry.landmark_set`)."""
         return getattr(self, "_landmarks", None)
 

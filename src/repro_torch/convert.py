@@ -74,8 +74,9 @@ def _device(a: dict, dev: torch.device) -> DeviceGraph:
 
 def _blocked(a: dict, dev: torch.device) -> BlockedGraph:
     if int(a["src_base"]) != 0 or int(a["n_blocks"]) != int(a["n_dst_blocks"]):
-        raise NotImplementedError("shard slices come with the sharded slice "
-                                  "of the port")
+        raise ValueError("a shard slice is no whole-graph BlockedGraph: "
+                         "convert the stacked shard layout "
+                         "(distributed.shard_blocked) instead")
     nb, bv = int(a["n_blocks"]), int(a["block_v"])
     slabs = [{f: np.asarray(a[f"slabs/{i}/{f}"]) for f in _SLAB_FIELDS}
              for i in range(nb)]

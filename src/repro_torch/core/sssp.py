@@ -419,29 +419,38 @@ def _trace_record(s0: _TraceSnap, s1: SsspState, buf: TraceBuf,
 
 
 def _solve_loop(g, s: SsspState, c: _Consts, relax_step, transition,
-                max_iters: int, buf: TraceBuf | None = None):
+                max_iters: int, buf: TraceBuf | None = None, *,
+                tighten=None, any_front=None, snap=_trace_snap):
     """The stepping loop: a relaxation call, the bootstrap tightening, one
     host read of ``(done, any(frontier))``, and the step transition when
     the frontier is empty.  With ``buf`` every iteration that counts
     appends its record (the dropped last round does not).  ``g`` needs
-    ``deg``; returns ``(dist, parent, metrics)``."""
+    ``deg``; returns ``(dist, parent, metrics)``.
+
+    The block-sharded engines (v2/v3) pass three hooks: ``tighten(s)`` in
+    place of the bootstrap tightening, ``any_front(s)``, a 0-d tensor
+    that holds iff some rank has a frontier, and ``snap(s)``, the trace's
+    view of the state before an iteration."""
+    if tighten is None:
+        tighten = lambda s: _bootstrap_ub(g, s, c.high_d0)
+    if any_front is None:
+        any_front = lambda s: s.frontier.any()
     syncs = 0
     for _ in range(max_iters):
         prev = s
-        snap = None if buf is None else _trace_snap(s)
-        s = relax_step(s)
-        s = _bootstrap_ub(g, s, c.high_d0)
-        done, any_front = torch.stack([s.done, s.frontier.any()]).tolist()
+        before = None if buf is None else snap(s)
+        s = tighten(relax_step(s))
+        done, front = torch.stack([s.done, any_front(s)]).tolist()
         syncs += 1
         if done:
             # the previous transition finished the solve: this round ran
             # on an empty frontier and is dropped
             s = prev
             break
-        if not any_front:
+        if not front:
             s = transition(s)
         if buf is not None:
-            _trace_record(snap, s, buf)
+            _trace_record(before, s, buf)
     metrics = s.metrics._replace(n_host_syncs=torch.full(
         (), float(syncs), dtype=torch.float32, device=g.deg.device))
     return s.dist, s.parent, metrics

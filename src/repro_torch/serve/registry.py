@@ -1,5 +1,5 @@
 """Multi-graph registry: cached device layouts + engines, LRU-evicted
-(port of ``repro.serve.registry``, the single-device tier).
+(port of ``repro.serve.registry``).
 
 Serving heterogeneous traffic means holding several preprocessed graphs
 at once, each with a device-resident
@@ -23,10 +23,19 @@ registry's ``device`` (default: the config's first pinned device, else
 the current card; there is no fallback to the CPU).
 
 **Engine tiers.**  Graphs at or above the registry's vertex/edge shard
-thresholds belong to the sharded tier, which needs
-``sssp_distributed_batch`` on v2/v3 (ROADMAP queue 1 item 10): building
-such an engine raises ``NotImplementedError``, and the scheduler hands
-that error to the query's future.
+thresholds (or registered with ``tier="sharded"``) are served by a
+:class:`ShardedGraphEngine`: the graph block-partitioned over the ranks
+of the ``torch.distributed`` world group, one shard a rank, and every
+batch one :func:`~repro_torch.core.distributed.sssp_distributed_batch`
+call (v2 by default).  That call is SPMD: every rank makes it.  The
+serving plane runs on rank 0, so rank 0 broadcasts a header before each
+sharded batch (the gid, backend, sources, goal and goal parameters) and
+before each sharded ``apply_delta`` (the edits); every other rank builds
+a registry with the same config and the same registered graphs and runs
+:meth:`GraphRegistry.follow`, which makes the same call for each header
+until rank 0 calls :meth:`GraphRegistry.stop_followers`.  At world size
+1 (one card) there is no follower and no header.  The single tier needs
+no group.
 
 **Concurrency.**  Lookups of built engines take only a short lock.  A
 cold build publishes a per-key future and builds *outside* the lock:
@@ -50,29 +59,45 @@ import threading
 import time
 import weakref
 from concurrent.futures import Future
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from ..core import landmarks as landmarks_mod
 from ..core import relax
-from ..core.config import EngineConfig, _canonical_shard_backend, \
-    resolve_devices
+from ..core.config import (ConfigError, EngineConfig,
+                           _canonical_shard_backend, resolve_devices)
+from ..core.distributed import (_device_for, device_shard, shard_blocked,
+                                shard_graph, sssp_distributed_batch)
 from ..core.graph import DeviceGraph, HostGraph, TileIndex
 from ..core.landmarks import LandmarkSet, build_landmarks, hop_bfs
 from ..core.sssp import GOALS, repair_relax, resolve_device, sssp_batch
-from ..delta import patch_blocked_with, patch_host, repair_state
+from ..delta import (patch_blocked_with, patch_host, patch_sharded_with,
+                     repair_state)
 from ..obs import profiling
 from ..obs.metrics import MetricsRegistry
 from .queries import _host
 
-__all__ = ["GraphEngine", "GraphRegistry", "RegistryStats",
-           "estimate_eccentricity"]
+__all__ = ["GraphEngine", "ShardedGraphEngine", "GraphRegistry",
+           "RegistryStats", "estimate_eccentricity"]
 
-_SHARDED = ("the sharded serving tier (ShardedGraphEngine over "
-            "sssp_distributed_batch v2/v3; ROADMAP queue 1 item 10) is not "
-            "ported yet")
+# one sharded header and the collectives that follow it at a time; a
+# sharded engine's graph is read and patched under it
+_PLANE_LOCK = threading.RLock()
+
+
+def _announce(header: tuple) -> None:
+    """Rank 0's header to the followers (nothing at world size 1)."""
+    if tdist.get_world_size() > 1:
+        tdist.broadcast_object_list([header], src=0)
+
+
+def _receive() -> tuple:
+    box = [None]
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 class _StrongRef:
@@ -280,6 +305,136 @@ class GraphEngine(_EngineBase):
             goal=goal, goal_params=goal_params, device=self.device, **alt)
 
 
+class _Shards(NamedTuple):
+    """A sharded engine's graph, swapped whole by a delta: the host
+    shards, their stacked blocked layout (or None) and this rank's
+    shard on its device."""
+    sg: object
+    blocked: Optional[tuple]
+    shard: object
+
+
+class ShardedGraphEngine(_EngineBase):
+    """The sharded serving tier: one graph over the ranks of the world
+    process group, one shard a rank.
+
+    The graph is block-partitioned with
+    :func:`~repro_torch.core.distributed.shard_graph` and, on
+    ``blocked``, bucketed once here with
+    :func:`~repro_torch.core.distributed.shard_blocked`; each batch runs
+    :func:`~repro_torch.core.distributed.sssp_distributed_batch` (the
+    sources one after another) with the same goal semantics as the
+    single tier, and the padding vertices are cut off.  ``devices`` (one
+    per rank) places this rank's shard; default: its card,
+    ``cuda:<local rank>``.  On rank 0 :meth:`run_batch` broadcasts the
+    batch's header first when the world has other ranks, which run the
+    same call from :meth:`GraphRegistry.follow`.  This rank's shard
+    crosses to its device once, at build (and after each delta), not once
+    a batch.  The graph is read by every batch and patched by
+    :meth:`patch` under the plane lock.
+    """
+
+    tier = "sharded"
+
+    def __init__(self, gid: str, hg, alpha: float, beta: float,
+                 devices=None, version: str = "v2", fused_rounds: int = 0,
+                 backend: str = "segment_min", capacity: int = 0,
+                 max_iters: int = 1_000_000, policy: str = "static",
+                 landmarks=None, **blocked_opts):
+        super().__init__()
+        if not tdist.is_initialized():
+            raise RuntimeError(
+                "the sharded tier needs a process group: call "
+                "torch.distributed.init_process_group first (one rank a "
+                "shard; world size 1 on one card)")
+        self.gid = gid
+        self.host = _host_graph(hg)
+        self.deg = _host(self.host.deg)
+        self.n = int(self.deg.shape[0])
+        self.alpha = alpha
+        self.beta = beta
+        self.version = version
+        self.fused_rounds = fused_rounds
+        self.policy = policy
+        self.capacity = capacity
+        self.max_iters = max_iters
+        self.backend = _canonical_shard_backend(backend)
+        self.rank, self.world = tdist.get_rank(), tdist.get_world_size()
+        if devices is not None and len(devices) != self.world:
+            raise ConfigError(f"the sharded tier spans {self.world} "
+                              f"rank(s); got {len(devices)} device(s)")
+        self.device = (torch.device(devices[self.rank]) if devices
+                       else _device_for(None))
+        with profiling.annotate(f"repro:prepare_layout:sharded:{gid}"):
+            sg = shard_graph(self.host, self.world)
+            blocked = None
+            if self.backend == "blocked":
+                blocked = shard_blocked(sg, device=self.device,
+                                        **blocked_opts)
+            self._shards = self._placed_shards(sg, blocked)
+        self.landmarks = _placed(landmarks, self.device)
+
+    def _placed_shards(self, sg, blocked) -> _Shards:
+        return _Shards(sg, blocked,
+                       device_shard(sg, blocked, device=self.device))
+
+    @property
+    def sg(self):
+        """The graph's :class:`~repro_torch.core.distributed.ShardedGraph`."""
+        return self._shards.sg
+
+    @property
+    def blocked(self):
+        """The stacked blocked layout (None on ``segment_min``)."""
+        return self._shards.blocked
+
+    def run_batch(self, sources, goal: str = "tree", goal_params=None):
+        """Same contract as :meth:`GraphEngine.run_batch` (leading slot
+        axis, tensors on this rank's device); rank 0 only when the world
+        has other ranks."""
+        sources = np.asarray(sources, np.int64).tolist()
+        gp = None if goal_params is None else list(goal_params)
+        if self.rank != 0:
+            raise RuntimeError("rank 0 drives the sharded tier; the other "
+                               "ranks run GraphRegistry.follow()")
+        with _PLANE_LOCK:
+            _announce(("batch", self.gid, self.backend, sources, goal, gp))
+            return self.solve(sources, goal, gp)
+
+    def solve(self, sources, goal: str = "tree", goal_params=None):
+        """The batch itself, which every rank runs (SPMD), under the
+        plane lock: a delta waits for it and it for a delta."""
+        with _PLANE_LOCK:
+            shards = self._shards
+            lm = self.landmarks if goal == "p2p" else None
+            dist, parent, metrics = sssp_distributed_batch(
+                shards.sg, sources, version=self.version,
+                fused_rounds=self.fused_rounds,
+                capacity=self.capacity or None, max_iters=self.max_iters,
+                alpha=self.alpha, beta=self.beta,
+                policy=None if self.policy == "static" else self.policy,
+                goal=goal, goal_params=goal_params, backend=self.backend,
+                shard=shards.shard, landmarks=lm, device=self.device)
+        return dist[:, :self.n], parent[:, :self.n], metrics
+
+    def patch(self, new_host, applied, landmarks) -> None:
+        """Apply a delta in place, under the plane lock: the shards'
+        slabs patched from the one host patch, the stacked blocked layout
+        (uniform tile padding over every shard) bucketed again, this
+        rank's shard placed again, and the graph swapped in one
+        assignment, so that no batch sees part of it."""
+        with _PLANE_LOCK:
+            sg = patch_sharded_with(self.sg, new_host, applied)
+            blocked = None
+            if self.blocked is not None:
+                meta = self.blocked[1]
+                blocked = shard_blocked(sg, block_v=meta.block_v,
+                                        tile_e=meta.tile_e)
+            self._shards = self._placed_shards(sg, blocked)
+            self.host, self.deg = new_host, np.asarray(new_host.deg)
+            self.landmarks = landmarks
+
+
 class RegistryStats:
     """Counter-backed registry stats: every field is a live read-through
     of a :class:`~repro_torch.obs.metrics.MetricsRegistry` counter
@@ -321,8 +476,10 @@ class GraphRegistry:
     Thread-safe: the LRU state is guarded by a short internal lock, and
     cold builds run outside it behind per-key futures (see the module
     docstring).  ``shard_threshold_n`` / ``shard_threshold_m`` select the
-    tier as in the reference; sharded-tier engines are not ported yet.
-    ``device`` places the engines of device-less lookups.
+    tier as in the reference: a graph at or above either is served by a
+    :class:`ShardedGraphEngine` over the world group (``shard_devices``:
+    one device per rank; default: each rank's card).  ``device`` places
+    the single-tier engines of device-less lookups.
 
     **Generations.**  Every :meth:`register` bumps the gid's generation;
     engines record the generation they were built from, and invalidation
@@ -564,8 +721,8 @@ class GraphRegistry:
 
         ``device`` (a ``torch.device``, a name or a CUDA index) places a
         single-tier engine; None places it on the registry's ``device``.
-        Marks the entry MRU.  A sharded-tier gid raises
-        ``NotImplementedError`` (ROADMAP queue 1 item 10).
+        Sharded-tier gids ignore ``device``: their one engine spans the
+        world group.  Marks the entry MRU.
         """
         with self._lock:
             key, dev = self._resolve(gid, backend, device)
@@ -693,8 +850,6 @@ class GraphRegistry:
             return self._build_inner(gid, spec, backend, device, tier)
 
     def _build_inner(self, gid, spec, backend, device, tier):
-        if tier == "sharded":
-            raise NotImplementedError(_SHARDED)
         hg = spec() if callable(spec) else spec
         # per-gid tuned overlay: only the perf fields move (TUNED_FIELDS);
         # a stale fingerprint or an overlay this config cannot carry
@@ -711,7 +866,8 @@ class GraphRegistry:
                 cfg = tuned_cfg
                 self._tuned_builds.inc()
         backend_opts = dict(self.backend_opts)
-        is_blocked = relax.get_backend(backend).name == "blocked_pallas"
+        is_blocked = backend == "blocked" if tier == "sharded" \
+            else relax.get_backend(backend).name == "blocked_pallas"
         if is_blocked:
             for nm in ("block_v", "tile_e"):
                 v = getattr(cfg, nm)
@@ -719,7 +875,20 @@ class GraphRegistry:
                     backend_opts.pop(nm, None)
                 else:
                     backend_opts[nm] = v
-        else:
+        if tier == "sharded":
+            # the landmark set is built once on the registry's device and
+            # replicated on every rank
+            lm = None
+            if cfg.use_alt:
+                lm = self.landmark_set(gid, hg, n_landmarks=cfg.n_landmarks,
+                                       strategy=cfg.landmark_strategy)
+            return ShardedGraphEngine(
+                gid, hg, cfg.alpha, cfg.beta, devices=self.shard_devices,
+                version=self.shard_version, fused_rounds=cfg.fused_rounds,
+                capacity=cfg.compact_capacity, max_iters=self.max_iters,
+                backend=backend, policy=cfg.policy, landmarks=lm,
+                **backend_opts)
+        if not is_blocked:
             backend_opts = {}
         # fused_rounds is a blocked-kernel knob on the single-device tier;
         # a per-lookup segment_min backend must not inherit it
@@ -784,11 +953,12 @@ class GraphRegistry:
         place.
 
         One host-side patch (:func:`~repro_torch.delta.patch_host`) is
-        shared by every cached engine of the gid: each gets a patched
-        copy (blocked layouts through
+        shared by every cached engine of the gid: each single-tier engine
+        gets a patched copy (blocked layouts through
         :func:`~repro_torch.delta.patch_blocked_with` on a clone, equal
         to a rebuild, vertex->tile index included), so a batch in flight
-        on the old engine keeps its tensors.  Cached tree states
+        on the old engine keeps its tensors; a sharded engine is patched
+        in place (:meth:`ShardedGraphEngine.patch`).  Cached tree states
         (:meth:`cache_result`) are repaired with
         :func:`~repro_torch.core.sssp.repair_relax` on a patched blocked
         engine's layout, with its fused rounds, where the gid has one
@@ -797,63 +967,76 @@ class GraphRegistry:
         from-scratch solve's, parent too wherever paths do not tie
         exactly in f32.  The generation is not bumped and listeners do
         not fire; landmark sets and tuned overlays follow
-        ``config.delta_staleness_budget`` as in the reference.  Returns
-        the reference's report dict.
+        ``config.delta_staleness_budget`` as in the reference.  On rank 0
+        of a larger world a sharded gid's edits go to the followers first
+        (:meth:`follow`), which apply them to their own registries.  A
+        sharded gid's delta holds the plane lock from that announcement
+        to the swap, so no batch runs in between, on any rank.
+        Returns the reference's report dict.
         """
         with self._lock:
             if gid not in self._specs:
                 raise self._missing(gid)
-            spec = self._specs[gid]
-            if callable(spec):
-                spec = spec()
-            old_host = _host_graph(spec)
-            with profiling.annotate(f"repro:apply_delta:{gid}"):
-                new_host, applied = patch_host(old_host, edits)
-                self._specs[gid] = new_host
-                for key in [k for k in self._building if k[0] == gid]:
-                    del self._building[key]
-                frac = (self._delta_frac.get(gid, 0.0)
-                        + applied.n_edits / max(old_host.m, 1))
-                self._delta_frac[gid] = frac
-                safe = self._delta_safe.get(gid, True) and applied.safe_stale
-                self._delta_safe[gid] = safe
-                keep_lm = safe and frac <= self.config.delta_staleness_budget
-                lm = self._landmark_sets.get(gid)
-                if lm is not None:
-                    if keep_lm:
-                        self._landmark_sets[gid] = dataclasses.replace(
-                            lm, stale=True)
-                        self._delta_counters["landmarks_kept"].inc()
-                    else:
-                        self._landmark_sets.pop(gid, None)
-                        self._delta_counters["landmarks_dropped"].inc()
-                patched = []
-                for key in [k for k in self._engines if k[0] == gid]:
-                    eng = self._patch_engine(self._engines[key], old_host,
-                                             new_host, applied, keep_lm)
-                    self._engines[key] = eng    # same key: LRU position kept
-                    patched.append(eng)
-                n_repaired = 0
-                cache = self._result_cache.get(gid)
-                if cache:
-                    layout, backend, fused = self._repair_layout(patched,
-                                                                 new_host)
-                    put = lambda a: torch.from_numpy(a).to(layout.w.device)
-                    for source in list(cache):
-                        dist, parent = cache[source]
-                        d_i, p_i, f0, st = repair_state(new_host, dist,
-                                                        parent, applied)
-                        d2, p2, _ = repair_relax(
-                            layout, put(d_i), put(p_i), put(f0),
-                            backend=backend, max_iters=self.max_iters,
-                            fused_rounds=fused)
-                        cache[source] = (_host(d2), _host(p2))
-                        self._delta_counters["reseeded"].inc(st.n_seeds)
-                        n_repaired += 1
-                    self._delta_counters["repaired"].inc(n_repaired)
-                self._delta_counters["applied"].inc()
-                self._delta_counters["edges"].inc(applied.n_edits)
-                self._delta_counters["layout_patches"].inc(len(patched))
+            if self._tiers[gid] != "sharded":
+                return self._apply_delta(gid, edits)
+            with _PLANE_LOCK:
+                if tdist.is_initialized() and tdist.get_rank() == 0:
+                    _announce(("delta", gid, edits))
+                return self._apply_delta(gid, edits)
+
+    def _apply_delta(self, gid: str, edits) -> dict:
+        """:meth:`apply_delta`'s work, under the registry's lock."""
+        spec = self._specs[gid]
+        if callable(spec):
+            spec = spec()
+        old_host = _host_graph(spec)
+        with profiling.annotate(f"repro:apply_delta:{gid}"):
+            new_host, applied = patch_host(old_host, edits)
+            self._specs[gid] = new_host
+            for key in [k for k in self._building if k[0] == gid]:
+                del self._building[key]
+            frac = (self._delta_frac.get(gid, 0.0)
+                    + applied.n_edits / max(old_host.m, 1))
+            self._delta_frac[gid] = frac
+            safe = self._delta_safe.get(gid, True) and applied.safe_stale
+            self._delta_safe[gid] = safe
+            keep_lm = safe and frac <= self.config.delta_staleness_budget
+            lm = self._landmark_sets.get(gid)
+            if lm is not None:
+                if keep_lm:
+                    self._landmark_sets[gid] = dataclasses.replace(
+                        lm, stale=True)
+                    self._delta_counters["landmarks_kept"].inc()
+                else:
+                    self._landmark_sets.pop(gid, None)
+                    self._delta_counters["landmarks_dropped"].inc()
+            patched = []
+            for key in [k for k in self._engines if k[0] == gid]:
+                eng = self._patch_engine(self._engines[key], old_host,
+                                         new_host, applied, keep_lm)
+                self._engines[key] = eng    # same key: LRU position kept
+                patched.append(eng)
+            n_repaired = 0
+            cache = self._result_cache.get(gid)
+            if cache:
+                layout, backend, fused = self._repair_layout(patched,
+                                                             new_host)
+                put = lambda a: torch.from_numpy(a).to(layout.w.device)
+                for source in list(cache):
+                    dist, parent = cache[source]
+                    d_i, p_i, f0, st = repair_state(new_host, dist,
+                                                    parent, applied)
+                    d2, p2, _ = repair_relax(
+                        layout, put(d_i), put(p_i), put(f0),
+                        backend=backend, max_iters=self.max_iters,
+                        fused_rounds=fused)
+                    cache[source] = (_host(d2), _host(p2))
+                    self._delta_counters["reseeded"].inc(st.n_seeds)
+                    n_repaired += 1
+                self._delta_counters["repaired"].inc(n_repaired)
+            self._delta_counters["applied"].inc()
+            self._delta_counters["edges"].inc(applied.n_edits)
+            self._delta_counters["layout_patches"].inc(len(patched))
         return {"gid": gid, "n_edits": applied.n_edits,
                 "engines_patched": len(patched),
                 "results_repaired": n_repaired, "delta_frac": frac,
@@ -863,26 +1046,36 @@ class GraphRegistry:
 
     def _repair_layout(self, patched, new_host):
         """``(layout, backend, fused_rounds)`` to repair cached trees on:
-        a patched blocked engine's layout and fused rounds if the gid has
-        one, else a patched engine's graph, else the new graph on the
-        registry's device (both on ``segment_min``)."""
-        for eng in patched:
+        a patched single-tier blocked engine's layout and fused rounds if
+        the gid has one, else a patched single-tier engine's graph, else
+        the new graph on the registry's device (both on
+        ``segment_min``)."""
+        single = [eng for eng in patched if eng.tier == "single"]
+        for eng in single:
             if eng.backend.name == "blocked_pallas":
                 return eng.layout, eng.backend, eng.fused_rounds
-        g = (patched[0].g if patched
+        g = (single[0].g if single
              else new_host.to_device(resolve_device(self.device)))
         return g, "segment_min", 0
 
     def _patch_engine(self, eng, old_host, new_host, applied, keep_lm):
-        """Patched shallow copy of a cached engine: new graph and layout
-        tensors on its device, the hint state shared; the original
-        object is left untouched for any batch already running on it."""
+        """The patched engine.  A single-tier engine is copied (shallow):
+        new graph and layout tensors on its device, the hint state
+        shared; the original object is left untouched for any batch
+        already running on it.  A sharded engine is patched in place
+        under the plane lock, which its batches hold: a scheduler worker
+        that holds the engine then solves on the patched graph, as the
+        followers do."""
+        lm = eng.landmarks
+        if lm is not None:
+            lm = dataclasses.replace(lm, stale=True) if keep_lm else None
+        if eng.tier == "sharded":
+            eng.patch(new_host, applied, lm)
+            return eng
         eng = copy.copy(eng)
         eng.host = new_host
         eng.deg = np.asarray(new_host.deg)
-        if eng.landmarks is not None:
-            eng.landmarks = (dataclasses.replace(eng.landmarks, stale=True)
-                             if keep_lm else None)
+        eng.landmarks = lm
         eng.g = new_host.to_device(eng.device)
         if eng.backend.name == "blocked_pallas":
             eng.layout = patch_blocked_with(_clone_layout(eng.layout),
@@ -890,6 +1083,38 @@ class GraphRegistry:
         else:
             eng.layout = eng.backend.prepare(eng.g)
         return eng
+
+    # ------------------------------------------------------------------
+    # the sharded tier's followers
+    # ------------------------------------------------------------------
+
+    def follow(self) -> int:
+        """Serve rank 0's sharded tier from this rank (every rank but 0 of
+        the world group runs it, on a registry with the same config and
+        the same registered graphs): take each header rank 0 broadcasts
+        and make the same call (a batch on the gid's sharded engine,
+        built here on first use, or an ``apply_delta``) until
+        :meth:`stop_followers`.  Returns the number of headers served."""
+        if tdist.get_rank() == 0:
+            raise RuntimeError("rank 0 drives the sharded tier; follow() "
+                               "runs on the other ranks")
+        served = 0
+        while True:
+            header = _receive()
+            if header[0] == "stop":
+                return served
+            if header[0] == "batch":
+                _, gid, backend, sources, goal, goal_params = header
+                self.engine(gid, backend).solve(sources, goal, goal_params)
+            else:
+                _, gid, edits = header
+                self.apply_delta(gid, edits)
+            served += 1
+
+    def stop_followers(self) -> None:
+        """Release the other ranks from :meth:`follow` (rank 0)."""
+        with _PLANE_LOCK:
+            _announce(("stop",))
 
     # ------------------------------------------------------------------
     # warmup

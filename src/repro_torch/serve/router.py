@@ -11,7 +11,7 @@
                  |                 |                  |
           GraphEngine@dev0   GraphEngine@dev1   GraphEngine@devP-1
                                    |
-            sharded-tier gids ->  "mesh" QueryScheduler (ROADMAP item 10)
+            sharded-tier gids ->  "mesh" QueryScheduler -> ShardedGraphEngine
 
 * **Placement + stickiness**: the first query for a graph places it on
   the least-loaded device entry (fewest outstanding tickets, ties broken
@@ -29,9 +29,10 @@
   consecutive windows leaves the placement (the largest-share replica
   never does).
 * **Engine tiers**: sharded-tier gids bypass placement and go to the
-  ``"mesh"`` scheduler, which is built as in the reference and serves
-  nothing until the sharded tier is ported (each such query's future
-  raises ``NotImplementedError`` naming ROADMAP queue 1 item 10).
+  ``"mesh"`` scheduler, whose batches run on the gid's
+  :class:`~repro_torch.serve.registry.ShardedGraphEngine` over the world
+  process group (rank 0 serves; the other ranks run
+  :meth:`GraphRegistry.follow`).
 
 ``devices`` are ``torch.device`` entries (default: every visible CUDA
 card; none visible raises, the CPU is never picked).  An entry may repeat

@@ -8,7 +8,10 @@ per ``step()`` call, on ``device`` (default: the config's first pinned
 device, else the current card); with ``devices=`` it fronts a
 :class:`~repro_torch.serve.router.QueryRouter` over those devices
 instead.  It admits FIFO requests of any goal kind: mixed kinds batch as
-plan-compatible sub-batches, one batch per kind.
+plan-compatible sub-batches, one batch per kind.  A graph at or above
+``shard_threshold_n``/``_m`` is served by the sharded tier (a
+:class:`~repro_torch.serve.registry.ShardedGraphEngine`, which needs a
+process group); ``g`` is then None.
 """
 from __future__ import annotations
 
@@ -130,7 +133,7 @@ class SsspService:
         if self.router is None:
             # the sync facade serves from the default-placement engine;
             # building it here keeps first-step latency out of step()
-            self.g = self.registry.engine(_GID).g
+            self.g = getattr(self.registry.engine(_GID), "g", None)
         else:
             # router placement decides the serving devices — don't build
             # an unused default-placement engine just to expose .g
@@ -203,7 +206,7 @@ class SsspService:
         engine's graph."""
         report = self.registry.apply_delta(_GID, edits)
         if self.router is None and self.g is not None:
-            self.g = self.registry.engine(_GID).g
+            self.g = getattr(self.registry.engine(_GID), "g", None)
         self.n = int(report["host"].n)
         return report
 

@@ -18,8 +18,9 @@ Determinism: the only randomness is a seeded ``numpy`` Generator (probe
 sources + restart proposals); the trajectory is a pure function of
 ``(graph, base config, seed, budget, space)`` and equals the
 reference's wherever the objective's counters do.  A base on the
-sharded tier reaches the port's sharded tier, which raises
-``NotImplementedError`` (ROADMAP queue 1 item 10).
+sharded tier tunes through the port's sharded tier: every evaluation is
+then SPMD, so every rank of the process group calls :func:`tune` with
+the same arguments (at world size 1, the one process).
 
 The trajectory goes through the observability plane: per-candidate
 counters and a gauge on a ``MetricsRegistry`` and, with ``jsonl_path=``,
@@ -118,7 +119,8 @@ def _reusable(config: EngineConfig, layout):
     """``layout`` if a session of ``config`` can run on it (a blocked
     backend, and ``block_v``/``tile_e`` unset or the layout's own), else
     None (the session builds its own)."""
-    if layout is None or config.backend not in _BLOCKED_SINGLE:
+    if layout is None or config.backend not in _BLOCKED_SINGLE \
+            or config.tier == "sharded":
         return None
     if config.block_v not in (None, layout.block_v) \
             or config.tile_e not in (None, layout.tile_e):

@@ -1,11 +1,12 @@
-"""Port parity: the solver facade (``repro_torch.api``), single tier.
+"""Port parity: the solver facade (``repro_torch.api``), single tier (and
+the sharded tier's entry points at one gloo rank).
 
 Mirrors ``tests/test_api.py``: one ``EngineConfig`` + ``SolveSpec`` pair
 drives all four goal kinds, scalar and batched, on ``segment_min`` and
 ``blocked``, and every result is bitwise the reference facade's (dist,
 parent, logical counters); ``solve_many`` groups mixed kinds into one
-batch per kind; ``SolveResult`` shapes lazily; foreign layouts, a closed
-solver and the later slices' options fail loudly; the deprecated
+batch per kind; ``SolveResult`` shapes lazily; foreign layouts and a
+closed solver fail loudly; the deprecated
 ``sssp_*`` shims warn and match the facade.
 """
 import functools
@@ -25,6 +26,7 @@ from repro_torch.core.graph import build_blocked, slice_for_shard
 from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, sssp_bounded,
                                    sssp_knear, sssp_p2p)
 from test_torch_graph import ref_arrays
+from torch_serve_common import gloo_one
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.config.FacadeDeprecationWarning")
@@ -293,49 +295,72 @@ def test_out_of_range_specs_and_closed_solver():
 
 
 # the ids name the ROADMAP item that ported each entry point (the tuner,
-# item 8; the serving plane, item 9); what is left of them is the sharded
-# tier, item 10
+# item 8; the serving plane, item 9; the sharded tier, item 10)
 @pytest.mark.parametrize("what", [
     "sharded", "routed", "tuned", "submit", "router", "registry"], ids=[
     "sharded-item 10", "routed-item 9", "tuned-item 8", "submit-item 9",
     "router-item 9", "registry-item 9"])
-def test_later_slices_raise_naming_their_roadmap_item(what, tmp_path):
-    """What later slices bring raises ``NotImplementedError`` naming its
-    ROADMAP item: the sharded tier (item 10), whether opened directly or
-    reached through the entry points items 8 and 9 ported (the routed
-    tier, ``tuned=`` and the tuner, ``submit``, the router and the
-    registry; they are held in ``test_torch_tune.py``,
-    ``test_torch_routed.py``, ``test_torch_router.py`` and
-    ``test_torch_registry.py``).  Traces (item 7) and deltas (item 6) are
-    held in ``test_torch_obs.py`` and ``test_torch_delta.py``."""
+def test_later_slices_raise_naming_their_roadmap_item(what, gloo_one):
+    """What earlier slices left raising runs now (ROADMAP queue 1 item
+    10, the sharded tier, at one gloo rank): opened directly (every kind,
+    scalar and batched, bitwise the reference facade), a tune on a
+    sharded base (the reference's trajectory), and a sharded-tier graph
+    behind the entry points items 8 and 9 ported (the routed tier's
+    ``solve``, ``submit``, the router and the registry), whose answers
+    are the reference's.  ``test_torch_sharded_tier.py`` holds the tier
+    in full."""
+    from repro.tune import tune as ref_tune
     from repro_torch.serve.queries import Query
+    from repro_torch.serve.registry import ShardedGraphEngine
     from repro_torch.tune import tune
-    _, hg = _road()
-    sharded = EngineConfig(tier="routed", shard_threshold_n=1,
-                           devices=("cpu",))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 10"):
-        if what == "sharded":
-            Solver.open(hg, EngineConfig(tier=what), device="cpu")
-        elif what == "tuned":
-            tune(hg, EngineConfig(tier="sharded"), budget=2, device="cpu",
-                 store=None)
+    rg, hg = _road()
+    refs = _ref_results()       # all kinds, scalar then batched
+    if what == "sharded":
+        s = Solver.open(hg, EngineConfig(tier=what), device="cpu")
+        specs = all_kind_specs(SolveSpec, rg.n) + all_kind_specs(
+            SolveSpec, rg.n, single=False)
+        for spec, ref in zip(specs, refs):
+            res = s.solve(spec)
+            assert res.tier == "sharded"
+            assert_bitwise(res, ref, msg=f"sharded {spec}")
+        return
+    if what == "tuned":
+        kw = dict(budget=2, n_sources=2, store=None)
+        want = ref_tune(rg, RefConfig(tier="sharded"), **kw)
+        got = tune(hg, EngineConfig(tier="sharded"), device="cpu", **kw)
+        assert got.trajectory == want.trajectory
+        return
+    s = Solver.open(hg, EngineConfig(tier="routed", shard_threshold_n=1,
+                                     devices=("cpu",)))
+    assert s.tier == "routed" and s.registry.tier(s.gid) == "sharded"
+    tree0, tree05 = refs[0], refs[4]        # tree(0), tree([0, 5])
+    try:
+        if what == "routed":
+            got = s.solve(SolveSpec.tree(0))
+            want = (tree0.dist, tree0.parent)
+        elif what == "submit":
+            got = s.submit(SolveSpec.tree([0, 5])).result(timeout=60)
+            want = (tree05.dist, tree05.parent)
+        elif what == "router":
+            fut = s.router.submit(Query(gid=s.gid, source=0))
+            s.router.drain()
+            got = fut.result(timeout=0)
+            assert got.served_by == "mesh"
+            want = (tree0.dist, tree0.parent)
         else:
-            s = Solver.open(hg, sharded)
-            assert s.tier == "routed" and s.registry.tier(s.gid) == "sharded"
-            try:
-                if what == "routed":
-                    s.solve(SolveSpec.tree(0))
-                elif what == "submit":
-                    s.submit(SolveSpec.tree([0, 1])).result(timeout=60)
-                elif what == "router":
-                    fut = s.router.submit(Query(gid=s.gid, source=0))
-                    s.router.drain()
-                    fut.result(timeout=0)
-                else:
-                    s.registry.engine(s.gid)
-            finally:
-                s.close()
+            eng = s.registry.engine(s.gid)
+            assert isinstance(eng, ShardedGraphEngine)
+            d, p, m = eng.run_batch([0, 5])
+            assert_bitwise(SolveResult(spec=SolveSpec.tree([0, 5]), dist=d,
+                                       parent=p, metrics=m, deg=s.deg,
+                                       tier="sharded"), tree05, "engine")
+            return
+        np.testing.assert_array_equal(np.asarray(got.dist).view(np.int32),
+                                      np.asarray(want[0]).view(np.int32))
+        np.testing.assert_array_equal(np.asarray(got.parent),
+                                      np.asarray(want[1]))
+    finally:
+        s.close()
 
 
 def test_entry_needs_a_card_unless_told_cpu():

@@ -24,8 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.distributed import (shard_blocked, shard_graph,
-                                          sssp_distributed)
+from repro_torch.core.distributed import (EXCHANGES, repair_distributed,
+                                          shard_blocked, shard_graph,
+                                          sssp_distributed,
+                                          sssp_distributed_batch)
 from repro_torch.core.graph import TileIndex, build_blocked, build_csr
 from repro_torch.core.landmarks import build_landmarks
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
@@ -698,6 +700,134 @@ def test_cuda_v1_alt_p2p_matches_segment_min(card, tmp_path):
             assert d[t].item() == plain[0][t].item()
             assert reconstruct_path(p.cpu().numpy(), s, t) == \
                 reconstruct_path(plain[1].cpu().numpy(), s, t)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _nccl_one(tmp_path):
+    import torch.distributed as tdist
+    tdist.init_process_group(
+        "nccl", store=tdist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    return tdist
+
+
+def _same_solve(got, want, what):
+    d, p, m = got
+    assert torch.equal(d.view(torch.int32), want[0].view(torch.int32)), what
+    assert torch.equal(p, want[1]), what
+    m, w = metrics_dict(m), metrics_dict(want[2])
+    assert all(m[f] == w[f] for f in LOGICAL_METRIC_FIELDS), what
+
+
+def test_cuda_v2_v3_solves_match_single_device(card, tmp_path):
+    """v2 and v3 at world size 1 over NCCL: every solve bitwise the
+    single-device one; ``blocked`` launches the partials kernel and no
+    other edge-relax kernel; v3 takes its compact exchange."""
+    tdist = _nccl_one(tmp_path)
+    try:
+        for g in (kronecker(10, 8, seed=1), road_grid(24, seed=2)):
+            src = int(np.argmax(g.deg))
+            d1, p1, m1 = sssp(g, src, backend="blocked", device=card)
+            sg = shard_graph(g, 1)
+            layout = shard_blocked(sg, device=card)
+            for version, backend, fused in (
+                    ("v2", "blocked", 0), ("v2", "blocked", 4),
+                    ("v2", "segment_min", 0), ("v3", "blocked", 0),
+                    ("v3", "segment_min", 0), ("v3", "blocked", 4)):
+                lay = {"blocked": layout} if backend == "blocked" else {}
+                before = (ops.LAUNCHES.edge_relax_partials,
+                          ops.LAUNCHES.edge_relax,
+                          ops.LAUNCHES.edge_relax_fused)
+                EXCHANGES.reset()
+                d, p, m = sssp_distributed(sg, src, version=version,
+                                           backend=backend,
+                                           fused_rounds=fused, device=card,
+                                           **lay)
+                what = f"{g.n} {version}/{backend}/{fused}"
+                _same_solve((d[:g.n], p[:g.n], m), (d1, p1, m1), what)
+                after = (ops.LAUNCHES.edge_relax_partials,
+                         ops.LAUNCHES.edge_relax,
+                         ops.LAUNCHES.edge_relax_fused)
+                assert after[1:] == before[1:], what
+                assert (after[0] > before[0]) == (backend == "blocked")
+                if version == "v3":
+                    assert EXCHANGES.compact > 0, what
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_cuda_v2_queries_batches_and_repairs(card, tmp_path):
+    """ALT p2p on v2 ``blocked`` (the partials kernel's ALT branch), a v2
+    batch with per-slot k and a v3 repair of the whole tree, on the card,
+    against the single-device solves."""
+    tdist = _nccl_one(tmp_path)
+    try:
+        g = road_grid(24, seed=2)
+        sg = shard_graph(g, 1)
+        layout = shard_blocked(sg, device=card)
+        lm = build_landmarks(g, 4, device=card)
+        rng = np.random.default_rng(4)
+        s, t = (int(v) for v in rng.choice(g.n, 2, replace=False))
+        plain = sssp(g, s, goal="p2p", goal_param=t, device=card)
+        alt = sssp(g, s, goal="p2p", goal_param=t, landmarks=lm,
+                   device=card)
+        before = ops.LAUNCHES.edge_relax_partials_alt
+        d, p, m = sssp_distributed(sg, s, backend="blocked", blocked=layout,
+                                   goal="p2p", goal_param=t, landmarks=lm,
+                                   device=card)
+        assert ops.LAUNCHES.edge_relax_partials_alt > before
+        assert d[t].item() == plain[0][t].item()
+        assert reconstruct_path(p.cpu().numpy(), s, t) == \
+            reconstruct_path(plain[1].cpu().numpy(), s, t)
+        md, wd = metrics_dict(m), metrics_dict(alt[2])
+        assert (md["n_relax"], md["n_pruned"]) == (wd["n_relax"],
+                                                   wd["n_pruned"])
+        srcs, ks = [s, t, 0], [3, 40, 7]
+        d, p, m = sssp_distributed_batch(sg, srcs, backend="blocked",
+                                         blocked=layout, goal="knear",
+                                         goal_params=ks, device=card)
+        for i, (src, k) in enumerate(zip(srcs, ks)):
+            want = sssp(g, src, goal="knear", goal_param=k, device=card)
+            _same_solve((d[i, :g.n], p[i, :g.n],
+                         type(m)(*(x[i] for x in m))), want, f"slot {i}")
+        tree = sssp(g, s, device=card)
+        dist = torch.full((g.n,), float("inf"), device=card)
+        parent = torch.full((g.n,), -1, dtype=torch.int32, device=card)
+        front = torch.zeros(g.n, dtype=torch.bool, device=card)
+        dist[s], parent[s], front[s] = 0.0, s, True
+        d, p, _ = repair_distributed(sg, dist, parent, front, version="v3",
+                                     backend="blocked", blocked=layout,
+                                     device=card)
+        assert torch.equal(d[:g.n].view(torch.int32),
+                           tree[0].view(torch.int32))
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_cuda_sharded_tier_serves_the_single_tiers_answers(card, tmp_path):
+    """``Solver(tier="sharded")`` and a ShardedGraphEngine batch on the
+    card, at world size 1, bitwise the single tier's."""
+    from repro_torch.api import EngineConfig, SolveSpec, Solver
+    from repro_torch.serve.registry import GraphRegistry
+    tdist = _nccl_one(tmp_path)
+    try:
+        g = kronecker(10, 8, seed=1)
+        one = Solver.open(g, EngineConfig(backend="blocked"))
+        for cfg in (dict(shard_version="v2"), dict(shard_version="v3")):
+            s = Solver.open(g, EngineConfig(tier="sharded",
+                                            backend="blocked", **cfg))
+            for spec in (SolveSpec.tree([0, 5]), SolveSpec.knear(3, 9)):
+                a, b = s.solve(spec), one.solve(spec)
+                assert torch.equal(a.dist.view(torch.int32),
+                                   b.dist.view(torch.int32)), (cfg, spec)
+                assert torch.equal(a.parent, b.parent), (cfg, spec)
+        reg = GraphRegistry(shard_threshold_n=1, shard_backend="blocked")
+        reg.register("g", g)
+        d, p, _ = reg.engine("g").run_batch([0, 5])
+        want = one.solve(SolveSpec.tree([0, 5]))
+        assert torch.equal(d.view(torch.int32), want.dist.view(torch.int32))
+        assert torch.equal(p, want.parent)
     finally:
         tdist.destroy_process_group()
 

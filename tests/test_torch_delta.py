@@ -1,5 +1,5 @@
 """Port parity: streaming deltas (``repro_torch.delta``) and the engine
-hooks they use (``core/sssp.py::repair_relax``, v1
+hooks they use (``core/sssp.py::repair_relax``,
 ``core/distributed.py::repair_distributed``, stale landmark sets).
 
 Both packages run on byte-identical inputs: the nine scale-8 graphs and
@@ -21,8 +21,9 @@ and its seeded ``make_delta``), carried into the port with
   by the reference's own tests; once here in interpret mode), and
   against a from-scratch solve of the patched graph where the
   reference's own from-scratch solve matches Dijkstra;
-* v1 ``repair_distributed`` at 1 rank in process and at 2 and 4 gloo
-  ranks (child processes) against the reference's repair;
+* ``repair_distributed`` at v1, v2 and v3 at 1 rank in process and at
+  2 and 4 gloo ranks (child processes) against the reference's repair,
+  and a batch of the patched graph against its scalar solves;
 * a stale landmark set's p2p query against the reference's.
 """
 import dataclasses
@@ -544,7 +545,7 @@ def test_single_tier_apply_delta_raises_config_error():
 
 
 # ---------------------------------------------------------------------------
-# (d) v1 repair_distributed, at 1 rank in process and at 2 and 4 ranks
+# (d) repair_distributed, at 1 rank in process and at 2 and 4 ranks
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
@@ -568,13 +569,23 @@ def test_repair_distributed_at_one_rank(name, backend, gloo_one):
         **({} if backend == "segment_min" else dict(block_v=64, tile_e=64)))
     n = c["hg"].n
     assert_repair_equal(c["rep"], (out[0][:n], out[1][:n], out[2]), name)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tdistributed.repair_distributed(sg, d_i, p_i, front, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tdistributed.repair_distributed(sg, d_i, p_i, front, version="v3",
-                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tdistributed.sssp_distributed_batch(sg, [0], device="cpu")
+    # v2 (the default, the reference's) and v3 repair through their
+    # exchanges, to the same state and counters
+    geom = {} if backend == "segment_min" else dict(block_v=64, tile_e=64)
+    for version in ("v2", "v3"):
+        out = tdistributed.repair_distributed(
+            sg, d_i, p_i, front, backend=backend, device="cpu", **geom,
+            **({} if version == "v2" else dict(version=version)))
+        assert_repair_equal(c["rep"], (out[0][:n], out[1][:n], out[2]),
+                            f"{name} {version}")
+    # the patched graph's batch: each slot its scalar solve
+    batch = tdistributed.sssp_distributed_batch(sg, [c["src"], 0],
+                                                device="cpu")
+    for i, s in enumerate((c["src"], 0)):
+        one = tdistributed.sssp_distributed(sg, s, device="cpu")
+        assert batch[0][i].view(torch.int32).equal(one[0].view(torch.int32))
+        assert batch[1][i].equal(one[1])
+        assert all(a[i].equal(b) for a, b in zip(batch[2], one[2]))
 
 
 _CHILD = r"""
@@ -604,14 +615,17 @@ for name, c in case.items():
     d_i, p_i, front, _ = repair_state(new_host, np.asarray(c["d0"],
                                                            np.float32),
                                       np.asarray(c["p0"], np.int32), applied)
-    for backend in ("segment_min", "blocked"):
-        opts = {} if backend == "segment_min" else dict(block_v=64,
-                                                        tile_e=64)
-        d, p, m = repair_distributed(sg, d_i, p_i, front, version="v1",
-                                     backend=backend, device="cpu", **opts)
-        res[name + "/" + backend] = dict(
-            dist=d[:hg.n].view(torch.int32).tolist(),
-            parent=p[:hg.n].tolist(), metrics=metrics_dict(m))
+    for version in ("v1", "v2", "v3"):
+        for backend in ("segment_min", "blocked"):
+            opts = {} if backend == "segment_min" else dict(block_v=64,
+                                                            tile_e=64)
+            d, p, m = repair_distributed(sg, d_i, p_i, front,
+                                         version=version, backend=backend,
+                                         device="cpu", **opts)
+            key = name + ("" if version == "v1" else "/" + version)
+            res[key + "/" + backend] = dict(
+                dist=d[:hg.n].view(torch.int32).tolist(),
+                parent=p[:hg.n].tolist(), metrics=metrics_dict(m))
 tdist.destroy_process_group()
 with open(out + "." + str(rank), "w") as f:
     json.dump(res, f)
@@ -694,6 +708,26 @@ def test_repair_distributed_over_ranks(world, name, backend, ranks):
     assert np.asarray(rp_).tolist() == got["parent"], name
     for f in LOGICAL_METRIC_FIELDS:
         assert int(getattr(rm, f)) == got["metrics"][f], (name, f)
+
+
+@pytest.mark.parametrize("backend", ["segment_min", "blocked"])
+@pytest.mark.parametrize("version", ["v2", "v3"])
+@pytest.mark.parametrize("name", CHILD_GRAPHS)
+@pytest.mark.parametrize("world", [2, 4])
+def test_repair_distributed_v2_v3_over_ranks(world, name, version, backend,
+                                             ranks):
+    """The v2/v3 repairs over 2 and 4 ranks, each rank holding its block,
+    bitwise the reference's single-device repair."""
+    key = f"{name}/{version}/{backend}"
+    every = ranks(world)
+    got = every[0][key]
+    for other in every[1:]:
+        assert other[key] == got      # gathered on every rank
+    rd_, rp_, rm = _case(name)["rep"][:3]
+    assert np.asarray(rd_).view(np.int32).tolist() == got["dist"], key
+    assert np.asarray(rp_).tolist() == got["parent"], key
+    for f in LOGICAL_METRIC_FIELDS:
+        assert int(getattr(rm, f)) == got["metrics"][f], (key, f)
 
 
 # ---------------------------------------------------------------------------

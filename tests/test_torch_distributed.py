@@ -14,7 +14,11 @@ the mid-solve states are made with numpy.  Everything is bitwise:
   without landmarks), bounded and knear queries;
 * the v1 engine at 2 and 4 gloo ranks (child processes, a FileStore
   under ``tmp_path``) against the single-device solves and queries of
-  both packages.
+  both packages;
+* what earlier slices left raising (v2/v3 and their knobs, batches,
+  repairs, the adaptive policy, ``config=``), at one rank against the
+  reference.  ``tests/test_torch_distributed_v2.py`` and
+  ``tests/test_torch_distributed_v2_ranks.py`` hold v2 and v3 in full.
 """
 import functools
 import json
@@ -35,6 +39,8 @@ import repro.core.graph as rgraph
 import repro.data.generators as rgen
 from repro.core import distributed as rdist
 from repro.core import landmarks as rlm
+from repro.core.config import ConfigError as RefConfigError
+from repro.core.config import EngineConfig as RefConfig
 from repro.core.sssp import sssp as ref_sssp
 from repro.kernels.edge_relax import ops as rops
 from repro_torch import convert
@@ -42,6 +48,7 @@ from repro_torch.core import distributed as tdistributed
 from repro_torch.core import graph as tgraph
 from repro_torch.core import landmarks as tlm
 from repro_torch.core import relax as trelax
+from repro_torch.core.config import ConfigError, EngineConfig
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from repro_torch.kernels.edge_relax import ops
 from repro_torch.serve.queries import reconstruct_path
@@ -561,7 +568,7 @@ def test_v1_queries_over_ranks_match_single_device(world, name, backend,
 
 
 # ---------------------------------------------------------------------------
-# (e) what is not ported, and bad arguments
+# (e) what earlier slices left raising, and bad arguments
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw", [
@@ -571,25 +578,59 @@ def test_v1_queries_over_ranks_match_single_device(world, name, backend,
     dict(version="v1", config=object())],
     ids=["default-v2", "v2", "v3", "fused_rounds", "capacity", "policy",
          "config"])
-def test_later_slices_raise(kw):
-    """v2/v3 and their knobs, batches, the adaptive policy and ``config=``
-    raise; ``trace=True`` and the v1 repair are ported
-    (``test_torch_obs.py``, ``test_torch_delta.py``), and the repair
-    raises at v2 (its default, the reference's), v3 and v3's
-    ``capacity``."""
-    _, _, tsg, _, _ = _layouts("road16", 1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdistributed.sssp_distributed(tsg, 0, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdistributed.sssp_distributed_batch(tsg, [0], device="cpu")
+def test_later_slices_raise(kw, gloo_one):
+    """What earlier slices left raising now runs (ROADMAP queue 1 item
+    10): each case's solve, its one-slot batch and its repair, bitwise
+    the reference's at one rank.  As in the reference, v1 ignores
+    ``fused_rounds``, ``capacity`` on v1 is a config error (the case then
+    runs v3 with it), and so is a ``config`` that is no config (the case
+    then runs a v1 one)."""
+    rsg, _, tsg, _, _ = _layouts("road16", 1)
+    s = int(np.argmax(_graph("road16")[1].deg))
+    mesh = jax.make_mesh((1,), ("graph",))
+    ref_kw = dict(kw)
+    if "capacity" in kw or "config" in kw:
+        with pytest.raises(ConfigError):
+            tdistributed.sssp_distributed(tsg, s, device="cpu", **kw)
+        with pytest.raises(ConfigError):
+            tdistributed.sssp_distributed_batch(tsg, [s], device="cpu", **kw)
+        with pytest.raises(RefConfigError):
+            rdist.sssp_distributed(rsg, s, mesh, ("graph",), **kw)
+        if "capacity" in kw:
+            kw = ref_kw = dict(version="v3", capacity=8)
+        else:
+            kw = dict(config=EngineConfig(tier="sharded", shard_version="v1"))
+            ref_kw = dict(config=RefConfig(tier="sharded",
+                                           shard_version="v1"))
+    want = _ref_out(rdist.sssp_distributed(rsg, s, mesh, ("graph",),
+                                           **ref_kw))
+    got = _port_out(tdistributed.sssp_distributed(tsg, s, device="cpu",
+                                                  **kw))
+    _assert_same(want, got, f"{kw}")
+    if kw.get("version") == "v1" and "fused_rounds" in kw:
+        plain = _port_out(tdistributed.sssp_distributed(
+            tsg, s, version="v1", device="cpu"))
+        _assert_same(plain, got, "v1 ignores fused_rounds")
+    batch = tdistributed.sssp_distributed_batch(tsg, [s], device="cpu", **kw)
+    _assert_same(got, _port_out((batch[0][0], batch[1][0], type(batch[2])(
+        *(m[0] for m in batch[2])))), f"{kw} batch")
+    # the repair at the case's version, from the source alone: the
+    # Bellman-Ford fixpoint of the full window
     n = tsg.n_true
-    state = (np.full(n, np.inf, np.float32), np.full(n, -1, np.int32),
-             np.zeros(n, bool))
-    # v1 repairs; with v3's capacity it raises as v3 does
-    rkw = dict(version="v1", capacity=8) if kw.get("version") == "v1" \
-        else {k: v for k, v in kw.items() if k == "version"}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tdistributed.repair_distributed(tsg, *state, device="cpu", **rkw)
+    dist = np.full(n, np.inf, np.float32)
+    parent = np.full(n, -1, np.int32)
+    front = np.zeros(n, bool)
+    dist[s], parent[s], front[s] = 0.0, s, True
+    rkw = {k: v for k, v in kw.items() if k in ("version", "capacity")}
+    if "config" in kw:
+        rkw = dict(version="v1")
+    want = _ref_out(rdist.repair_distributed(rsg, dist, parent, front, mesh,
+                                             ("graph",), **rkw))
+    got = _port_out(tdistributed.repair_distributed(tsg, dist, parent, front,
+                                                    device="cpu", **rkw))
+    _assert_same(want, got, f"repair {rkw}")
+    assert got[0].tobytes() == _port_out(tdistributed.sssp_distributed(
+        tsg, s, version="v1", device="cpu"))[0].tobytes()
 
 
 def test_needs_a_process_group():

@@ -7,8 +7,8 @@ batches held bitwise against the reference registry's (dist, parent,
 logical counters), the eccentricity hints against the reference's, the
 landmark disk cache shared with it, ``apply_delta`` against the
 reference's (patched engines, repaired cached trees, the report), and
-the sharded tier raising ``NotImplementedError`` naming ROADMAP queue 1
-item 10.
+the sharded tier's engine (at one gloo rank) against the reference's
+and the single tier's.
 """
 import threading
 import time
@@ -25,8 +25,9 @@ from repro_torch.core.graph import build_blocked
 from repro_torch.core.sssp import sssp
 from repro_torch.delta import EdgeDelta
 from repro_torch.serve.registry import (GraphEngine, GraphRegistry,
+                                        ShardedGraphEngine,
                                         estimate_eccentricity)
-from torch_serve_common import CPU, graph, port, same_batch
+from torch_serve_common import CPU, gloo_one, graph, port, same_batch
 
 BLOCKED = dict(block_v=64, tile_e=64)
 
@@ -195,23 +196,42 @@ def test_failed_build_raises_everywhere_and_allows_retry():
     assert reg.engine("g") is not None
 
 
-def test_sharded_tier_raises_naming_item_10():
-    """Tiers resolve as in the reference; a sharded-tier engine is a
-    later slice and its build says so."""
+def test_sharded_tier_raises_naming_item_10(gloo_one):
+    """Tiers resolve as in the reference, and a sharded-tier gid (by
+    threshold or forced) is served by a ShardedGraphEngine over the
+    process group: its batches bitwise the reference's sharded engine
+    and the single tier's, its key the reference's."""
     reg = GraphRegistry(capacity=4, shard_threshold_n=100,
                         shard_devices=["cpu"])
-    reg.register("big", port("road_grid", 12, seed=5))      # n = 144
-    reg.register("small", port("kronecker", 6, 4, seed=2))   # n = 64
-    reg.register("forced", port("kronecker", 6, 4, seed=2), tier="sharded")
+    rreg = RefRegistry(capacity=4, shard_threshold_n=100)
+    specs = {"big": graph("road_grid", 12, seed=5),          # n = 144
+             "small": graph("kronecker", 6, 4, seed=2),     # n = 64
+             "forced": graph("kronecker", 6, 4, seed=2)}
+    for gid, (rg, hg) in specs.items():
+        tier = "sharded" if gid == "forced" else None
+        reg.register(gid, hg, tier=tier)
+        rreg.register(gid, rg, tier=tier)
     assert [reg.tier(g) for g in ("big", "small", "forced")] \
         == ["sharded", "single", "sharded"]
     assert isinstance(reg.engine("small"), GraphEngine)
     assert reg.engine("small").device == CPU
     for gid in ("big", "forced"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            reg.engine(gid)
-    assert reg.peek("big") is None
-    assert ("big", "segment_min", "sharded") not in reg.cached_keys()
+        eng = reg.engine(gid)
+        assert isinstance(eng, ShardedGraphEngine) and eng.tier == "sharded"
+        assert eng.device == CPU and eng.n == specs[gid][1].n
+        single = GraphEngine(gid, specs[gid][1], "segment_min", 3.0, 0.9,
+                             device="cpu")
+        for goal, gp in (("tree", None), ("knear", [5, 9])):
+            out = eng.run_batch([0, 7], goal=goal, goal_params=gp)
+            assert out[0].shape == (2, eng.n)
+            same_batch(out, rreg.engine(gid).run_batch(
+                np.array([0, 7], np.int32), goal=goal, goal_params=gp),
+                f"{gid} {goal} vs the reference")
+            want = single.run_batch([0, 7], goal=goal, goal_params=gp)
+            same_batch(out, want, f"{gid} {goal} vs the single tier")
+    assert reg.peek("big") is reg.engine("big")
+    assert ("big", "segment_min", "sharded") in reg.cached_keys()
+    assert reg.engine("big", "blocked").blocked is not None
 
 
 def test_placement_keys_and_the_card_default():

@@ -6,11 +6,13 @@ kind, scalar and batched, bitwise the reference's routed facade (its
 finalized answers: dist, parent, the logical metrics); lazy shaping;
 ``submit`` (one aggregate ``Future``, the router's workers started
 lazily and joined by ``close``), a slot's exception reaching that
-future; ``apply_delta`` against the reference's routed tier.
+future, a sharded-tier graph behind the routed tier (one gloo rank);
+``apply_delta`` against the reference's routed tier.
 """
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 
 from repro.api import EngineConfig as RefConfig
 from repro.api import SolveSpec as RefSpec
@@ -100,19 +102,42 @@ def test_routed_tier_shaping_submit_and_close():
         single.submit(SolveSpec.tree(0))
 
 
-def test_submit_fails_its_future_when_a_slot_fails():
+def test_submit_fails_its_future_when_a_slot_fails(tmp_path):
     """A scheduler's exception reaches the aggregate future (no hang, no
-    fallback): here a sharded-tier graph, whose engine is a later
-    slice."""
-    hg = port("road_grid", SIDE, seed=5)
-    solver = Solver.open(hg, EngineConfig(tier="routed",
-                                          shard_threshold_n=100,
-                                          devices=("cpu",)))
+    fallback): here a sharded-tier graph served without a process group,
+    whose engine build says so.  With a group (one gloo rank) the same
+    submit is served by the sharded tier, bitwise the reference's routed
+    facade."""
+    rg, hg = graph("road_grid", SIDE, seed=5)
+    cfg = dict(tier="routed", shard_threshold_n=100)
+    solver = Solver.open(hg, EngineConfig(devices=("cpu",), **cfg))
     assert solver.registry.tier("default") == "sharded"
     fut = solver.submit(SolveSpec.tree([0, 1]))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(RuntimeError, match="process group"):
         fut.result(timeout=60)
     solver.close()
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        with Solver.open(hg, EngineConfig(devices=("cpu",), **cfg)) as s, \
+                RefSolver.open(rg, RefConfig(**cfg)) as ref:
+            for spec, rspec in ((SolveSpec.tree([0, 1]),
+                                 RefSpec.tree([0, 1])),
+                                (SolveSpec.p2p([0, 5], [100, 30]),
+                                 RefSpec.p2p([0, 5], [100, 30]))):
+                got = s.submit(spec).result(timeout=60)
+                want = ref.solve(rspec)
+                assert set(got.served_by) == {"mesh"}
+                np.testing.assert_array_equal(
+                    np.asarray(got.dist).view(np.int32),
+                    np.asarray(want.dist).view(np.int32))
+                np.testing.assert_array_equal(got.parent, want.parent)
+                for a, b in zip(got.metrics, want.metrics):
+                    assert {k: a[k] for k in LOGICAL_KEYS} \
+                        == {k: b[k] for k in LOGICAL_KEYS}
+    finally:
+        tdist.destroy_process_group()
 
 
 def test_routed_apply_delta_matches_the_reference():

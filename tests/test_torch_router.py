@@ -4,25 +4,28 @@ Mirrors ``tests/test_router.py`` on the CPU, with two scheduler entries
 on one device (``[torch.device("cpu")] * 2`` where the reference repeats
 ``jax.devices()[0]``): placement and stickiness, replicas, hot-graph
 replication, replica decay, load shedding, warmup, re-register
-rebuilds, and the mesh scheduler, whose sharded-tier queries fail
-naming ROADMAP queue 1 item 10.  Routed answers are held bitwise
+rebuilds, and the mesh scheduler serving a sharded-tier gid (at one
+gloo rank), deltas included.  Routed answers are held bitwise
 against the reference router's.  The routed tier of the facade is in
 ``tests/test_torch_routed.py``.
 """
+import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.delta import EdgeDelta as RefDelta
 from repro.serve.queries import Query as RefQuery
 from repro.serve.registry import GraphRegistry as RefRegistry
 from repro.serve.router import QueryRouter as RefRouter
 from repro_torch.api import EngineConfig
 from repro_torch.core.sssp import sssp
+from repro_torch.delta import EdgeDelta
 from repro_torch.serve.queries import Query
 from repro_torch.serve.registry import GraphRegistry
 from repro_torch.serve.router import QueryRouter
 from repro_torch.serve.scheduler import QueueFull
-from torch_serve_common import cpus, graph, port, same_answer
+from torch_serve_common import cpus, gloo_one, graph, port, same_answer
 
 SIDE = 12
 
@@ -111,26 +114,57 @@ def test_hot_graph_replication_triggers():
     assert {f.result(timeout=0).served_by for f in futs} == {"dev0", "dev1"}
 
 
-def test_sharded_tier_goes_to_the_mesh_scheduler_and_raises():
+def test_sharded_tier_goes_to_the_mesh_scheduler_and_raises(gloo_one):
     """A sharded-tier gid is routed to the "mesh" scheduler, as in the
-    reference; its engine is a later slice, so the query's future raises
-    naming ROADMAP queue 1 item 10 while the other gids keep serving."""
+    reference, and served by its ShardedGraphEngine: the answers are the
+    reference router's, and ``apply_delta`` patches the sharded engine in
+    place (no rebuild) with the reference's answers after it."""
+    rg_big, hg_big = graph("road_grid", SIDE, seed=5)
+    rg_small, hg_small = graph("kronecker", 6, 4, seed=2)
     reg = GraphRegistry(capacity=4, shard_threshold_n=100,
                         shard_devices=["cpu"])
-    reg.register("big", port("road_grid", SIDE, seed=5))
-    reg.register("small", port("kronecker", 6, 4, seed=2))
+    rreg = RefRegistry(capacity=4, shard_threshold_n=100)
+    for gid, rg, hg in (("big", rg_big, hg_big),
+                        ("small", rg_small, hg_small)):
+        reg.register(gid, hg)
+        rreg.register(gid, rg)
     router = QueryRouter(reg, devices=cpus(2), max_batch=2)
+    rrouter = RefRouter(rreg, devices=[jax.devices()[0]] * 2, max_batch=2)
     assert router.mesh_scheduler.name == "mesh"
-    f_big = router.submit(Query(gid="big", source=0, kind="p2p",
-                                target=100))
-    f_small = router.submit(Query(gid="small", source=1))
-    router.drain()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        f_big.result(timeout=0)
-    assert f_small.result(timeout=0).served_by != "mesh"
+    queries = [dict(gid="big", source=0, kind="p2p", target=100),
+               dict(gid="big", source=7, kind="knear", k=9),
+               dict(gid="small", source=1)]
+
+    def serve():
+        futs = [router.submit(Query(**q)) for q in queries]
+        rfuts = [rrouter.submit(RefQuery(**q)) for q in queries]
+        router.drain()
+        rrouter.drain()
+        return ([f.result(timeout=0) for f in futs],
+                [f.result(timeout=0) for f in rfuts])
+    got, want = serve()
+    for q, a, b in zip(queries, got, want):
+        same_answer(a, b, str(q))
+    assert [r.served_by for r in got[:2]] == ["mesh", "mesh"]
+    assert got[2].served_by != "mesh"
     assert "big" not in router.stats()["placement"]
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        router.warmup(["big"])
+    rows = router.warmup(["big"])
+    assert rows and {r["scheduler"] for r in rows} == {"mesh"}
+    assert {r["tier"] for r in rows} == {"sharded"}
+    # a delta on the sharded gid: the engine is patched, not rebuilt
+    und = np.flatnonzero(rg_big.src < rg_big.dst)[:6]
+    edits = [(int(rg_big.src[e]), int(rg_big.dst[e])) for e in und]
+    builds = reg.stats.builds
+    report = reg.apply_delta("big", EdgeDelta(remove=edits[:3],
+                                              reweight=[(u, v, 0.25) for u, v
+                                                        in edits[3:]]))
+    rreg.apply_delta("big", RefDelta(remove=edits[:3],
+                                     reweight=[(u, v, 0.25) for u, v
+                                               in edits[3:]]))
+    assert report["engines_patched"] == 1 and reg.stats.builds == builds
+    got, want = serve()
+    for q, a, b in zip(queries, got, want):
+        same_answer(a, b, f"after the delta {q}")
 
 
 def test_router_load_shedding_is_per_device():

@@ -3,10 +3,10 @@
 Mirrors ``tests/test_scheduler.py`` and the scheduler parts of
 ``tests/test_obs_serving.py`` on the CPU: priority/FIFO order, deadlines
 on an injected clock, padding, eccentricity grouping, load shedding,
-rounds feedback, the double-buffered worker and the metrics read-through.
-Every served query of each kind is held bitwise against the reference
-scheduler's answer to the same query (dist, parent, the logical metrics,
-distance, path, nearest).
+rounds feedback, the double-buffered worker, the metrics read-through and
+a sharded-tier gid (at one gloo rank).  Every served query of each kind
+is held bitwise against the reference scheduler's answer to the same
+query (dist, parent, the logical metrics, distance, path, nearest).
 """
 import time
 
@@ -23,7 +23,7 @@ from repro_torch.serve.queries import Query
 from repro_torch.serve.registry import GraphRegistry
 from repro_torch.serve.scheduler import (DeadlineExceeded, QueryScheduler,
                                          QueueFull)
-from torch_serve_common import graph, port, same_answer
+from torch_serve_common import gloo_one, graph, port, same_answer
 
 SIDE = 12
 
@@ -184,18 +184,30 @@ def test_engine_failure_fails_the_batch_not_the_scheduler(registry, n_bad):
     assert good.result(timeout=0).dist is not None
 
 
-def test_sharded_gid_fails_its_future_naming_item_10():
+def test_sharded_gid_fails_its_future_naming_item_10(gloo_one):
+    """A sharded-tier gid's queries batch like any other and are served
+    by its ShardedGraphEngine (one gloo rank): every answer bitwise the
+    reference scheduler's, next to a single-tier gid's."""
     reg = GraphRegistry(capacity=2, shard_threshold_n=100,
                         shard_devices=["cpu"])
-    reg.register("big", port("road_grid", SIDE, seed=5))
-    reg.register("small", port("kronecker", 6, 4, seed=2))
+    rreg = RefRegistry(capacity=2, shard_threshold_n=100)
+    for gid, args in (("big", ("road_grid", SIDE)),
+                      ("small", ("kronecker", 6, 4))):
+        rg, hg = graph(*args, seed=5 if gid == "big" else 2)
+        reg.register(gid, hg)
+        rreg.register(gid, rg)
+    assert reg.tier("big") == "sharded"
     sch = QueryScheduler(reg, max_batch=2)
-    big = sch.submit(Query(gid="big", source=0))
-    small = sch.submit(Query(gid="small", source=1))
+    rsch = RefScheduler(rreg, max_batch=2)
+    qs = [dict(gid="big", source=0), dict(gid="small", source=1),
+          dict(gid="big", source=5, kind="bounded", bound=2.0),
+          dict(gid="big", source=9, kind="p2p", target=100)]
+    futs = [sch.submit(Query(**q)) for q in qs]
+    rfuts = [rsch.submit(RefQuery(**q)) for q in qs]
     sch.drain()
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        big.result(timeout=0)
-    assert small.result(timeout=0).dist is not None
+    rsch.drain()
+    for q, a, b in zip(qs, futs, rfuts):
+        same_answer(a.result(timeout=0), b.result(timeout=0), str(q))
 
 
 def test_out_of_range_vertices_fail_loudly(registry):

@@ -19,8 +19,8 @@ the reference:
   4 (the invocation weight) per saved launch, and the rest agree;
 * the search's determinism, parity gate and budget on a fake evaluator,
   the JSONL trajectory, ``Solver.open(tuned=)`` and the registry's tuned
-  builds; a sharded base raises ``NotImplementedError`` naming ROADMAP
-  queue 1 item 10.
+  builds; a sharded base (one gloo rank) gives the reference's
+  trajectory.
 """
 import json
 
@@ -39,7 +39,7 @@ from repro_torch.serve.registry import GraphRegistry
 from repro_torch.tune import (TUNED_FIELDS, TunedStore, graph_fingerprint,
                               objective_from_counters, trace_objective, tune)
 from repro_torch.tune import search as tsearch
-from torch_serve_common import graph
+from torch_serve_common import gloo_one, graph
 
 CFG_FIELDS = TUNED_FIELDS + ("tier", "backend", "max_batch", "use_alt")
 
@@ -328,7 +328,15 @@ def test_registry_builds_from_tuned_store(kron, reference, tmp_path):
     assert reg._tuned_builds.value == 1
 
 
-def test_sharded_base_raises_naming_item_10(kron):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tune(kron[1], EngineConfig(tier="sharded", devices=("cpu",)),
-             budget=3, device="cpu")
+def test_sharded_base_raises_naming_item_10(kron, gloo_one):
+    """A sharded base tunes through the port's sharded tier (one gloo
+    rank): the reference's trajectory on its one-device mesh, row for
+    row, bucket-fusion candidates included."""
+    rg, hg = kron
+    kw = dict(budget=5, seed=0, restarts=0, n_sources=2)
+    want = ref_tune(rg, RefConfig(tier="sharded"), **kw)
+    got = tune(hg, EngineConfig(tier="sharded"), device="cpu", **kw)
+    assert len(got.trajectory) == len(want.trajectory) > 1
+    assert got.trajectory == want.trajectory
+    assert got.best_objective == want.best_objective
+    assert fields(got.best_config) == fields(want.best_config)

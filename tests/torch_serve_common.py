@@ -1,5 +1,6 @@
 """Shared inputs and checks of the serving-plane and tuner parity tests
-(``tests/test_torch_{registry,scheduler,router,sssp_service,tune}.py``).
+(``tests/test_torch_{registry,scheduler,router,routed,sssp_service,tune,
+sharded_tier}.py``).
 
 Graphs come from the reference's generators and are carried into the
 port with ``convert.from_reference``, so both packages serve
@@ -9,7 +10,9 @@ the reference's tests repeat ``jax.devices()[0]``.
 import functools
 
 import numpy as np
+import pytest
 import torch
+import torch.distributed as tdist
 
 import repro.data.generators as rgen
 from repro_torch import convert
@@ -22,6 +25,17 @@ CPU = torch.device("cpu")
 LOGICAL_KEYS = ("nFrontier", "nSync", "nTrav", "nTrav_push", "nTrav_pull",
                 "n_steps", "n_rounds", "n_relax", "n_updates", "n_pruned",
                 "reachable")
+
+
+@pytest.fixture
+def gloo_one(tmp_path):
+    """A gloo process group of world size 1 in this process: the sharded
+    tier at one rank (import the fixture into a test module to use it)."""
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    yield
+    tdist.destroy_process_group()
 
 
 def cpus(k: int = 2) -> list:

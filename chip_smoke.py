@@ -67,7 +67,9 @@ Phases, in order; any failure exits non-zero:
    landmarks on ``blocked`` (``edge_relax``'s ALT branch), on ``blocked``
    with ``fused_rounds=4`` (``edge_relax_fused``'s ALT branch),
    bidirectionally on ``blocked``, and, on kronecker only
-   (``PLAIN_GRAPHS``), on ``segment_min`` (plain).
+   (``PLAIN_GRAPHS``), on ``segment_min`` (plain); on road_grid the
+   bidirectional queries and pair 2's fused ALT query are cut for the
+   run's time (``P2P_CUTS``, a cut of depth).
    ``dist[t]`` and the reconstructed path must be bitwise equal across
    the solves, ``dist[t]`` must equal the tree solve's (same source) or
    scipy Dijkstra's at ``rtol=1e-4``, the three unidirectional ALT solves
@@ -84,7 +86,10 @@ Phases, in order; any failure exits non-zero:
    on ``blocked`` (the ``edge_relax_partials`` kernel, which must
    launch, with no launch of the other two) and, on kronecker, on
    ``segment_min``: each bitwise equal to the single-device blocked
-   solve, with equal logical counters, and matching Dijkstra.  Then
+   solve, with equal logical counters, and matching Dijkstra; on
+   road_grid the v1 solve is a ``bounded`` query to a quarter of the
+   tree's largest distance (``V1_BOUNDED``, a cut of depth, as phase
+   3b2's v2 query), its settled entries bitwise the tree solve's.  Then
    queries on the v1 engine: both kronecker pairs of the p2p phase and road_grid's pair 2 with its
    landmark sets, on ``blocked`` (``edge_relax_partials``' ALT branch,
    which must launch, with no other kernel) and, on kronecker, on
@@ -261,6 +266,40 @@ Phases, in order; any failure exits non-zero:
    that differ only in the attention's summation order); top-1
    agreement is printed, and the same comparison in bfloat16 is printed
    as a measured gap.
+4b. The other four LMs of the substrate (:func:`lm_configs_phase`), in
+   bfloat16 with weights drawn on the card, after every earlier phase's
+   tensors and the kernels' cached scratch are released (``[memory]``
+   lines).  First ``flash_attention`` against its plain version at each
+   model's prefill call (S = T = 512, causal) and decode call (its
+   engine's slots at seeded positions of its cache), each launching the
+   design ``ops.variant`` names and timed (``[flash_attention] <arch>``
+   lines: graph replay, eager, plain, ``scaled_dot_product_attention``,
+   the bound): phi4-mini 8 KV heads of 3, granite-34b's MQA (48 query
+   heads over one KV head: its decode runs "simt"), deepseek-moe's MHA,
+   granite-moe's D = 64.  Then ``moe_block`` on the card against the CPU
+   in float32 with TF32 off at deepseek-moe-16b's and granite-moe's full
+   width cut to one layer, 512 seeded tokens (``[moe]`` lines: routing
+   equal where no near-tie, ``y`` and ``aux`` within rtol 1e-4, atol
+   1e-5).  Then phi4-mini-3.8b, deepseek-moe-16b, granite-moe-3b-a800m
+   and granite-34b (67.9 GB of weights, last) each served by
+   :func:`lm_serve` (``ARCH_SERVE``: 8 requests of 16 new tokens, 4 with
+   a 512-slot cache for granite-34b) and the same requests served again,
+   whose tokens must be identical (``[lm]``, ``[serve4b]`` lines:
+   parameters and bytes, time to first token, prefill tokens/s, decode
+   ms/step, peak memory, launches by design, the MoE token-choices
+   dropped by capacity).
+4c. Training (:func:`training_phase`, ``[train]`` lines): qwen3-0.6b at
+   full width in bf16 with f32 master weights, ``make_lm_train_step(
+   microbatches=2)`` on ``LMTokenStream`` batches of 8 x 512 for 4 steps
+   (finite loss and grad norm, every parameter moved, dtypes kept, no
+   flash launch; ms/step, tokens/s, peak memory, one profiled step's
+   device time); the same step on the card and on the CPU at qwen3's
+   width cut to 2 layers in f32 (TF32 off), batch 2 x 128 (loss at rtol
+   1e-5, grad norm at 1e-4, parameters within 2·lr); MIND uncut (10^7 x
+   64) for 3 steps of 512 users; ``run_restartable`` on a 2-layer
+   full-width qwen3 preempted by SIGTERM to itself in step 2 and resumed
+   to step 4 in a temporary directory, against a straight run (within
+   2·lr per step; whether bitwise is printed).
 5. The recsys serving path (MIND at its published size: a 10^7 x 64
    float32 item table drawn on the card from a ``torch.Generator`` seeded
    with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
@@ -947,6 +986,15 @@ P2P_SOLVES = (("unpruned", "blocked", {}, None),
                dict(p2p_mode="bidirectional"), "edge_relax_alt"),
               ("alt segment_min", "segment_min", {}, None))
 ALT_SOLVES = ("alt", "alt fused", "alt segment_min")
+# solves cut from the p2p phase for the run's time, by graph and pair
+# index (a cut of depth, paying for phases 4b and 4c; seconds on an
+# H100): road_grid's bidirectional queries (26.4 s for pair 1, 13.3 for
+# pair 2) and pair 2's fused ALT query (6.3 s).  Road pair 1 keeps
+# its unpruned, ALT and fused ALT queries (the ALT rows are measured at
+# its middle calls), pair 2 its unpruned and ALT queries (the v1 engine
+# answers pair 2 against them).
+P2P_CUTS = {"road_grid(1024)": {0: ("alt bidirectional",),
+                                1: ("alt fused", "alt bidirectional")}}
 
 
 def pick_pairs(hg, n_pairs: int, seed: int):
@@ -998,10 +1046,11 @@ def p2p_path(results, device):
             f"{N_LANDMARKS[name]} tree solves)")
         pairs = pick_pairs(hg, N_PAIRS, seed=10 + gi)
         queries, pruned, exact = [], 0, {}
-        for s, t in pairs:
+        for qi, (s, t) in enumerate(pairs):
             solves = {}
             for what, backend, opts, counter in P2P_SOLVES:
-                if backend == "segment_min" and name not in PLAIN_GRAPHS:
+                if backend == "segment_min" and name not in PLAIN_GRAPHS or \
+                        what in P2P_CUTS.get(name, {}).get(qi, ()):
                     continue
                 kw = dict(opts, goal="p2p", goal_param=t)
                 if what != "unpruned":
@@ -1683,12 +1732,19 @@ def sharded_path(results, device):
             f"tile_e={meta.tile_e} padded slots={arrays.src.shape[1]} in "
             f"{layout_s:.2f} s, of which the vertex->tile index "
             f"{index_s.s:.2f} s ({arrays.vt_tile.shape[-1]} entries)")
+        goal = {}
+        if name in V1_BOUNDED:
+            dist = res["dist"]
+            goal = dict(goal="bounded", goal_param=float(
+                dist[torch.isfinite(dist)].max()) * V1_BOUNDED[name])
         LAUNCHES.reset()
         vd, vp, vm, vs, vt = solve(sg, source, "blocked", device,
-                                   sharded=True, blocked=layout)
+                                   sharded=True, blocked=layout, **goal)
         launches = LAUNCHES.edge_relax_partials
         stray = (LAUNCHES.edge_relax, LAUNCHES.edge_relax_fused)
-        v1_solves = [("v1 blocked", vd, vp, metrics_dict(vm), vs, launches,
+        v1_what = "v1 blocked" + (f" bounded (bound {goal['goal_param']!r})"
+                                  if goal else "")
+        v1_solves = [(v1_what, vd, vp, metrics_dict(vm), vs, launches,
                       vt)]
         ss = st = None
         if name in PLAIN_GRAPHS:
@@ -1698,6 +1754,16 @@ def sharded_path(results, device):
                               ss, None, st))
         want = res["metrics"]
         for what, d, p, md, *_ in v1_solves:
+            if goal:
+                # the settled entries are the tree solve's, which matched
+                # the single-device solves' counters and Dijkstra
+                if not settled_as_tree("bounded", goal["goal_param"],
+                                       d[:n], p[:n], res["dist"],
+                                       res["parent"]):
+                    raise AssertionError(f"{name}: {what}'s settled "
+                                         "entries differ from the "
+                                         "single-device tree solve's")
+                continue
             if not (bitwise_equal(d[:n], res["dist"])
                     and p[:n].equal(res["parent"])):
                 raise AssertionError(f"{name}: {what} and the single-device "
@@ -1734,6 +1800,11 @@ def sharded_path(results, device):
 # one whose middle kernel call is checked and timed (road_grid's pair 1
 # takes twice as long as pair 2: left out for the run's time)
 V1_PAIRS = {"kronecker(20,16)": (0, 1), "road_grid(1024)": (1,)}
+# the graphs whose v1 solve is a bounded query to this fraction of the
+# tree's largest distance instead of a tree (a cut of depth for the run's
+# time: road_grid's v1 tree takes about 49 s on an H100), as phase 3b2
+# runs road's v2 solve
+V1_BOUNDED = {"road_grid(1024)": 0.25}
 
 
 def v1_queries(results, p2p, device):
@@ -3789,26 +3860,62 @@ class PlainAttentionCalls:
             setattr(self.module, name, fn)
 
 
-def lm_serve(cfg, params, device):
-    """The serving path at full width: ``SERVE`` answers ``N_REQUESTS``
-    requests of ``MAX_NEW`` tokens.  The launch counter is zeroed just
-    before the run and read just after; the engine's prefill and decode
-    calls are timed (host clock, each ending in a synchronize)."""
-    from repro_torch.kernels.flash_attn.ops import LAUNCHES, VARIANTS
+class MoeDrops:
+    """Token-choices the MoE layers routed, and those capacity dropped,
+    while open (``transformer.moe_route`` wrapped; the counts stay on the
+    card until :attr:`dropped` reads them)."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.module, self.saved = transformer, transformer.moe_route
+        self.counts, self.routed = [], 0
+
+        def counted(cfg, lp, xt):
+            r = self.saved(cfg, lp, xt)
+            self.counts.append((~r.keep).sum())
+            self.routed += r.keep.numel()
+            return r
+        transformer.moe_route = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.moe_route = self.saved
+        self.dropped = int(torch.stack(self.counts).sum()) \
+            if self.counts else 0
+
+    @property
+    def share(self) -> float:
+        return self.dropped / self.routed if self.routed else 0.0
+
+
+def lm_serve(cfg, params, device, *, serve=SERVE, n_requests=N_REQUESTS,
+             max_new=MAX_NEW, prompt_lengths=PROMPT_LENGTHS, warm=True):
+    """The serving path at full width: an engine of ``serve`` answers
+    ``n_requests`` requests of ``max_new`` tokens (prompt lengths drawn by
+    numpy seed 0 in ``prompt_lengths``).  The launch counter is zeroed
+    just before the run and read just after; the engine's prefill and
+    decode calls are timed (host clock, each ending in a synchronize).
+    Every prefill launch must be the "tc" design and every decode launch
+    the one ``ops.variant`` gives the model's decode rows; no plain
+    attention may run.  MoE layers count their dropped token-choices
+    (:class:`MoeDrops`)."""
+    from repro_torch.kernels.flash_attn.ops import LAUNCHES, VARIANTS, \
+        variant
     from repro_torch.serve.engine import Request, ServeEngine
-    # warm-up: one short request (cuBLAS handles, first launches)
-    warm = ServeEngine(cfg, params, max_batch=8, s_cache=512,
-                       prompt_pad=256)
-    warm.submit(Request(rid=-1, prompt=np.arange(300, dtype=np.int32) % cfg.vocab,
-                        max_new=2))
-    warm.run()
-    del warm
-    engine = ServeEngine(cfg, params, **SERVE)
+    if warm:    # one short request (cuBLAS handles, first launches)
+        warm = ServeEngine(cfg, params, max_batch=8, s_cache=512,
+                           prompt_pad=256)
+        warm.submit(Request(rid=-1, prompt=np.arange(300, dtype=np.int32)
+                            % cfg.vocab, max_new=2))
+        warm.run()
+        del warm
+    engine = ServeEngine(cfg, params, **serve)
     rng = np.random.default_rng(0)
-    lengths = rng.integers(PROMPT_LENGTHS[0], PROMPT_LENGTHS[1] + 1,
-                           N_REQUESTS)
+    lengths = rng.integers(prompt_lengths[0], prompt_lengths[1] + 1,
+                           n_requests)
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
-        np.int32), max_new=MAX_NEW) for i, n in enumerate(lengths)]
+        np.int32), max_new=max_new) for i, n in enumerate(lengths)]
+    decode_kind = variant(cfg.dtype, cfg.hd, cfg.n_heads // cfg.n_kv)
     st = dict(prefill=[], decode=[], first=[], nonfinite=0,
               by_design=dict(prefill=dict.fromkeys(("all",) + VARIANTS, 0),
                              decode=dict.fromkeys(("all",) + VARIANTS, 0)))
@@ -3842,7 +3949,7 @@ def lm_serve(cfg, params, device):
     engine._prefill, engine._decode = timed_prefill, timed_decode
     torch.cuda.synchronize()
     LAUNCHES.reset()
-    with PlainAttentionCalls() as plain:
+    with PlainAttentionCalls() as plain, MoeDrops() as drops:
         t0 = time.perf_counter()
         for r in reqs:
             engine.submit(r)
@@ -3851,19 +3958,23 @@ def lm_serve(cfg, params, device):
         total_s = time.perf_counter() - t0
     launches = LAUNCHES.flash_attention
     lens = [len(r.out) for r in reqs]
-    if lens != [MAX_NEW] * N_REQUESTS:
-        raise AssertionError(f"served token counts {lens}, expected "
-                             f"{MAX_NEW} each")
+    if lens != [max_new] * n_requests:
+        raise AssertionError(f"{cfg.name}: served token counts {lens}, "
+                             f"expected {max_new} each")
     if st["nonfinite"]:
-        raise AssertionError(f"{st['nonfinite']} logits were NaN or inf")
+        raise AssertionError(f"{cfg.name}: {st['nonfinite']} logits were "
+                             "NaN or inf")
     pre, dec = st["by_design"]["prefill"], st["by_design"]["decode"]
     if pre["all"] <= 0 or dec["all"] <= 0 or \
             launches != pre["all"] + dec["all"] or \
-            pre["tc"] != pre["all"] or dec["split"] != dec["all"]:
+            pre["tc"] != pre["all"] or dec[decode_kind] != dec["all"]:
         raise AssertionError(
-            f"flash_attention launches by design in prefill {pre} and in "
-            f"decode {dec} ({launches} in all): every prefill launch must "
-            "be tc and every decode launch split")
+            f"{cfg.name}: flash_attention launches by design in prefill "
+            f"{pre} and in decode {dec} ({launches} in all): every "
+            f"prefill launch must be tc and every decode launch "
+            f"{decode_kind}")
+    if drops.routed and not cfg.moe:
+        raise AssertionError(f"{cfg.name}: a dense model routed tokens")
     if any(plain.calls.values()):
         raise AssertionError(f"the serving path took the plain attention: "
                              f"{plain.calls}")
@@ -3872,7 +3983,7 @@ def lm_serve(cfg, params, device):
     dec_tok = sum(a for a, _ in st["decode"])
     dec_s = sum(t for _, t in st["decode"])
     return dict(
-        requests=N_REQUESTS, max_new=MAX_NEW, engine_steps=steps,
+        requests=n_requests, max_new=max_new, engine_steps=steps,
         total_s=total_s, prompt_lengths=[int(n) for n in lengths],
         padded_prompt_lengths=[n for n, _ in st["prefill"]],
         ttft_s=st["first"], prefill_s=[t for _, t in st["prefill"]],
@@ -3883,7 +3994,9 @@ def lm_serve(cfg, params, device):
         decode_active_slots=[a for a, _ in st["decode"]],
         launches=launches, launches_prefill=pre["all"],
         launches_decode=dec["all"], launches_by_design=st["by_design"],
-        plain_calls=plain.calls)
+        decode_design=decode_kind, plain_calls=plain.calls,
+        moe_choices=drops.routed, moe_dropped=drops.dropped,
+        moe_dropped_share=drops.share, tokens=[r.out for r in reqs])
 
 
 def trace_kernels(events, what: str):
@@ -4186,6 +4299,541 @@ def lm_phases(device):
                                   numbers["decode"].items()},
     }
     return dict(kernel=kernel, serving=serving, parity=parity)
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the other four LMs served at full width
+# ---------------------------------------------------------------------------
+
+# granite-34b last: its 67.9 GB of bf16 weights fill most of the card
+SERVED_ARCHS = ("phi4-mini-3.8b", "deepseek-moe-16b", "granite-moe-3b-a800m",
+                "granite-34b")
+ARCH_SERVE = {arch: dict(serve=dict(max_batch=8, s_cache=1024,
+                                    prompt_pad=256),
+                         n_requests=8, max_new=16, prompt_lengths=(100, 700))
+              for arch in SERVED_ARCHS}
+ARCH_SERVE["granite-34b"] = dict(
+    serve=dict(max_batch=4, s_cache=512, prompt_pad=256), n_requests=4,
+    max_new=16, prompt_lengths=(100, 240))
+FLASH_PREFILL_S = 512                # S = T of the new shapes' prefill check
+MOE_TOKENS = (2, 256)                # moe_block's card-vs-CPU input
+MOE_TOL = dict(rtol=1e-4, atol=1e-5)  # the CPU tests' float32 tolerance
+NEAR_TIE = 1e-6
+
+
+def release_card(what: str):
+    """Drop every earlier phase's tensors that only caches still hold (the
+    edge-relax kernels' scratch, the allocator's free blocks) and print
+    what stays allocated."""
+    import gc
+    from repro_torch.kernels.edge_relax import ops
+    ops._SCRATCH.clear()
+    ops._FUSED_SCRATCH.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[memory] {what}: {torch.cuda.memory_allocated() / 1e9!r} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9!r} GB reserved")
+    return torch.cuda.memory_allocated()
+
+
+def serve_config(arch, device):
+    """One architecture at full width in bf16, weights drawn on the card:
+    ``ARCH_SERVE[arch]``'s requests through :func:`lm_serve`, then the
+    same requests again, whose tokens must be identical."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    cfg = get(arch).make_config()
+    before = release_card(f"before {arch}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ts = [params[k] for k in params if k != "layers"] + list(
+        params["layers"].values())
+    n = sum(t.numel() for t in ts)
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    if n != cfg.param_count():
+        raise AssertionError(f"{arch}: {n} parameters drawn, "
+                             f"param_count() {cfg.param_count()}")
+    log(f"[lm] {arch}: {n} parameters, {nbytes / 1e9!r} GB in {cfg.dtype} "
+        f"(router float32), drawn on the card in {init_s!r} s")
+    spec = ARCH_SERVE[arch]
+    first = lm_serve(cfg, params, device, **spec)
+    again = lm_serve(cfg, params, device, warm=False, **spec)
+    if again["tokens"] != first["tokens"]:
+        raise AssertionError(f"{arch}: the same requests served twice gave "
+                             "different tokens")
+    peak = torch.cuda.max_memory_allocated()
+    del params, ts
+    out = dict(
+        params=n, bytes=nbytes, init_s=init_s, peak_bytes=peak,
+        allocated_before_bytes=before, tokens_identical_twice=True,
+        **{k: first[k] for k in (
+            "requests", "max_new", "engine_steps", "total_s",
+            "prompt_lengths", "padded_prompt_lengths", "ttft_s",
+            "prefill_tokens_per_s", "decode_ms_per_step",
+            "decode_tokens_per_s", "launches", "launches_prefill",
+            "launches_decode", "launches_by_design", "decode_design",
+            "moe_choices", "moe_dropped", "moe_dropped_share")},
+        again_total_s=again["total_s"],
+        again_decode_ms_per_step=again["decode_ms_per_step"])
+    log(f"[serve4b] {arch}: {out['requests']} requests x {out['max_new']} "
+        f"tokens in {out['total_s']!r} s, time to first token "
+        f"{min(out['ttft_s'])!r}..{max(out['ttft_s'])!r} s, prefill "
+        f"{out['prefill_tokens_per_s']!r} tokens/s, decode "
+        f"{out['decode_ms_per_step']!r} ms/step, peak memory "
+        f"{peak / 1e9!r} GB, flash_attention launches "
+        f"{json.dumps(out['launches_by_design'])} (decode design "
+        f"{out['decode_design']}), MoE token-choices dropped by capacity "
+        f"{out['moe_dropped']} of {out['moe_choices']} "
+        f"({out['moe_dropped_share']!r}); served twice, tokens identical")
+    return out
+
+
+def flash_config_shapes(device):
+    """``flash_attention`` at each served config's prefill call (S = T =
+    ``FLASH_PREFILL_S``, causal) and decode call (its engine's slots at
+    seeded positions of its cache) in bfloat16: against the plain
+    version, launching the design ``ops.variant`` names, and timed
+    (:func:`_flash_numbers`; the library yardstick is
+    ``scaled_dot_product_attention``)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attn import ops
+    bf = torch.bfloat16
+    rng = np.random.default_rng(9)
+    out = {}
+    for arch in SERVED_ARCHS:
+        cfg = get(arch).make_config()
+        kv, hg, d, h = cfg.n_kv, cfg.n_heads // cfg.n_kv, cfg.hd, cfg.n_heads
+        s = FLASH_PREFILL_S
+        q = _randn(rng, (1, s, kv, hg, d), bf, device)
+        k, v = _randn(rng, (1, s, kv, d), bf, device), \
+            _randn(rng, (1, s, kv, d), bf, device)
+        qh = q.reshape(1, s, h, d).transpose(1, 2)
+        calls = dict(
+            kernel=lambda: ops.flash_attention_pos(q, k, v, causal=True),
+            plain=lambda: ops.flash_attention_pos_ref(q, k, v, causal=True),
+            library=lambda: F.scaled_dot_product_attention(
+                qh, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True).transpose(1, 2).reshape(q.shape))
+        row = {}
+        for call, rows in (("prefill", s * hg), ("decode", hg)):
+            if call == "decode":
+                eng = ARCH_SERVE[arch]["serve"]
+                b, t = eng["max_batch"], eng["s_cache"]
+                cache = _randn(rng, (2, b, t, kv, d), bf, device)
+                kc, vc = cache[0], cache[1]
+                q = _randn(rng, (b, 1, kv, hg, d), bf, device)
+                qh = q.reshape(b, 1, h, d).transpose(1, 2)
+                pos = torch.from_numpy(rng.integers(
+                    t // 4, t, (b, 1)).astype(np.int32)).to(device)
+                mask = (torch.arange(t, device=device)[None, :] <= pos)[
+                    :, None, None, :]
+                calls = dict(
+                    kernel=lambda: ops.flash_attention_pos(
+                        q, kc, vc, pos, None, causal=True),
+                    plain=lambda: ops.flash_attention_pos_ref(
+                        q, kc, vc, pos, None, causal=True),
+                    library=lambda: F.scaled_dot_product_attention(
+                        qh, kc.transpose(1, 2), vc.transpose(1, 2),
+                        attn_mask=mask, enable_gqa=True).transpose(
+                        1, 2).reshape(q.shape))
+                visible = int(mask.sum())
+                flops = 4 * d * h * visible
+                bytes_ = 2 * (2 * visible * kv * d + 2 * q.numel()) + 4 * b
+            else:
+                flops = 4 * d * h * (s * (s + 1) // 2)
+                bytes_ = 2 * (2 * q.numel() + k.numel() + v.numel())
+            kind = ops.variant(bf, d, rows)
+            before = flash_launches()
+            calls["kernel"]()
+            launched = launches_since(before)
+            if launched != dict(all=1, **{n: int(n == kind)
+                                          for n in ops.VARIANTS}):
+                raise AssertionError(f"flash_attention {arch} {call}: "
+                                     f"expected one {kind} launch, got "
+                                     f"{launched}")
+            m = _flash_numbers(calls, flops=flops, bytes_=bytes_,
+                               what=f"{arch} {call}")
+            m.update(design=kind, kv=kv, hg=hg, d=d, rows=rows)
+            row[call] = m
+            log(f"[flash_attention] {arch} {call} (KV={kv} HG={hg} D={d}, "
+                f"{kind}): " + json.dumps(m))
+        out[arch] = row
+    return out
+
+
+def _near_ties(probs, k: int):
+    top = torch.sort(probs, dim=-1, descending=True).values
+    return (top[:, k - 1] - top[:, k]) <= NEAR_TIE * top[:, k - 1]
+
+
+def moe_card_vs_cpu(device):
+    """``moe_block`` on the card against the same call on the CPU, in
+    float32 with TF32 off, at each MoE config's full width cut to one
+    layer (weights drawn on the card, copied to the CPU), on
+    ``MOE_TOKENS`` seeded tokens: ``idx`` equal wherever the k-th and
+    (k+1)-th probabilities are more than ``NEAR_TIE`` apart (the
+    near-ties are counted), ``keep`` and ``cap`` equal, ``y`` and
+    ``aux`` within ``MOE_TOL``."""
+    from repro_torch.configs import get
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch in ("deepseek-moe-16b", "granite-moe-3b-a800m"):
+        cfg = dataclasses.replace(get(arch).make_config(), n_layers=1,
+                                  dtype=torch.float32)
+        params = T.init_params(cfg, torch.Generator(device=device).manual_seed(1))
+        lp = T._layer(params, 0)
+        lp = {k: v for k, v in lp.items() if k not in ("wq", "wk", "wv",
+                                                       "wo")}
+        del params
+        lp_cpu = {k: v.cpu() for k, v in lp.items()}
+        x = np.random.default_rng(8).normal(
+            0, 1, (*MOE_TOKENS, cfg.d_model)).astype(np.float32)
+        xc, xh = torch.from_numpy(x).to(device), torch.from_numpy(x)
+        yc, auxc = T.moe_block(cfg, lp, xc)
+        yh, auxh = T.moe_block(cfg, lp_cpu, xh)
+        rc = T.moe_route(cfg, lp, xc.reshape(-1, cfg.d_model))
+        rh = T.moe_route(cfg, lp_cpu, xh.reshape(-1, cfg.d_model))
+        near = _near_ties(rh.probs, cfg.top_k)
+        ok = ~near
+        same_idx = bool(rc.idx.cpu()[ok].equal(rh.idx[ok]))
+        same_keep = bool(rc.keep.cpu().equal(rh.keep)) if not near.any() \
+            else None
+        gap = float((yc.cpu() - yh).abs().max())
+        close = bool(torch.allclose(yc.cpu()[ok.reshape(yh.shape[:2])],
+                                    yh[ok.reshape(yh.shape[:2])],
+                                    **MOE_TOL))
+        aux_close = abs(float(auxc) - float(auxh)) <= \
+            MOE_TOL["atol"] + MOE_TOL["rtol"] * abs(float(auxh))
+        ms = cuda_ms(lambda: T.moe_block(cfg, lp, xc), reps=10)
+        m = dict(tokens=int(np.prod(MOE_TOKENS)), cap=rh.cap,
+                 near_ties=int(near.sum()), idx_equal=same_idx,
+                 keep_equal=same_keep, max_abs_err=gap,
+                 aux=float(auxc), aux_cpu=float(auxh),
+                 dropped=int((~rc.keep).sum()), card_ms=ms)
+        log(f"[moe] {arch} one layer at full width, f32: " + json.dumps(m))
+        if rc.cap != rh.cap or not same_idx or same_keep is False or \
+                not close or not aux_close:
+            raise AssertionError(f"moe_block {arch}: the card and the CPU "
+                                 f"differ: {m}")
+        out[arch] = m
+        del lp, lp_cpu
+    return out
+
+
+def lm_configs_phase(device):
+    """Phase 4b: ``flash_attention`` at the new shapes, ``moe_block`` card
+    against CPU, then each of ``SERVED_ARCHS`` served
+    (:func:`serve_config`)."""
+    release_card("phase 4b")
+    flash = flash_config_shapes(device)
+    mark("phase 4b flash_attention at the new shapes")
+    moe = moe_card_vs_cpu(device)
+    mark("phase 4b moe_block card vs CPU")
+    served = {}
+    for arch in SERVED_ARCHS:
+        served[arch] = serve_config(arch, device)
+        mark(f"phase 4b {arch} served")
+    release_card("after phase 4b")
+    return dict(flash=flash, moe=moe, served=served)
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: training (AdamW, microbatches, checkpoints, the restartable loop)
+# ---------------------------------------------------------------------------
+
+LM_TRAIN = dict(batch=8, seq=512, steps=4, microbatches=2)
+PARITY_TRAIN = dict(n_layers=2, batch=2, seq=128, steps=1)
+MIND_TRAIN = dict(batch=512, steps=3)
+RESTART = dict(n_layers=2, batch=4, seq=256, steps=4, preempt_at=1)
+
+
+def _leaves(tree):
+    from repro_torch.train.tree import leaves
+    return leaves(tree)
+
+
+def timed_steps(step, state, batches, what):
+    """Run ``step`` over ``batches`` from ``state = (params, opt_state)``;
+    each step ends in a synchronize.  The loss and ``grad_norm`` must be
+    finite.  Returns the final state, the seconds of each step and the
+    metrics."""
+    params, opt_state = state
+    secs, metrics = [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{what} step {i}: non-finite {m}")
+        metrics.append(m)
+    return (params, opt_state), secs, metrics
+
+
+def check_trained(before, state, what):
+    """Parameters kept their dtypes and shapes; every parameter moved (in
+    its f32 master copy where the state holds one: a bf16 norm weight at
+    1.0 does not show a step of 3e-4); the moments (and master weights)
+    are float32."""
+    params, opt_state = state
+    moved = _leaves(opt_state.get("master", params))
+    for b, p, m in zip(_leaves(before), _leaves(params), moved):
+        if p.dtype != b.dtype or p.shape != b.shape:
+            raise AssertionError(f"{what}: a parameter changed dtype or "
+                                 f"shape: {b.dtype} -> {p.dtype}")
+        if torch.equal(m, b.to(m.dtype)):
+            raise AssertionError(f"{what}: a parameter of shape "
+                                 f"{tuple(p.shape)} did not move")
+    for key in ("m", "v", "master"):
+        if any(t.dtype != torch.float32 for t in
+               _leaves(opt_state.get(key, {}))):
+            raise AssertionError(f"{what}: optimizer state {key} is not "
+                                 "float32")
+
+
+def lm_training(device):
+    """qwen3-0.6b at full width in bf16 with f32 master weights:
+    ``make_lm_train_step(microbatches=2)`` on ``LMTokenStream`` batches
+    of 8 x 512 for 4 steps; ms/step, tokens/s, peak memory, and one
+    profiled step's device time against its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import LMTokenStream
+    from repro_torch.kernels.flash_attn.ops import LAUNCHES
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, optimizer as opt
+    cfg = get("qwen3-0.6b").make_config()
+    ocfg = opt.AdamWConfig(lr=3e-4, warmup_steps=2,
+                           total_steps=LM_TRAIN["steps"])
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    before = [t.clone() for t in _leaves(params)]
+    state = (params, opt.adamw_init(params, ocfg))
+    del params
+    step = loop.make_lm_train_step(cfg, ocfg,
+                                   microbatches=LM_TRAIN["microbatches"])
+    stream = LMTokenStream(cfg.vocab, seed=0)
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    batches = [{"tokens": stream.batch(i, b, s)}
+               for i in range(LM_TRAIN["steps"])]
+    LAUNCHES.reset()
+    state, secs, metrics = timed_steps(step, state, batches, "qwen3 train")
+    if LAUNCHES.flash_attention:
+        raise AssertionError("training launched the flash kernel")
+    check_trained(before, state, "qwen3 train")
+    if int(state[1]["step"]) != LM_TRAIN["steps"]:
+        raise AssertionError("the optimizer did not count its steps")
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        _, sec5, _ = timed_steps(step, state, batches[:1], "profiled step")
+    kern = trace_kernels(prof.key_averages(), "lm_training step")
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    steady = float(np.mean(secs[1:]))
+    out = dict(params=cfg.param_count(), batch=b, seq=s,
+               microbatches=LM_TRAIN["microbatches"], step_s=secs,
+               ms_per_step=steady * 1e3, tokens_per_s=b * s / steady,
+               peak_bytes=peak, losses=[m["loss"] for m in metrics],
+               grad_norms=[m["grad_norm"] for m in metrics],
+               lrs=[m["lr"] for m in metrics],
+               profiled_step_wall_ms=sec5[0] * 1e3,
+               profiled_step_device_ms=device_ms,
+               profiled_step_kernels=sum(e.count for e in kern))
+    log(f"[train] qwen3-0.6b full width bf16 (master weights), "
+        f"{b} x {s} tokens, microbatches {LM_TRAIN['microbatches']}: "
+        f"{out['ms_per_step']!r} ms/step after the first "
+        f"({secs[0] * 1e3!r} ms), {out['tokens_per_s']!r} tokens/s, peak "
+        f"memory {peak / 1e9!r} GB, losses {out['losses']}, grad norms "
+        f"{out['grad_norms']}; a profiled step {device_ms!r} ms on the "
+        f"device of {sec5[0] * 1e3!r} ms wall (profiler on)")
+    return out
+
+
+def train_card_vs_cpu(device):
+    """The same train step on the card and on the CPU: qwen3-0.6b's width
+    cut to 2 layers, float32 with TF32 off, ``LMTokenStream`` batches of
+    2 x 128, 2 steps from the same weights: the losses at rtol 1e-5,
+    ``grad_norm`` at rtol 1e-4, the parameters within an absolute 2·lr
+    per step taken (the CPU tests' tolerances)."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import LMTokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, optimizer as opt
+    from repro_torch.train.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get("qwen3-0.6b").make_config(),
+                              n_layers=PARITY_TRAIN["n_layers"],
+                              dtype=torch.float32)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(2))
+    states = {"card": (params, opt.adamw_init(params, ocfg))}
+    cpu = tree_map(lambda t: t.cpu(), params)
+    states["cpu"] = (cpu, opt.adamw_init(cpu, ocfg))
+    del params, cpu
+    step = loop.make_lm_train_step(cfg, ocfg)
+    stream = LMTokenStream(cfg.vocab, seed=3)
+    budget, out = 0.0, dict(steps=[])
+    for i in range(PARITY_TRAIN["steps"]):
+        batch = {"tokens": stream.batch(i, PARITY_TRAIN["batch"],
+                                        PARITY_TRAIN["seq"])}
+        res = {}
+        for where, (p, o) in states.items():
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, batch)
+            sync(_leaves(p)[0].device)
+            res[where] = (p, o, {k: float(v) for k, v in m.items()},
+                          time.perf_counter() - t0)
+            states[where] = (p, o)
+        budget += 2 * res["cpu"][2]["lr"]
+        gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            _leaves(res["card"][0]), _leaves(res["cpu"][0])))
+        mc, mh = res["card"][2], res["cpu"][2]
+        row = dict(loss=mc["loss"], loss_cpu=mh["loss"],
+                   grad_norm=mc["grad_norm"], grad_norm_cpu=mh["grad_norm"],
+                   max_param_gap=gap, param_budget=budget,
+                   card_s=res["card"][3], cpu_s=res["cpu"][3])
+        out["steps"].append(row)
+        log(f"[train] card vs CPU step {i} (qwen3 width, 2 layers, f32): "
+            + json.dumps(row))
+        if abs(mc["loss"] - mh["loss"]) > 1e-5 * abs(mh["loss"]) or \
+                abs(mc["grad_norm"] - mh["grad_norm"]) > \
+                1e-4 * abs(mh["grad_norm"]) or gap > budget:
+            raise AssertionError(f"train step {i}: the card and the CPU "
+                                 f"differ: {row}")
+    return out
+
+
+def mind_training(device):
+    """MIND uncut (a 10^7 x 64 f32 item table on the card):
+    ``make_mind_train_step`` (AdamW, no master weights) on
+    ``RecsysStream`` batches of 512 for 3 steps; ms/step, users/s, peak
+    memory."""
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import RecsysStream
+    from repro_torch.models.recsys import mind
+    from repro_torch.train import loop, optimizer as opt
+    cfg = get("mind").make_config()
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                           total_steps=MIND_TRAIN["steps"],
+                           master_weights=False)
+    release_card("before MIND training")
+    torch.cuda.reset_peak_memory_stats()
+    params = mind.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    before = [t.clone() for t in _leaves(params)]
+    state = (params, opt.adamw_init(params, ocfg))
+    del params
+    stream = RecsysStream(cfg.n_items, cfg.hist_len, seed=0)
+    batches = [stream.batch(i, MIND_TRAIN["batch"])
+               for i in range(MIND_TRAIN["steps"])]
+    state, secs, metrics = timed_steps(loop.make_mind_train_step(cfg, ocfg),
+                                       state, batches, "MIND train")
+    check_trained(before, state, "MIND train")
+    peak = torch.cuda.max_memory_allocated()
+    steady = float(np.mean(secs[1:]))
+    out = dict(batch=MIND_TRAIN["batch"], step_s=secs,
+               ms_per_step=steady * 1e3,
+               users_per_s=MIND_TRAIN["batch"] / steady, peak_bytes=peak,
+               losses=[m["loss"] for m in metrics])
+    log(f"[train] MIND 10^7 x 64, batch {MIND_TRAIN['batch']}: "
+        f"{out['ms_per_step']!r} ms/step after the first "
+        f"({secs[0] * 1e3!r} ms), {out['users_per_s']!r} users/s, peak "
+        f"memory {peak / 1e9!r} GB, losses {out['losses']}")
+    return out
+
+
+def restartable_training(device):
+    """``run_restartable`` on a 2-layer full-width qwen3 in bf16: 4 steps
+    straight through, then a run that signals itself (SIGTERM) in step
+    2, checkpoints at step 2 and stops, and its resumption to step 4, in
+    a temporary directory removed afterwards.  The resumed run's
+    parameters and optimizer state must equal the straight run's within
+    an absolute 2·lr per step (printed: whether they are bitwise)."""
+    import signal
+    import tempfile
+    from repro_torch.configs import get
+    from repro_torch.data.synthetic import LMTokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import failure, loop, optimizer as opt
+    cfg = dataclasses.replace(get("qwen3-0.6b").make_config(),
+                              n_layers=RESTART["n_layers"])
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1,
+                           total_steps=RESTART["steps"])
+    step = loop.make_lm_train_step(cfg, ocfg)
+    stream = LMTokenStream(cfg.vocab, seed=4)
+
+    def run(ckpt_dir, preempt_at=None):
+        params = T.init_params(
+            cfg, torch.Generator(device=device).manual_seed(3))
+
+        def make_batch(i):
+            if i == preempt_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return {"tokens": stream.batch(i, RESTART["batch"],
+                                           RESTART["seq"])}
+        t0 = time.perf_counter()
+        res = failure.run_restartable(
+            step, make_batch, (params, opt.adamw_init(params, ocfg)),
+            n_steps=RESTART["steps"], ckpt_dir=ckpt_dir, ckpt_every=0,
+            log_fn=log)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        (want, last, pre), straight_s = run(os.path.join(tmp, "straight"))
+        if (last, pre) != (RESTART["steps"], False):
+            raise AssertionError(f"straight run ended at {last}, {pre}")
+        cut_dir = os.path.join(tmp, "cut")
+        (_, last, pre), cut_s = run(cut_dir, RESTART["preempt_at"])
+        if (last, pre) != (RESTART["preempt_at"] + 1, True):
+            raise AssertionError(f"preempted run ended at {last}, {pre}")
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         Path(cut_dir).rglob("*") if f.is_file())
+        (got, last, pre), resume_s = run(cut_dir)
+        if (last, pre) != (RESTART["steps"], False):
+            raise AssertionError(f"resumed run ended at {last}, {pre}")
+    pairs = list(zip(_leaves(got), _leaves(want)))
+    bitwise = all(a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in pairs)
+    gap = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+    budget = 2 * ocfg.lr * RESTART["steps"]
+    out = dict(steps=RESTART["steps"], preempted_at=RESTART["preempt_at"]
+               + 1, checkpoint_bytes=ckpt_bytes, straight_s=straight_s,
+               preempted_s=cut_s, resumed_s=resume_s, bitwise=bitwise,
+               max_abs_diff=gap, tolerance=budget)
+    log(f"[train] restartable (qwen3 width, 2 layers, bf16): " +
+        json.dumps(out))
+    if gap > budget:
+        raise AssertionError(f"the resumed run differs from the straight "
+                             f"one by {gap!r} (> {budget!r})")
+    return out
+
+
+def training_phase(device):
+    """Phase 4c: :func:`lm_training`, :func:`train_card_vs_cpu`,
+    :func:`mind_training`, :func:`restartable_training`."""
+    release_card("phase 4c")
+    out = dict(lm=lm_training(device))
+    mark("phase 4c qwen3-0.6b training")
+    release_card("after qwen3 training")
+    out["card_vs_cpu"] = train_card_vs_cpu(device)
+    mark("phase 4c train step card vs CPU")
+    out["mind"] = mind_training(device)
+    mark("phase 4c MIND training")
+    release_card("after MIND training")
+    out["restartable"] = restartable_training(device)
+    mark("phase 4c restartable loop")
+    release_card("after phase 4c")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4837,7 +5485,29 @@ def main() -> int:
 
     lm = lm_phases(device)
     mark("phase 4 (language model)")
-    kernels.append(lm["kernel"])
+    lm_configs = lm_configs_phase(device)
+    mark("phase 4b (four LMs served)")
+    training = training_phase(device)
+    mark("phase 4c (training)")
+    served = lm_configs["served"]
+    row = lm["kernel"]
+    row["launches_qwen3"] = row["launches"]
+    row["launches"] += sum(m["launches"] for m in served.values())
+    row["launches_by_config"] = {
+        arch: dict(prefill=m["launches_prefill"], decode=m["launches_decode"],
+                   decode_design=m["decode_design"],
+                   by_design=m["launches_by_design"])
+        for arch, m in served.items()}
+    row["new_shapes"] = {
+        arch: {call: {k: m[k] for k in ("design", "ms", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "max_abs_err")}
+               for call, m in by.items()}
+        for arch, by in lm_configs["flash"].items()}
+    row["max_abs_err"] = max([row["max_abs_err"]] + [
+        m["max_abs_err"] for by in lm_configs["flash"].values()
+        for m in by.values()])
+    kernels.append(row)
     torch.cuda.empty_cache()
     recsys = recsys_phases(device, profiled)
     mark("phase 5 (recsys)")
@@ -4845,6 +5515,10 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     log(json.dumps(solves))
     log(json.dumps({"serving": lm["serving"], "parity": lm["parity"]}))
+    log(json.dumps({"lm_configs": {
+        "served": {a: {k: v for k, v in m.items() if k != "tokens"}
+                   for a, m in served.items()},
+        "moe": lm_configs["moe"]}, "training": training}))
     log(json.dumps({"recsys": {"layer": recsys["layer"],
                                "mind": recsys["serving"]}}))
     print(card, flush=True)
@@ -4929,10 +5603,11 @@ def report(graphs, device):
         """Launches of an ALT kernel over the p2p phase's solves of
         ``kinds``, per graph."""
         return {n: sum(q["solves"][k]["launches"] for q in p2p[n]["queries"]
-                       for k in kinds) for n in results}
+                       for k in kinds if k in q["solves"]) for n in results}
     alt_per_graph = alt_launches(("alt", "alt bidirectional"))
     fused_alt_per_graph = alt_launches(("alt fused",))
     per_query = lambda kind: {n: [q["solves"][kind]["launches"]
+                                  if kind in q["solves"] else None
                                   for q in p2p[n]["queries"]]
                               for n in results}
     def by_graph(numbers, keys=("ms", "eager_ms", "parent_ms",

@@ -3,8 +3,10 @@
 
 Every ported module exposes ``FAMILY``, ``make_config(**kw)`` (the full
 configuration), ``SHAPES`` and ``smoke_config()`` (a reduced config of the
-same family for CPU tests).  Ported: the dense LMs of the serving slice
-and MIND (the recsys slice); :func:`get` raises for the others.
+same family for CPU tests), and, as the reference's, ``MICROBATCHES``
+(gradient-accumulation steps by train shape) and, for the MoE LMs,
+``PREFILL_CHUNKS``.  Ported: the five LMs, qwen3-0.6b-swa and MIND;
+:func:`get` raises for the GNN architectures.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ ARCHS = [
 
 BONUS_ARCHS = ["qwen3-0.6b-swa"]  # sub-quadratic variant for long_500k
 
-PORTED = ("qwen3-0.6b", "qwen3-0.6b-swa", "mind")
+PORTED = ("deepseek-moe-16b", "granite-moe-3b-a800m", "qwen3-0.6b",
+          "phi4-mini-3.8b", "granite-34b", "qwen3-0.6b-swa", "mind")
 
 
 def _modname(arch: str) -> str:
@@ -40,6 +43,6 @@ def get(arch: str):
         known = arch in ARCHS or arch in BONUS_ARCHS
         raise NotImplementedError(
             f"architecture {arch!r} is " + (
-                "not ported yet (ROADMAP.md, queue 1 items 11-12); ported: "
+                "not ported yet (ROADMAP.md, queue 1 item 12); ported: "
                 if known else "unknown; ported: ") + ", ".join(PORTED))
     return importlib.import_module(_modname(arch))

@@ -15,6 +15,9 @@ def make_config(**kw):
         rope_theta=1e6, tied_embed=True, **kw)
 
 
+MICROBATCHES = {}
+
+
 def smoke_config():
     return LMConfig(
         name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv=2,

@@ -16,6 +16,9 @@ def make_config(**kw):
         tied_embed=True, **kw)
 
 
+MICROBATCHES = {}
+
+
 def smoke_config():
     return LMConfig(
         name="qwen3-swa-smoke", n_layers=2, d_model=64, n_heads=4, n_kv=2,

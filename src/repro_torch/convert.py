@@ -163,17 +163,24 @@ def landmarks_from_reference(arrays: dict, device) -> LandmarkSet:
         max_hops=int(arrays["max_hops"]))
 
 
+# leaves the reference keeps in float32 whatever the model's dtype: the
+# MoE router (``transformer.py:120`` there), which routes in f32
+_F32_LEAVES = ("layers/router",)
+
+
 def lm_params_from_reference(arrays: dict, dtype, device) -> dict:
     """The port's parameter dict (:mod:`repro_torch.models.transformer`)
     from the reference's ``init_params`` pytree flattened with ``/``-joined
-    keys (``layers/<name>`` for the stacked per-layer tensors).  Every
-    leaf is cast to ``dtype``, the model's ``cfg.dtype``, as the
-    reference stores it (a float32 copy of a bf16 leaf casts back
-    exactly)."""
+    keys (``layers/<name>`` for the stacked per-layer tensors, the MoE
+    experts ``[L, E, d_in, d_out]`` among them).  Every leaf is cast to
+    ``dtype``, the model's ``cfg.dtype``, as the reference stores it (a
+    float32 copy of a bf16 leaf casts back exactly), except the MoE
+    ``router``, which stays float32 as in the reference."""
     dev = torch.device(device)
     out = {"layers": {}}
     for key, a in arrays.items():
-        t = torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+        t = torch.from_numpy(np.array(a, np.float32)).to(
+            dev, torch.float32 if key in _F32_LEAVES else dtype)
         head, _, name = key.partition("/")
         if head == "layers" and name:
             out["layers"][name] = t

@@ -1,13 +1,33 @@
-"""Synthetic recsys traffic, the port's copy of the reference's
-``repro.data.synthetic.RecsysStream``.
+"""Synthetic LM and recsys traffic, the port's copy of the reference's
+``repro.data.synthetic.LMTokenStream`` and ``RecsysStream``.
 
-Deterministic (seeded) numpy batches with a step -> sample-offset mapping,
-byte-identical to the reference's for the same ``(n_items, hist_len,
-seed, step, batch)``.  The LM and GNN streams come with their slices.
+Deterministic (seeded) numpy batches with a step -> sample-offset mapping
+(so a restarted job fast-forwards byte-identically, which
+``train/failure.py`` relies on), byte-identical to the reference's for
+the same arguments.  The GNN streams come with their slice.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+class LMTokenStream:
+    """Synthetic token stream: Zipf unigrams with copied halves (so the
+    loss falls during a run)."""
+
+    def __init__(self, vocab: int, seed: int = 0):
+        self.vocab = vocab
+        self.seed = seed
+
+    def batch(self, step: int, batch: int, seq: int) -> np.ndarray:
+        """``[batch, seq]`` int32 tokens: Zipf(1.3) draws mod ``vocab``,
+        the second half of each row a copy of its first."""
+        rng = np.random.default_rng((self.seed, step))
+        base = rng.zipf(1.3, size=(batch, seq)).astype(np.int64)
+        toks = (base - 1) % self.vocab
+        half = seq // 2
+        toks[:, half:half * 2] = toks[:, :half]
+        return toks.astype(np.int32)
 
 
 class RecsysStream:

@@ -11,7 +11,9 @@ through their strides, or the call raises.  :func:`variant` names the
 design a call gets from its type, head width and rows: ``"tc"`` (bf16
 tensor cores, prefill), ``"split"`` (split-KV decode) or ``"simt"``
 (f32 on the CUDA cores).  There is no fallback from one to another, nor
-to the plain version.
+to the plain version.  The kernel has no backward: on the card a call
+whose inputs require grad under grad mode raises (the plain version on
+the CPU is differentiable torch code).
 """
 from __future__ import annotations
 
@@ -119,10 +121,23 @@ def _positions(name, pos, shape, device):
     return pos, pos.stride()
 
 
+def _refuse_grad(*tensors):
+    """The kernel writes its output through a pointer, so autograd cannot
+    see through it: a call that would need its gradient raises instead
+    of training every weight but those behind attention."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "flash_attention has no backward on the card: call it under "
+            "torch.no_grad(), or train through the plain attention "
+            "(transformer.loss_fn uses attn='plain')")
+
+
 def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window, kind=None):
     """One launch on the card, of design ``kind`` (default
     :func:`variant`'s; a measurement may name another that takes the
-    call)."""
+    call).  Raises when grad mode is on and an input requires grad
+    (:func:`_refuse_grad`)."""
+    _refuse_grad(q, k, v)
     b, s, kv, hg, d = q.shape
     t = k.shape[1]
     dev = q.device

@@ -18,12 +18,20 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=torch.float32, scale: float | None = None, *, lead=()):
     """Truncated-normal (-2, 2) fan-in init times ``scale`` (default
     ``1/sqrt(d_in)``), drawn in f32 on ``gen``'s device; ``lead`` prepends
-    stacking dimensions (one matrix per layer)."""
+    stacking dimensions (one matrix per layer).
+
+    The leading index ``lead[0]`` is drawn one slice at a time into a
+    stack allocated in ``dtype``, so the f32 temporary is one slice (one
+    layer's matrix, or one layer's expert block), never the whole stack:
+    granite-34b's ``w_up`` stack is 26.6 GB in bf16 and would need 53 GB
+    more as one f32 draw."""
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.empty((*lead, d_in, d_out), dtype=torch.float32,
-                    device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=gen.device)
+    for part in (out.unbind(0) if lead else (out,)):
+        w = torch.empty(part.shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        part.copy_(w * std)
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
@@ -39,6 +47,15 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = (xf * xf).mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm with f32 statistics (the population variance)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None):
@@ -68,3 +85,16 @@ def gelu_mlp(x, w_up, w_down):
     """Two-matrix MLP with the tanh-approximate GELU (``jax.nn.gelu``'s
     default)."""
     return F.gelu(x @ w_up, approximate="tanh") @ w_down
+
+
+def softmax_cross_entropy(logits, labels, z_loss: float = 0.0):
+    """Per-position cross entropy ``logsumexp(logits) - logits[label]``
+    with an f32 logsumexp, plus ``z_loss * logsumexp**2`` when
+    ``z_loss``; labels ``[...]`` int, logits ``[..., V]``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse ** 2
+    return loss

@@ -1,5 +1,5 @@
 """MIND: Multi-Interest Network with Dynamic routing (arXiv:1904.08030),
-its serving path.
+its serving path and its training loss.
 
 The port's counterpart of ``repro.models.recsys.mind``: an item table
 ``[V, D]`` gives behaviour embeddings ``[B, L, D]``; B2I dynamic routing
@@ -7,13 +7,14 @@ The port's counterpart of ``repro.models.recsys.mind``: an item table
 serving scores against candidate items by their best interest.  Rows are
 gathered with :func:`~repro_torch.models.recsys.embedding.take_rows`
 (``jnp.take``'s semantics) and the products are ``torch.einsum``, as the
-reference leaves both to XLA.  ``label_aware_attention`` and
-``train_loss`` belong to MIND's training step and come with the training
-slice.
+reference leaves both to XLA.  Training (:func:`train_loss`) is a
+sampled softmax with in-batch negatives over the label-aware attention
+of the interests to the target item.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -79,6 +80,31 @@ def multi_interest(cfg: MINDConfig, params, hist_ids, hist_mask):
         if it < cfg.capsule_iters - 1:
             blog = blog + torch.einsum("bkd,bld->blk", interests, eh)
     return interests.to(cfg.dtype)                              # [B, K, D]
+
+
+def label_aware_attention(cfg: MINDConfig, interests, target_e):
+    """The paper's ``v_u = sum_k softmax_k(max(u_k . e_t, 1e-9) ** p)
+    u_k``: interests ``[B, K, D]``, target embeddings ``[B, D]`` ->
+    ``[B, D]``; the logits and softmax in f32."""
+    logits = torch.einsum("bkd,bd->bk", interests.float(), target_e.float())
+    w = torch.softmax(torch.pow(logits.clamp_min(1e-9), cfg.pow_p), dim=-1)
+    return torch.einsum("bk,bkd->bd", w.to(interests.dtype), interests)
+
+
+def train_loss(cfg: MINDConfig, params, batch):
+    """Sampled softmax with in-batch negatives: each user's attended
+    interest against every target of the batch, its own as the label;
+    ``batch`` ``{"hist": [B, L], "hist_mask": [B, L], "target": [B]}``
+    (tensors or numpy arrays).  Returns ``(loss, {"loss": loss})``."""
+    interests = multi_interest(cfg, params, batch["hist"],
+                               batch["hist_mask"])
+    tgt_e = take_rows(params["item_embed"], _on(params, batch["target"]))
+    user = label_aware_attention(cfg, interests, tgt_e)        # [B, D]
+    logits = torch.einsum("bd,cd->bc", user.float(),
+                          tgt_e.float()) / math.sqrt(cfg.embed_dim)
+    lse = torch.logsumexp(logits, dim=-1)
+    loss = (lse - torch.diagonal(logits)).mean()
+    return loss, {"loss": loss}
 
 
 def serve_interests(cfg: MINDConfig, params, batch):

@@ -1,25 +1,30 @@
-"""Decoder-only transformer LM (dense) in PyTorch: forward, prefill and
-the decode step of the serving path.
+"""Decoder-only transformer LM (dense and MoE) in PyTorch: forward,
+the training loss, prefill and the decode step of the serving path.
 
-Port of ``repro.models.transformer`` for inference on one card: GQA
-attention with an explicit ``head_dim``, RoPE applied before the cache
-(absolute positions, so a ring buffer serves sliding-window decode),
-optional qk-norm, SwiGLU or GELU MLP, tied or separate LM head.  Not
-here: the reference's ``_constrain``/``act_spec``, ``seq_shard`` and
-``remat`` (sharding and autodiff hooks that inference on one card does
-not need), its ``lax.scan`` over stacked layers (a Python loop over the
-same stacked parameters), the MoE block and ``loss_fn``, which come with
-later slices (ROADMAP.md, queue 1 item 11).
+Port of ``repro.models.transformer`` on one card: GQA attention with an
+explicit ``head_dim``, RoPE applied before the cache (absolute
+positions, so a ring buffer serves sliding-window decode), optional
+qk-norm, SwiGLU or GELU MLP, tied or separate LM head, and MoE layers
+(:func:`moe_block`: shared plus top-k routed experts, capacity-based
+sort dispatch, the Switch aux loss) in plain torch ops, as the
+reference leaves them to XLA.  The reference's ``lax.scan`` over stacked
+layers is a Python loop over the same stacked parameters; its per-layer
+``jax.checkpoint`` is ``torch.utils.checkpoint`` under ``cfg.remat``.
+Not here: the reference's ``_constrain``/``act_spec`` (sharding
+constraints; ``cfg.seq_shard`` is kept and, as the reference's
+constraint outside a mesh, does nothing on one card).
 
 Attention runs one of two implementations, named by ``attn``:
 
 * ``"flash"``: ``kernels/flash_attn``'s :func:`flash_attention_pos`, the
   hand-written CUDA kernel on the card (its plain f32 version on the
-  CPU), reading the cache in place;
+  CPU), reading the cache in place.  It has no backward: on the card it
+  refuses inputs that require grad under grad mode;
 * ``"plain"``: the reference's own attention translated op for op
   (:func:`_sdpa_dense`, :func:`_sdpa_blockwise` above ``s * t > 2**21``,
   and the decode step's :func:`_sdpa_decode`), with the reference's bf16
-  roundings of scores and probabilities.
+  roundings of scores and probabilities.  :func:`loss_fn` (training)
+  always runs it, as the reference trains through XLA's attention.
 
 ``attn=None`` takes ``"flash"`` on a CUDA device and ``"plain"`` on the
 CPU; nothing switches from one to the other on its own.
@@ -30,15 +35,16 @@ The KV cache is ``{"k", "v": [L, B, S_cache, KV, HD], "pos": [B]}``;
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..core.sssp import resolve_device
 from ..kernels.flash_attn.ops import flash_attention_pos
 from .layers import apply_rope, dense_init, embed_init, gelu_mlp, rms_norm, \
-    swiglu
+    softmax_cross_entropy, swiglu
 
 ATTN = ("flash", "plain")
 
@@ -56,11 +62,11 @@ class LMConfig:
     mlp: str = "swiglu"               # "swiglu" | "gelu"
     qk_norm: bool = False
     rope_theta: float = 1e4
-    # MoE (the configuration is expressible; the block is not ported yet)
+    # MoE
     moe: bool = False
     n_experts: int = 0
     top_k: int = 0
-    n_shared: int = 0
+    n_shared: int = 0                 # shared (always-on) experts
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01
     # attention
@@ -68,6 +74,10 @@ class LMConfig:
     tied_embed: bool = False          # lm_head = embed.T (qwen3, phi4)
     # numerics
     dtype: Any = torch.bfloat16
+    # distribution
+    seq_shard: bool = False           # Megatron-SP residual stream: a
+    #                                   sharding hint, nothing on one card
+    remat: bool = True                # recompute each layer in backward
 
     @property
     def hd(self) -> int:
@@ -101,18 +111,13 @@ def resolve_attn(attn, device) -> str:
 # parameter init
 # ---------------------------------------------------------------------------
 
-def _no_moe(cfg: LMConfig):
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (moe_block) are not ported yet; they "
-            "come with a later slice (ROADMAP.md, queue 1 item 11.2)")
-
-
 def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     """Random parameters with the reference's distributions, drawn from
     ``gen`` on its device: per-layer tensors stacked on a leading
-    ``n_layers`` axis, norms at one."""
-    _no_moe(cfg)
+    ``n_layers`` axis (experts on a second one), norms at one, the MoE
+    router in float32 whatever ``cfg.dtype`` is.  Every stack is drawn
+    one layer at a time into its ``cfg.dtype`` tensor
+    (:func:`~repro_torch.models.layers.dense_init`)."""
     d, hd, h, kv, L, dt = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv,
                            cfg.n_layers, cfg.dtype)
     ones = lambda *shape: torch.ones(shape, dtype=dt, device=gen.device)
@@ -129,11 +134,27 @@ def init_params(cfg: LMConfig, gen: torch.Generator) -> dict:
     if cfg.qk_norm:
         layer["q_norm"] = ones(L, hd)
         layer["k_norm"] = ones(L, hd)
-    layer["w_up"] = dense_init(gen, d, cfg.d_ff, dt, **stack)
-    layer["w_down"] = dense_init(gen, cfg.d_ff, d, dt, out_scale(cfg.d_ff),
-                                 **stack)
-    if cfg.mlp == "swiglu":
-        layer["w_gate"] = dense_init(gen, d, cfg.d_ff, dt, **stack)
+    f = cfg.d_ff
+    if cfg.moe:
+        e = cfg.n_experts
+        experts = dict(lead=(L, e))
+        layer["router"] = dense_init(gen, d, e, torch.float32, **stack)
+        layer["e_up"] = dense_init(gen, d, f, dt, **experts)
+        layer["e_down"] = dense_init(gen, f, d, dt, out_scale(f), **experts)
+        if cfg.mlp == "swiglu":
+            layer["e_gate"] = dense_init(gen, d, f, dt, **experts)
+        if cfg.n_shared:
+            fs = f * cfg.n_shared
+            layer["s_up"] = dense_init(gen, d, fs, dt, **stack)
+            layer["s_down"] = dense_init(gen, fs, d, dt, out_scale(fs),
+                                         **stack)
+            if cfg.mlp == "swiglu":
+                layer["s_gate"] = dense_init(gen, d, fs, dt, **stack)
+    else:
+        layer["w_up"] = dense_init(gen, d, f, dt, **stack)
+        layer["w_down"] = dense_init(gen, f, d, dt, out_scale(f), **stack)
+        if cfg.mlp == "swiglu":
+            layer["w_gate"] = dense_init(gen, d, f, dt, **stack)
     out = {"embed": embed_init(gen, cfg.vocab, d, dt), "layers": layer,
            "ln_f": ones(d)}
     if not cfg.tied_embed:
@@ -152,7 +173,7 @@ def _logits(cfg: LMConfig, params, x):
 
 
 # ---------------------------------------------------------------------------
-# attention / mlp blocks
+# attention / mlp / moe blocks
 # ---------------------------------------------------------------------------
 
 def _sdpa_dense(cfg: LMConfig, q, k_all, v_all, positions, t_pos, causal):
@@ -262,8 +283,110 @@ def attention(cfg: LMConfig, lp: dict, x, *, attn="plain"):
     return out.reshape(b, s, h * hd) @ lp["wo"], k, v
 
 
+class Route(NamedTuple):
+    """A MoE layer's routing of ``t`` tokens (:func:`moe_route`): the f32
+    router ``probs [T, E]``, each token's top-k ``gate`` (renormalised)
+    and expert ``idx [T, k]``, the aux loss, the per-expert capacity
+    ``cap``, and the ``T * k`` token-choices sorted stably by expert:
+    ``order`` (their flat ``t * k + j`` positions), expert ``se``, token
+    ``st``, gate ``sg``, ``rank`` within the expert, and ``keep`` (rank
+    below ``cap``; the rest are dropped)."""
+    probs: Any
+    gate: Any
+    idx: Any
+    aux: Any
+    cap: int
+    order: Any
+    se: Any
+    st: Any
+    sg: Any
+    rank: Any
+    keep: Any
+
+
+def moe_route(cfg: LMConfig, lp: dict, xt) -> Route:
+    """Route tokens ``xt [T, D]``: f32 router logits and softmax, top-k
+    in ``jax.lax.top_k``'s order (probability descending, the lower
+    expert first on a tie: a stable descending sort), renormalised
+    gates, the Switch load-balance aux loss ``coef * E * sum_e f_e
+    p_e``, and the stable sort of the token-choices by expert with each
+    one's rank from ``searchsorted``.  ``cap = max(int(T * k / E *
+    capacity_factor), 8)`` in Python floats, as the reference."""
+    t = xt.shape[0]
+    e, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xt.float() @ lp["router"], dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = top.values[:, :k], top.indices[:, :k]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    me = probs.mean(0)
+    ce = F.one_hot(idx, e).sum(1).float().mean(0)
+    aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
+    cap = max(int(t * k / e * cfg.capacity_factor), 8)
+    flat_e = idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    se = flat_e[order]
+    st = torch.div(order, k, rounding_mode="floor")
+    first = torch.searchsorted(se, se, side="left")
+    rank = torch.arange(t * k, device=xt.device) - first
+    return Route(probs, gate, idx, aux, cap, order, se, st,
+                 gate.reshape(-1)[order], rank, rank < cap)
+
+
+def moe_combine(y_tok, order, t: int, k: int):
+    """Each token's sum of its ``k`` rows of ``y_tok`` (``[T * k, D]`` in
+    the sorted order ``order``), added from zero in ascending expert
+    order, as the reference's ``segment_sum`` over the sorted choices
+    adds them; a gather and ``k`` adds, so the bits do not depend on
+    the order threads run in (``index_add_`` on the card adds with
+    atomics)."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    rows = y_tok[inv.reshape(t, k).sort(dim=1).values]       # [T, k, D]
+    y = torch.zeros_like(rows[:, 0])
+    for j in range(k):
+        y = y + rows[:, j]
+    return y
+
+
+def moe_block(cfg: LMConfig, lp: dict, x):
+    """Top-k routed experts with capacity-based sort dispatch, plus the
+    shared experts.  x: ``[B, S, D]``, flattened to tokens.  Returns
+    ``(y [B, S, D], aux)``.
+
+    Every kept (expert, rank) slot of the ``[E, cap, D]`` dispatch buffer
+    is written once (dropped choices go to a spare row that is thrown
+    away); the experts run as batched matmuls; :func:`moe_combine` adds
+    each token's gated rows.  Padding tokens route like any other and
+    use up capacity, as in the reference."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(b * s, d)
+    t = b * s
+    r = moe_route(cfg, lp, xt)
+    slot = torch.where(r.keep, r.se * r.cap + r.rank, e * r.cap)
+    buf = torch.zeros((e * r.cap + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((slot,), xt[r.st])[:-1].reshape(e, r.cap, d)
+    if cfg.mlp == "swiglu":
+        hidden = F.silu(torch.bmm(buf, lp["e_gate"])) * torch.bmm(
+            buf, lp["e_up"])
+    else:
+        hidden = F.gelu(torch.bmm(buf, lp["e_up"]), approximate="tanh")
+    out_buf = torch.bmm(hidden, lp["e_down"])
+    y_tok = out_buf[r.se, r.rank.clamp(max=r.cap - 1)]
+    y_tok = torch.where(r.keep[:, None], y_tok, 0.0) * r.sg[:, None].to(
+        x.dtype)
+    y = moe_combine(y_tok, r.order, t, k)
+    if cfg.n_shared:
+        if cfg.mlp == "swiglu":
+            y = y + swiglu(xt, lp["s_gate"], lp["s_up"], lp["s_down"])
+        else:
+            y = y + gelu_mlp(xt, lp["s_up"], lp["s_down"])
+    return y.reshape(b, s, d), r.aux
+
+
 def mlp_block(cfg: LMConfig, lp: dict, x):
-    _no_moe(cfg)
+    if cfg.moe:
+        return moe_block(cfg, lp, x)
     if cfg.mlp == "swiglu":
         return swiglu(x, lp["w_gate"], lp["w_up"], lp["w_down"]), 0.0
     return gelu_mlp(x, lp["w_up"], lp["w_down"]), 0.0
@@ -273,21 +396,51 @@ def mlp_block(cfg: LMConfig, lp: dict, x):
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _layer_fwd(cfg: LMConfig, x, lp: dict, attn: str):
+    a, _, _ = attention(cfg, lp, rms_norm(x, lp["ln1"]), attn=attn)
+    x = x + a
+    m, aux = mlp_block(cfg, lp, rms_norm(x, lp["ln2"]))
+    return x + m, aux
+
+
 def forward(cfg: LMConfig, params: dict, tokens, *, attn=None):
     """Prefill-style forward: tokens ``[B, S]`` -> (logits ``[B, S, V]``,
-    aux loss)."""
+    aux loss averaged over the layers; 0.0 for a dense model).  With
+    ``cfg.remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in backward, as the reference's ``jax.checkpoint``."""
     attn = resolve_attn(attn, tokens.device)
     x = params["embed"][tokens].to(cfg.dtype)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        a, _, _ = attention(cfg, lp, rms_norm(x, lp["ln1"]), attn=attn)
-        x = x + a
-        m, a_mlp = mlp_block(cfg, lp, rms_norm(x, lp["ln2"]))
-        x = x + m
-        aux += a_mlp
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, cfg, x, lp, attn, use_reentrant=False)
+        else:
+            x, a = _layer_fwd(cfg, x, lp, attn)
+        aux = aux + a
     x = rms_norm(x, params["ln_f"])
     return _logits(cfg, params, x), aux / cfg.n_layers
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: dict):
+    """Next-token cross entropy of ``batch["tokens"] [B, S]`` (mean over
+    the ``S - 1`` predicted positions, or over those where the optional
+    ``batch["mask"] [B, S]`` is set), plus the MoE aux loss.  Returns
+    ``(loss + aux, {"loss", "aux"})``.  Attention is the plain path
+    (``attn="plain"``): the flash kernel has no backward."""
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, attn="plain")
+    loss = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:]
+        loss = (loss * m).sum() / m.sum().clamp_min(1)
+    else:
+        loss = loss.mean()
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 # --- serving ---------------------------------------------------------------

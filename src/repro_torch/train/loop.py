@@ -1,0 +1,100 @@
+"""Train-step builders with microbatch accumulation, the port's copy of
+``repro.train.loop`` for the LM and MIND families.
+
+``make_*_train_step`` returns ``step(params, opt_state, batch) ->
+(params, opt_state, metrics)``, functional as the reference's jitted
+step: gradients by ``torch.autograd`` on detached copies of the
+parameter leaves, then the optimizer.  The batch (tensors or numpy
+arrays) is moved to the parameters' device.  Accumulation over
+microbatches is a Python loop (one microbatch's activations live at a
+time), the reference's ``lax.scan``.  The reference's sharding hook
+``act_spec`` has no counterpart on one card.  The GNN steps
+(``make_gnn_train_step``, ``make_gnn_regression_step``) come with the
+GNN models (ROADMAP.md, queue 1 item 12).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models import transformer
+from ..models.recsys import mind as mind_mod
+from . import optimizer as opt_mod
+from .tree import leaves, tree_map, unflatten
+
+
+def _on_device(batch: dict, device) -> dict:
+    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
+        v, torch.Tensor) else v, device=device) for k, v in batch.items()}
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``(loss, metrics, grads)`` of ``loss_fn(params, batch) -> (loss,
+    metrics)``: the gradient of every parameter leaf in its own dtype
+    (zeros where the loss does not reach it, as JAX gives), the loss and
+    metrics detached."""
+    flat = leaves(params)
+    live = [p.detach().requires_grad_() for p in flat]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(unflatten(params, live), batch)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    detach = lambda x: x.detach() if isinstance(x, torch.Tensor) else x
+    return (loss.detach(), {k: detach(v) for k, v in metrics.items()},
+            unflatten(params, grads))
+
+
+def _accumulate(loss_fn, params, batch: dict, microbatches: int):
+    """Mean-gradient accumulation over ``microbatches`` equal leading-dim
+    splits of ``batch``: f32 gradients summed from zero in microbatch
+    order, then divided; one microbatch returns its own gradients and
+    metrics."""
+    if microbatches <= 1:
+        return value_and_grad(loss_fn, params, batch)
+    b = next(iter(batch.values())).shape[0]
+    if b % microbatches:
+        raise ValueError(f"batch {b} is not {microbatches} equal "
+                         "microbatches")
+    split = {k: v.reshape(microbatches, b // microbatches, *v.shape[1:])
+             for k, v in batch.items()}
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=leaves(params)[0].device)
+    for i in range(microbatches):
+        loss, _, grads = value_and_grad(
+            loss_fn, params, {k: v[i] for k, v in split.items()})
+        acc = tree_map(torch.add, acc, grads)
+        loss_sum = loss_sum + loss
+    grads = tree_map(lambda g: g / microbatches, acc)
+    loss = loss_sum / microbatches
+    return loss, {"loss": loss}, grads
+
+
+def _step(loss_fn, opt_cfg, microbatches: int):
+    def step(params, opt_state, batch):
+        batch = _on_device(batch, leaves(params)[0].device)
+        loss, metrics, grads = _accumulate(loss_fn, params, batch,
+                                           microbatches)
+        params, opt_state, om = opt_mod.adamw_update(params, grads,
+                                                     opt_state, opt_cfg)
+        return params, opt_state, {**metrics, **om}
+    return step
+
+
+def make_lm_train_step(cfg: transformer.LMConfig,
+                       opt_cfg: opt_mod.AdamWConfig, microbatches: int = 1):
+    """AdamW on :func:`transformer.loss_fn` (plain attention) over
+    ``{"tokens": [B, S], "mask": [B, S] (optional)}`` batches."""
+    return _step(lambda p, b: transformer.loss_fn(cfg, p, b), opt_cfg,
+                 microbatches)
+
+
+def make_mind_train_step(cfg: mind_mod.MINDConfig, opt_cfg,
+                         microbatches: int = 1):
+    """AdamW on :func:`mind.train_loss` over ``{"hist", "hist_mask",
+    "target"}`` batches (:class:`~repro_torch.data.synthetic.
+    RecsysStream`'s)."""
+    return _step(lambda p, b: mind_mod.train_loss(cfg, p, b), opt_cfg,
+                 microbatches)

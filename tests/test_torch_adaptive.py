@@ -27,6 +27,7 @@ from repro_torch.core import stepping
 from repro_torch.core.config import EngineConfig
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 F32 = np.float32
 

@@ -40,6 +40,7 @@ from test_alt_p2p import benchmark_graphs, pick_pair
 from test_torch_edge_relax import BV, TE, _slab
 from test_torch_graph import ref_arrays
 from test_torch_sssp import BLOCKED, _np, _port, assert_same
+from release_xla import release_compiled  # noqa: F401
 
 GRAPHS = benchmark_graphs()
 N_LANDMARKS = 4

@@ -27,6 +27,7 @@ from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, sssp_bounded,
                                    sssp_knear, sssp_p2p)
 from test_torch_graph import ref_arrays
 from torch_serve_common import gloo_one
+from release_xla import release_compiled  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "error::repro_torch.core.config.FacadeDeprecationWarning")

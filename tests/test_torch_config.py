@@ -20,6 +20,7 @@ from repro_torch import convert
 from repro_torch.core import config as pconfig
 from repro_torch.core.sssp import LOGICAL_METRIC_FIELDS, metrics_dict, sssp
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 # (EngineConfig kwargs, resolve kwargs or None for construction only, the
 # message fragment both packages must raise)

@@ -1557,3 +1557,131 @@ def test_cuda_routed_two_schedulers_match_single_tier(card):
             spec
         assert np.array_equal(a.parent, b.parent), spec
         assert a.metrics["n_relax"] == b.metrics["n_relax"], spec
+
+
+# ---------------------------------------------------------------------------
+# the LM substrate's last slice: MoE, training, the new attention shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv,hg,d,s", [(1, 48, 128, 96), (8, 3, 64, 200),
+                                       (16, 1, 128, 80), (8, 3, 128, 130)],
+                         ids=["mqa48", "d64", "mha", "hg3"])
+@pytest.mark.parametrize("dtype,tol", _FLASH_TOL, ids=["f32", "bf16"])
+def test_cuda_flash_new_config_shapes(card, dtype, tol, kv, hg, d, s):
+    # granite-34b's MQA (48 query heads over one KV head), granite-moe's
+    # D = 64 with groups of 3, deepseek-moe's MHA and phi4-mini's groups
+    # of 3: a prefill call and a decode call of 4 slots over a 300-key
+    # cache, each of the design ops.variant names
+    rng = np.random.default_rng(kv * 1000 + hg + d)
+    q = _normal(rng, (1, s, kv, hg, d), dtype, card)
+    k = _normal(rng, (1, s, kv, d), dtype, card)
+    v = _normal(rng, (1, s, kv, d), dtype, card)
+    for causal, window in ((True, 0), (False, 0), (True, 37)):
+        kw = dict(causal=causal, window=window)
+        out = _flash_checked(fops.flash_attention_pos,
+                             fops.variant(dtype, d, s * hg), q, k, v, **kw)
+        want = fops.flash_attention_pos_ref(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    b, t = 4, 300
+    cache = _normal(rng, (2, b, t, kv, d), dtype, card)
+    q = _normal(rng, (b, 1, kv, hg, d), dtype, card)
+    pos = torch.from_numpy(rng.integers(0, t, (b, 1)).astype(np.int32)).to(
+        card)
+    args = (q, cache[0], cache[1], pos, None)
+    out = _flash_checked(fops.flash_attention_pos, fops.variant(dtype, d, hg),
+                         *args, causal=True)
+    want = fops.flash_attention_pos_ref(*args, causal=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_cuda_flash_refuses_a_call_that_needs_its_gradient(card):
+    rng = np.random.default_rng(21)
+    q = _normal(rng, (1, 64, 2, 2, 64), torch.bfloat16, card)
+    k = _normal(rng, (1, 64, 2, 64), torch.bfloat16, card)
+    v = _normal(rng, (1, 64, 2, 64), torch.bfloat16, card)
+    calls = fops.LAUNCHES.flash_attention
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops.flash_attention_pos(q.requires_grad_(), k, v)
+    assert fops.LAUNCHES.flash_attention == calls
+    with torch.no_grad():
+        out = fops.flash_attention_pos(q, k, v)
+    assert fops.LAUNCHES.flash_attention == calls + 1
+    torch.testing.assert_close(
+        out.float(), fops.flash_attention_pos_ref(q.detach(), k, v).float(),
+        rtol=2e-2, atol=2e-2)
+
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "granite-moe-3b-a800m"])
+def test_cuda_moe_block_matches_cpu(card, arch):
+    # float32 with TF32 off, a widened smoke config (d_model 512, 256
+    # tokens) and one with capacity drops: the routing equal, y and aux
+    # within the CPU tests' float32 tolerance
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    _no_tf32()
+    base = dataclasses.replace(configs.get(arch).smoke_config(),
+                               d_model=512, d_ff=256, n_layers=1)
+    for cf in (1.25, 0.3):
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        lp = T._layer(T.init_params(cfg, torch.Generator(
+            device=card).manual_seed(0)), 0)
+        x = _normal(np.random.default_rng(22), (2, 128, 512), torch.float32,
+                    card)
+        lp_cpu = {k: w.cpu() for k, w in lp.items()}
+        y, aux = T.moe_block(cfg, lp, x)
+        y_cpu, aux_cpu = T.moe_block(cfg, lp_cpu, x.cpu())
+        r, r_cpu = (T.moe_route(cfg, p, xx.reshape(-1, 512))
+                    for p, xx in ((lp, x), (lp_cpu, x.cpu())))
+        # a near-tie of the k-th and (k+1)-th probabilities may route
+        # either way: those tokens are left out, and counted
+        top = torch.sort(r_cpu.probs, -1, descending=True).values
+        k = cfg.top_k
+        near = top[:, k - 1] - top[:, k] <= 1e-6 * top[:, k - 1]
+        print(f"{arch} capacity {cf}: {int(near.sum())} near-ties")
+        assert r.cap == r_cpu.cap
+        assert torch.equal(r.idx.cpu()[~near], r_cpu.idx[~near])
+        if not near.any():
+            assert torch.equal(r.keep.cpu(), r_cpu.keep)
+        if cf < 1:
+            assert bool((~r_cpu.keep).any())
+        ok = (~near).reshape(2, 128)
+        torch.testing.assert_close(y.cpu()[ok], y_cpu[ok], rtol=1e-4,
+                                   atol=1e-5)
+        torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-4, atol=1e-5)
+        # the combine is a gather and k adds: the same bits every call
+        assert torch.equal(T.moe_block(cfg, lp, x)[0], y)
+
+
+def test_cuda_train_step_matches_cpu(card):
+    # one AdamW step of the qwen3 smoke model (f32, TF32 off, master
+    # weights) on the card and on the CPU from the same weights and batch:
+    # the loss at rtol 1e-5, the parameters within 2·lr
+    from repro_torch import configs
+    from repro_torch.data.synthetic import LMTokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, optimizer as opt
+    from repro_torch.train.tree import leaves, tree_map
+    _no_tf32()
+    cfg = configs.get("qwen3-0.6b").smoke_config()
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    params = T.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    step = loop.make_lm_train_step(cfg, ocfg, microbatches=2)
+    batch = {"tokens": LMTokenStream(cfg.vocab).batch(0, 4, 32)}
+    calls = fops.LAUNCHES.flash_attention
+    p, o, m = step(params, opt.adamw_init(params, ocfg), batch)
+    pc, oc, mc = step(cpu, opt.adamw_init(cpu, ocfg), batch)
+    assert fops.LAUNCHES.flash_attention == calls      # plain attention
+    assert float(m["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert all(t.is_cuda for t in leaves((p, o)))
+    for a, b in zip(leaves((p, o)), leaves((pc, oc))):
+        assert a.dtype == b.dtype
+        assert float((a.cpu().float() - b.float()).abs().max()) <= \
+            2 * float(m["lr"])

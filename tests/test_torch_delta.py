@@ -62,6 +62,7 @@ from repro_torch.serve.queries import reconstruct_path
 from test_delta import benchmark_graphs, make_delta, unique_undirected
 from test_torch_alt_p2p import lm_arrays
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 CHILD_TIMEOUT_S = 120

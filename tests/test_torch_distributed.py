@@ -54,6 +54,7 @@ from repro_torch.kernels.edge_relax import ops
 from repro_torch.serve.queries import reconstruct_path
 from test_torch_alt_p2p import lm_arrays
 from test_torch_graph import SLAB_FIELDS, ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 GEOM = dict(block_v=64, tile_e=64)
 GRAPHS = {"kron8": ("kronecker", dict(scale=8, edge_factor=8, seed=1)),

@@ -43,6 +43,7 @@ from test_torch_distributed import (GRAPHS, _assert_same, _graph,
 from test_torch_graph import ref_arrays
 from test_torch_obs import assert_trace_equal, assert_untraced_equal
 from test_torch_sssp import _property_graph
+from release_xla import release_compiled  # noqa: F401
 
 VERSIONS = ("v2", "v3")
 BACKENDS = ("segment_min", "blocked")

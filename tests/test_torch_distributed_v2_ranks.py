@@ -35,6 +35,7 @@ from repro_torch.core import landmarks as tlm
 from repro_torch.core.sssp import sssp
 from repro_torch.serve.queries import reconstruct_path
 from test_torch_distributed import GRAPHS, _assert_same, _graph, _port_out
+from release_xla import release_compiled  # noqa: F401
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 CHILD_TIMEOUT_S = 240

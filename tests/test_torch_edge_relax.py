@@ -18,6 +18,7 @@ from repro.kernels.edge_relax.edge_relax import (edge_relax as ref_kernel,
                                                  schedule_tiles as ref_sched)
 from repro_torch.core.graph import build_blocked, build_csr
 from repro_torch.kernels.edge_relax import ops, ref
+from release_xla import release_compiled  # noqa: F401
 
 BV = TE = 128
 

@@ -18,6 +18,7 @@ import torch
 from repro.models.recsys import embedding as jemb
 from repro_torch.kernels.embedding_bag import ops, ref
 from repro_torch.models.recsys import embedding as temb
+from release_xla import release_compiled  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -18,6 +18,7 @@ from repro.kernels.flash_attn.ops import (flash_attention as jax_flash,
 from repro.models import transformer as JT
 from repro_torch.kernels.flash_attn import ops
 from repro_torch.models.transformer import ring_positions
+from release_xla import release_compiled  # noqa: F401
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from repro.kernels.flash_attn.ops import flash_attention_ref as jax_ref
 from repro_torch.kernels.flash_attn import ops
 from repro_torch.models.transformer import ring_positions
+from release_xla import release_compiled  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -40,6 +40,7 @@ from repro_torch.core.sssp import sssp
 from repro_torch.kernels.edge_relax import ops, ref
 from test_torch_graph import ref_arrays
 from test_torch_sssp import _np, _port, assert_same
+from release_xla import release_compiled  # noqa: F401
 
 
 def _graph(seed, n, m, *, inf_frac=0.0, lo_frac=1.0, ties=False):

@@ -30,6 +30,7 @@ from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, metrics_dict,
                                    sssp)
 from repro_torch.kernels.edge_relax import ops, ref
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 GEOM = dict(block_v=64, tile_e=64)
 SLAB_GRAPHS = {"road16": ("road_grid", dict(side=16, seed=2)),

@@ -29,6 +29,7 @@ from repro_torch import convert
 from repro_torch.core.graph import build_blocked, build_csr, default_geometry
 from repro_torch.kernels.edge_relax import ops, ref
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 GRAPHS = {
     "road16": lambda: convert.from_reference(

@@ -22,6 +22,7 @@ from repro_torch.core.sssp import sssp
 from test_alt_p2p import benchmark_graphs, pick_pair
 from test_torch_graph import ref_arrays
 from test_torch_sssp import BLOCKED, _np, _port, assert_same
+from release_xla import release_compiled  # noqa: F401
 
 GRAPHS = benchmark_graphs()
 PORT_BACKENDS = {"segment_min": {}, "blocked": BLOCKED,

@@ -17,6 +17,7 @@ import repro.data.generators as rgen
 from repro_torch import convert
 from repro_torch.core import graph as tgraph
 from repro_torch.data import generators as tgen
+from release_xla import release_compiled  # noqa: F401
 
 GENERATED = [
     ("kronecker", dict(scale=9, edge_factor=8, seed=1)),

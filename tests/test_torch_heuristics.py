@@ -17,6 +17,7 @@ from repro_torch.core import f32math
 from repro_torch.core import stats as tstats, stepping as tstep, \
     traversal as ttrav
 from repro_torch.core.graph import degree_bucket
+from release_xla import release_compiled  # noqa: F401
 
 
 def _case(seed, n=2000):

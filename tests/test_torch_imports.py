@@ -1,8 +1,9 @@
 """The port stands alone: ``import repro_torch``, CPU solves (single
 device, fused, sharded v1, ALT p2p with a landmark build, bidirectional,
 a delta's patch and repair, a traced solve),
-CPU serving of the LM and the recsys path (embedding layer, MIND) load
-neither jax nor the reference package,
+CPU serving of the LM and the recsys path (embedding layer, MIND), and
+CPU training (LM and MIND steps, checkpoints, the launcher) load neither
+jax nor the reference package,
 ``chip_smoke.py`` and the card-side tests import neither, entry points
 need ``cuda`` unless told ``device="cpu"``, and a CPU tensor never counts
 as a kernel launch."""
@@ -170,7 +171,7 @@ def test_unported_architectures_raise():
     from repro_torch import configs
     assert configs.get("qwen3-0.6b").make_config().n_layers == 28
     assert configs.get("mind").make_config().n_items == 10_000_000
-    for arch in ("deepseek-moe-16b", "granite-34b", "gatedgcn"):
+    for arch in ("dimenet", "pna", "gatedgcn"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             configs.get(arch)
     with pytest.raises(NotImplementedError, match="unknown"):
@@ -178,6 +179,7 @@ def test_unported_architectures_raise():
 
 
 _STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/train/tree.py",
                "src/repro_torch/tune/objective.py",
                "src/repro_torch/obs/trace.py",
                "src/repro_torch/obs/metrics.py",
@@ -188,6 +190,7 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "tools/edge_relax_ablation.py",
                                   "tools/embedding_bag_grid.py",
                                   "tools/serving_phase.py",
+                                  "tools/lm_phases.py",
                                   "src/repro_torch/api.py",
                                   "src/repro_torch/core/config.py",
                                   "src/repro_torch/serve/queries.py",
@@ -209,7 +212,14 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "src/repro_torch/serve/router.py",
                                   "src/repro_torch/serve/sssp_service.py",
                                   "src/repro_torch/kernels/edge_relax/"
-                                  "ops.py"])
+                                  "ops.py",
+                                  "src/repro_torch/models/transformer.py",
+                                  "src/repro_torch/train/optimizer.py",
+                                  "src/repro_torch/train/loop.py",
+                                  "src/repro_torch/train/checkpoint.py",
+                                  "src/repro_torch/train/failure.py",
+                                  "src/repro_torch/train/tree.py",
+                                  "src/repro_torch/launch/train.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -227,6 +237,62 @@ def test_card_side_files_import_no_jax(path):
     # modules that keep their own copy of a reference module import
     # nothing of the package
     assert "repro_torch" in roots or path in _STANDALONE, path
+
+
+_TRAIN_PROBE = """
+import json, sys, tempfile
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.data.synthetic import LMTokenStream, RecsysStream
+from repro_torch.kernels.flash_attn import ops
+from repro_torch.launch import train
+from repro_torch.models import transformer as T
+from repro_torch.models.recsys import mind
+from repro_torch.train import checkpoint, failure, loop, optimizer
+losses = {}
+with tempfile.TemporaryDirectory() as tmp:
+    for arch in ("deepseek-moe-16b", "granite-34b"):
+        cfg = configs.get(arch).smoke_config()
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        ocfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1)
+        state = (params, optimizer.adamw_init(params, ocfg))
+        stream = LMTokenStream(cfg.vocab)
+        (p, o), last, _ = failure.run_restartable(
+            loop.make_lm_train_step(cfg, ocfg, microbatches=2),
+            lambda i: {"tokens": stream.batch(i, 4, 16)}, state, n_steps=2,
+            ckpt_dir=tmp + "/" + arch, ckpt_every=1, log_fn=lambda m: None)
+        back, _ = checkpoint.restore(tmp + "/" + arch, target_tree=(p, o))
+        losses[arch] = bool(all(torch.equal(a, b) for a, b in zip(
+            back[0]["layers"].values(), p["layers"].values())))
+    cfg = configs.get("mind").smoke_config()
+    params = mind.init_params(cfg, torch.Generator().manual_seed(0))
+    ocfg = optimizer.AdamWConfig(master_weights=False)
+    _, _, m = loop.make_mind_train_step(cfg, ocfg)(
+        params, optimizer.adamw_init(params, ocfg),
+        RecsysStream(cfg.n_items, cfg.hist_len).batch(0, 8))
+    losses["mind"] = bool(torch.isfinite(m["loss"]))
+    train.main(["--arch", "granite-moe-3b-a800m", "--steps", "2",
+                "--device", "cpu", "--ckpt-dir", tmp + "/launch"])
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "launches": ops.LAUNCHES.flash_attention,
+                  "ok": losses}))
+"""
+
+
+def test_training_imports_no_jax_and_no_reference():
+    """Train steps of a MoE and a dense LM (microbatches, the restartable
+    loop, checkpoints) and of MIND, and the training launcher, load
+    neither jax nor the reference package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _TRAIN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["launches"] == 0
+    assert res["ok"] == {"deepseek-moe-16b": True, "granite-34b": True,
+                         "mind": True}
 
 
 _SERVING_PROBE = """

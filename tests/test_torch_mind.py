@@ -24,6 +24,7 @@ from repro.models.recsys import mind as jmind
 from repro_torch import configs, convert
 from repro_torch.data.synthetic import RecsysStream
 from repro_torch.models.recsys import mind as tmind
+from release_xla import release_compiled  # noqa: F401
 
 RTOL, ATOL_OF_SCALE = 1e-5, 1e-5
 

@@ -43,6 +43,7 @@ from repro_torch.obs.trace import (TRACE_COLUMNS, TRACE_COUNTER_COLUMNS,
                                    TRACE_F32_COLUMNS, TRACE_I32_COLUMNS)
 from test_torch_alt_p2p import lm_arrays
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 PHYSICAL = ("n_tiles_scanned", "n_tiles_dense", "n_invocations")
 # the columns both packages fill alike on every path

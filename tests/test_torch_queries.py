@@ -21,6 +21,7 @@ from repro_torch.core.landmarks import LandmarkSet
 from repro_torch.core.sssp import sssp
 from repro_torch.serve import queries as pq
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 
 @functools.lru_cache(maxsize=None)

@@ -28,6 +28,7 @@ from repro_torch.serve.registry import (GraphEngine, GraphRegistry,
                                         ShardedGraphEngine,
                                         estimate_eccentricity)
 from torch_serve_common import CPU, gloo_one, graph, port, same_batch
+from release_xla import release_compiled  # noqa: F401
 
 BLOCKED = dict(block_v=64, tile_e=64)
 

@@ -22,6 +22,7 @@ from repro_torch.api import ConfigError, EngineConfig, SolveSpec, Solver
 from repro_torch.core.sssp import sssp
 from repro_torch.delta import EdgeDelta
 from torch_serve_common import CPU, LOGICAL_KEYS, graph, port
+from release_xla import release_compiled  # noqa: F401
 
 SIDE = 12
 

@@ -26,6 +26,7 @@ from repro_torch.serve.registry import GraphRegistry
 from repro_torch.serve.router import QueryRouter
 from repro_torch.serve.scheduler import QueueFull
 from torch_serve_common import cpus, gloo_one, graph, port, same_answer
+from release_xla import release_compiled  # noqa: F401
 
 SIDE = 12
 

@@ -24,6 +24,7 @@ from repro_torch.serve.registry import GraphRegistry
 from repro_torch.serve.scheduler import (DeadlineExceeded, QueryScheduler,
                                          QueueFull)
 from torch_serve_common import gloo_one, graph, port, same_answer
+from release_xla import release_compiled  # noqa: F401
 
 SIDE = 12
 

@@ -17,6 +17,7 @@ from repro.serve.engine import Request as JRequest, ServeEngine as JEngine
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
+from release_xla import release_compiled  # noqa: F401
 
 
 def _configs(window=0):

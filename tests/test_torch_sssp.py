@@ -24,6 +24,7 @@ from repro_torch.core.graph import default_geometry
 from repro_torch.core.sssp import (LOGICAL_METRIC_FIELDS, metrics_dict,
                                    normalized_metrics, prepare_layout, sssp)
 from test_torch_graph import ref_arrays
+from release_xla import release_compiled  # noqa: F401
 
 BLOCKED = dict(block_v=128, tile_e=128)
 

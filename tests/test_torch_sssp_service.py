@@ -23,6 +23,7 @@ from repro_torch.delta import EdgeDelta
 from repro_torch.obs import parse_prometheus
 from repro_torch.serve.sssp_service import SsspRequest, SsspService
 from torch_serve_common import CPU, LOGICAL_KEYS, cpus, graph, port
+from release_xla import release_compiled  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

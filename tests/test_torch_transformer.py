@@ -30,6 +30,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import qwen3_0_6b, qwen3_0_6b_swa
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.models import transformer as T
+from release_xla import release_compiled  # noqa: F401
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 F32_LONG = dict(rtol=1e-4, atol=5e-5)
@@ -241,14 +242,6 @@ def test_plain_attention_paths_match_reference():
     want = JT._sdpa_blockwise(jcfg, *J(q[:, :1], k, v, pos[:, None], tp),
                               True)
     _close(got, want, F32)
-
-
-def test_moe_is_not_ported_yet():
-    cfg = T.LMConfig(name="m", n_layers=1, d_model=16, n_heads=2, n_kv=1,
-                     d_ff=16, vocab=8, moe=True, n_experts=4, top_k=2,
-                     dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(cfg, torch.Generator().manual_seed(0))
 
 
 def test_attn_choice_is_explicit():

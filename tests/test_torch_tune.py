@@ -40,6 +40,7 @@ from repro_torch.tune import (TUNED_FIELDS, TunedStore, graph_fingerprint,
                               objective_from_counters, trace_objective, tune)
 from repro_torch.tune import search as tsearch
 from torch_serve_common import gloo_one, graph
+from release_xla import release_compiled  # noqa: F401
 
 CFG_FIELDS = TUNED_FIELDS + ("tier", "backend", "max_batch", "use_alt")
 

@@ -300,6 +300,30 @@ Phases, in order; any failure exits non-zero:
    full-width qwen3 preempted by SIGTERM to itself in step 2 and resumed
    to step 4 in a temporary directory, against a straight run (within
    2·lr per step; whether bitwise is printed).
+4d. GNN training (:func:`gnn_phase`, ``[gnn]`` and ``[anchors]`` lines),
+   in float32 with TF32 off: GIN (5 x 64), GatedGCN (16 x 70), PNA (4 x
+   75) and DimeNet (6 blocks x 128, 8 bilinear, 7 spherical, 6 radial)
+   at full width as the reference's ``launch/cells.py::_gnn_cell``
+   builds them, on ``full_graph_sm`` (``gnn_node_classification``: 2,708
+   nodes, 21,112 directed edges, 1,433 features, 7 classes, positions,
+   168,896 triplet slots at cap 8; cross entropy, remat) and on
+   ``molecule`` (``molecule_batch`` flattened and symmetrised: 128
+   graphs, 3,840 nodes, 16,384 directed edges, 16 seeded features,
+   131,072 triplet slots; the regression step), AdamW without master
+   weights, 4 steps each (ms/step after the first, peak memory, losses
+   finite), the first step held against the same step on the CPU (loss
+   at rtol 1e-5, parameters within 2·lr; PNA on ``molecule``, whose
+   isolated nodes overflow its loss on both, reference fault 5: the
+   same non-finite loss and NaN in the same leaves), DimeNet's geometry
+   and bases on the card bitwise the CPU's.  Then the reference
+   example's anchor features on phase 3's kronecker(20,16) (kept on the
+   host): 8 seeded anchors solved as one batched ``SolveSpec.tree`` on
+   ``blocked`` (``edge_relax_batch`` launched, counted from zero just
+   before; every slot bitwise its single ``sssp`` solve), features
+   ``exp(-d)``, the nearest anchor as label, and gin-tu at full width
+   (remat) trained for 60 AdamW steps over the 33,554,432 directed
+   edges (ms/step, peak memory, final accuracy); the batched solve's
+   launches join row 1 batch's in the ``kernels`` line.
 5. The recsys serving path (MIND at its published size: a 10^7 x 64
    float32 item table drawn on the card from a ``torch.Generator`` seeded
    with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
@@ -4837,6 +4861,305 @@ def training_phase(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: the GNN models trained at full width, and the anchor features
+# ---------------------------------------------------------------------------
+
+GNN_ARCHS = ("gin-tu", "gatedgcn", "pna", "dimenet")
+GNN_SHAPES = ("full_graph_sm", "molecule")
+GNN_STEPS = 4                    # one warm-up step, then the timed ones
+GNN_SEED = 0
+ANCHORS = dict(k=8, seed=0, steps=60, lr=5e-3, warmup=5)
+
+
+def gnn_cell_batch(shape: str, seed: int = GNN_SEED):
+    """``(arrays, n_graphs, graph_level)`` of a GNN cell, shaped as the
+    reference's ``launch/cells.py::_gnn_cell`` counts it: ``full_graph_sm``
+    is ``gnn_node_classification`` (symmetrised, with positions);
+    ``molecule`` is ``molecule_batch`` flattened with node offsets and
+    symmetrised, with seeded normal features and regression targets.
+    Both carry ``build_triplets`` slots at the shape's cap (DimeNet's)."""
+    from repro_torch.configs.gnn_common import SHAPES
+    from repro_torch.data.generators import molecule_batch
+    from repro_torch.data.synthetic import gnn_node_classification
+    from repro_torch.data.triplets import build_triplets
+    sh = SHAPES[shape]
+    if sh["kind"] == "train":
+        arrays = gnn_node_classification(sh["n_nodes"], sh["n_edges"],
+                                         sh["d_feat"], sh["n_classes"],
+                                         seed=seed, with_pos=True)
+        arrays["graph_ids"] = np.zeros(sh["n_nodes"], np.int32)
+        n_graphs = 1
+    else:
+        n, b = sh["n_nodes"], sh["batch"]
+        mb = molecule_batch(n, sh["n_edges"], b, seed=seed)
+        off = (np.arange(b, dtype=np.int32) * n)[:, None]
+        snd = (mb["senders"] + off).ravel()
+        rcv = (mb["receivers"] + off).ravel()
+        rng = np.random.default_rng(seed + 1)
+        arrays = dict(
+            node_feat=rng.normal(0, 1, (n * b, sh["d_feat"])).astype(
+                np.float32),
+            senders=np.concatenate([snd, rcv]),
+            receivers=np.concatenate([rcv, snd]),
+            pos=mb["pos"].reshape(-1, 3),
+            graph_ids=np.repeat(np.arange(b, dtype=np.int32), n),
+            labels=rng.normal(0, 1, b).astype(np.float32))
+        n_graphs = b
+    kj, ji, mk = build_triplets(arrays["senders"], arrays["receivers"],
+                                sh["triplet_cap"], seed=seed)
+    arrays.update(triplet_kj=kj, triplet_ji=ji, triplet_mask=mk)
+    return arrays, n_graphs, sh["kind"] == "train_graphs"
+
+
+def gnn_model(arch: str, shape: str, graph_level: bool):
+    """The module, the config at full width as ``_gnn_cell`` builds it
+    (``remat`` but on the molecule shape, f32) and the train step
+    (AdamW without master weights; cross entropy, or the regression step
+    at graph level)."""
+    from repro_torch.configs import get
+    from repro_torch.configs.gnn_common import SHAPES
+    from repro_torch.train import loop, optimizer as opt
+    conf = get(arch)
+    mod = importlib.import_module(f"repro_torch.models.gnn.{conf.MODEL}")
+    sh = SHAPES[shape]
+    kw = dict(remat=sh["kind"] != "train_graphs")
+    if conf.MODEL == "dimenet":
+        kw["triplet_chunks"] = sh.get("dimenet_chunks", 1)
+    cfg = conf.make_config(d_in=sh["d_feat"], n_classes=sh["n_classes"],
+                           graph_level=graph_level, **kw)
+    ocfg = opt.AdamWConfig(master_weights=False)
+    if graph_level:
+        step = loop.make_gnn_regression_step(mod.forward, cfg, ocfg)
+    else:
+        step = loop.make_gnn_train_step(mod.forward, cfg, ocfg)
+    return mod, cfg, ocfg, step
+
+
+def same_step(card, cpu, what):
+    """One step's card result against the CPU's from the same weights and
+    batch: the loss at rtol 1e-5 and every parameter within 2·lr, or,
+    where the CPU's loss is not finite (PNA at the molecule shape,
+    reference fault 5), the same non-finite loss and NaN in the same
+    leaves, the rest within 2·lr."""
+    (p, m), (pc, mc) = card, cpu
+    loss, loss_cpu = float(m["loss"]), float(mc["loss"])
+    budget = 2 * float(mc["lr"])
+    gap, nan_same = 0.0, True
+    for a, b in zip(_leaves(p), _leaves(pc)):
+        a = a.cpu()
+        na, nb = torch.isnan(a), torch.isnan(b)
+        nan_same &= bool(torch.equal(na, nb))
+        keep = ~(na | nb)
+        if bool(keep.any()):
+            gap = max(gap, float((a[keep] - b[keep]).abs().max()))
+    row = dict(loss=loss, loss_cpu=loss_cpu, max_param_gap=gap,
+               param_budget=budget, nan_leaves_same=nan_same,
+               fault5=not np.isfinite(loss_cpu))
+    if np.isfinite(loss_cpu):
+        ok = abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu) and gap <= budget
+    else:
+        ok = (not np.isfinite(loss) and nan_same and gap <= budget)
+    if not ok:
+        raise AssertionError(f"{what}: the card's step differs from the "
+                             f"CPU's: {row}")
+    return row
+
+
+def dimenet_basis_card_vs_cpu(gb, cfg, device, what):
+    """DimeNet's geometry and bases on the card bitwise the CPU's, on the
+    cell's positions and triplets."""
+    from repro_torch.models.gnn import dimenet
+    out = {}
+    for where in ("card", "cpu"):
+        b = gb.to(device if where == "card" else "cpu")
+        vec, dist = dimenet.edge_geometry(b.pos, b.senders, b.receivers)
+        cos_t = dimenet.triplet_cos(b.pos, vec, b.senders, b.receivers,
+                                    b.triplet_kj, b.triplet_ji)
+        out[where] = [t.cpu() for t in (
+            dist, cos_t, dimenet.rbf_basis(cfg, dist),
+            dimenet.sbf_basis(cfg, dist[b.triplet_kj], cos_t))]
+    names = ("dist", "cos", "rbf", "sbf")
+    differ = {n: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+              for n, a, b in zip(names, out["card"], out["cpu"])}
+    row = dict(elements={n: a.numel() for n, a in zip(names, out["cpu"])},
+               differ=differ, sbf_max_abs=float(out["cpu"][3].abs().max()),
+               min_dist=float(out["cpu"][0].min()))
+    log(f"[gnn] {what} DimeNet basis card vs CPU: " + json.dumps(row))
+    if any(differ.values()):
+        raise AssertionError(f"{what}: DimeNet's basis on the card is not "
+                             f"the CPU's bit for bit: {differ}")
+    return row
+
+
+def gnn_cell(arch, shape, arrays, n_graphs, graph_level, device):
+    """One cell: the model at full width trained for ``GNN_STEPS`` steps
+    on the card (the first a warm-up), its first step against the same
+    step on the CPU; ms/step (the median of the others: the phase's
+    first cell still warms the context up in its second step), peak
+    memory, losses."""
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.tree import tree_map
+    mod, cfg, ocfg, step = gnn_model(arch, shape, graph_level)
+    gb = GraphBatch(edge_feat=None, n_graphs=n_graphs,
+                    **{k: torch.from_numpy(v) for k, v in arrays.items()})
+    card_gb = gb.to(device)
+    torch.cuda.reset_peak_memory_stats()
+    params = mod.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(GNN_SEED))
+    n_params = sum(t.numel() for t in _leaves(params))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    state = (params, opt.adamw_init(params, ocfg))
+    del params
+    params1 = None
+    secs, metrics = [], []
+    for i in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, m = step(*state, card_gb)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            params1 = tree_map(lambda t: t.cpu(), p)
+        state = (p, o)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    pc, _, mc = step(cpu, opt.adamw_init(cpu, ocfg), gb)
+    cpu_s = time.perf_counter() - t0
+    vs = same_step((params1, metrics[0]), (pc, mc), f"{arch} {shape}")
+    losses = [m["loss"] for m in metrics]
+    if not vs["fault5"] and not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch} {shape}: non-finite losses {losses}")
+    out = dict(arch=arch, shape=shape, params=n_params,
+               nodes=int(arrays["node_feat"].shape[0]),
+               edges=int(arrays["senders"].shape[0]),
+               triplet_slots=int(arrays["triplet_kj"].shape[0]),
+               remat=cfg.remat, step_s=secs,
+               ms_per_step=float(np.median(secs[1:])) * 1e3, peak_bytes=peak,
+               losses=losses, grad_norms=[m["grad_norm"] for m in metrics],
+               cpu_step_s=cpu_s, card_vs_cpu=vs)
+    if arch == "dimenet":
+        out["basis"] = dimenet_basis_card_vs_cpu(gb, cfg, device,
+                                                 f"{arch} {shape}")
+    log(f"[gnn] {arch} {shape}: {out['ms_per_step']!r} ms/step (median "
+        f"after the first, {secs[0] * 1e3!r} ms), peak {peak / 1e9!r} GB, "
+        f"{n_params} parameters, losses {losses}; the CPU's step "
+        f"{cpu_s:.2f} s; card vs CPU " + json.dumps(vs))
+    del state, card_gb
+    return out
+
+
+def anchor_training(kron, device):
+    """The reference example's flow (``examples/gnn_sssp_features.py``) on
+    phase 3's kronecker(20,16): 8 seeded anchors solved as one batched
+    ``SolveSpec.tree`` on ``blocked`` (``edge_relax_batch``: counted from
+    zero just before and read just after; each slot bitwise its single
+    ``sssp`` solve), features ``exp(-d)``, the nearest anchor as label,
+    and gin-tu at full width (5 x 64, remat) for 60 AdamW steps (the
+    example's 3 x 32 widened).  Returns the numbers and the batch
+    kernel's launches."""
+    from repro_torch.api import EngineConfig
+    from repro_torch.configs import get
+    from repro_torch.core.graph import build_blocked
+    from repro_torch.core.sssp import sssp
+    from repro_torch.kernels.edge_relax.ops import LAUNCHES
+    from repro_torch.models.gnn import gin
+    from repro_torch.models.gnn.anchors import anchor_distance_features
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.train import loop, optimizer as opt
+    t0 = time.perf_counter()
+    dg = kron.to_device(device)
+    bg = build_blocked(dg)
+    sync(device)
+    layout_s = time.perf_counter() - t0
+    LAUNCHES.reset()
+    sync(device)
+    t0 = time.perf_counter()
+    feats, anchors = anchor_distance_features(
+        dg, ANCHORS["k"], ANCHORS["seed"],
+        config=EngineConfig(backend="blocked"), layout=bg, device=device)
+    sync(device)
+    solve_s = time.perf_counter() - t0
+    launches = LAUNCHES.edge_relax_batch
+    if not launches or LAUNCHES.edge_relax:
+        raise AssertionError(f"the anchors' batched solve launched "
+                             f"edge_relax_batch {launches} and edge_relax "
+                             f"{LAUNCHES.edge_relax} times")
+    want = torch.stack([sssp(dg, int(a), backend="blocked", layout=bg,
+                             device=device)[0] for a in anchors])
+    want = torch.where(torch.isfinite(want), torch.exp(-want), 0.0).T
+    if not torch.equal(feats, want):
+        raise AssertionError("the anchors' batched distances are not the "
+                             "single solves'")
+    labels = feats.argmax(1).to(torch.int32)
+    gb = GraphBatch(node_feat=feats,
+                    senders=torch.from_numpy(kron.src).to(device),
+                    receivers=torch.from_numpy(kron.dst).to(device),
+                    edge_feat=None,
+                    graph_ids=torch.zeros(kron.n, dtype=torch.int32,
+                                          device=device), labels=labels)
+    cfg = get("gin-tu").make_config(d_in=ANCHORS["k"],
+                                    n_classes=ANCHORS["k"], remat=True)
+    ocfg = opt.AdamWConfig(lr=ANCHORS["lr"], warmup_steps=ANCHORS["warmup"],
+                           total_steps=ANCHORS["steps"],
+                           master_weights=False)
+    torch.cuda.reset_peak_memory_stats()
+    params = gin.init_params(cfg, torch.Generator(device=device)
+                             .manual_seed(0))
+    state = (params, opt.adamw_init(params, ocfg))
+    del params
+    state, secs, metrics = timed_steps(
+        loop.make_gnn_train_step(gin.forward, cfg, ocfg), state,
+        [gb] * ANCHORS["steps"], "anchor GIN")
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        acc = float((gin.forward(cfg, state[0], gb).argmax(-1) == labels)
+                    .float().mean())
+    out = dict(anchors=[int(a) for a in anchors], layout_s=layout_s,
+               solve_s=solve_s,
+               batch_launches=launches, nodes=kron.n, edges=kron.m,
+               label_share=torch.bincount(labels.long(), minlength=8)
+               .div(kron.n).tolist(),
+               steps=ANCHORS["steps"], first_step_ms=secs[0] * 1e3,
+               ms_per_step=float(np.mean(secs[1:])) * 1e3, peak_bytes=peak,
+               losses=[m["loss"] for m in metrics[::10]] +
+               [metrics[-1]["loss"]],
+               accuracy=acc)
+    log("[anchors] kronecker(20,16), 8 anchors on blocked, gin-tu 5 x 64: "
+        + json.dumps(out))
+    del state, gb, feats, dg, bg
+    return out
+
+
+def gnn_phase(kron, device):
+    """Phase 4d: each GNN at full width on ``full_graph_sm`` and
+    ``molecule`` (:func:`gnn_cell`), in float32 with TF32 off, then the
+    anchor features on kronecker(20,16) (:func:`anchor_training`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    release_card("phase 4d")
+    cells = []
+    for shape in GNN_SHAPES:
+        t0 = time.perf_counter()
+        arrays, n_graphs, graph_level = gnn_cell_batch(shape)
+        log(f"[gnn] {shape}: {arrays['node_feat'].shape[0]} nodes, "
+            f"{arrays['senders'].shape[0]} directed edges, "
+            f"{int(arrays['triplet_mask'].sum())} of "
+            f"{arrays['triplet_kj'].shape[0]} triplet slots, data in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for arch in GNN_ARCHS:
+            cells.append(gnn_cell(arch, shape, arrays, n_graphs, graph_level,
+                                  device))
+        mark(f"phase 4d {shape}")
+    release_card("before the anchor features")
+    anchors = anchor_training(kron, device)
+    mark("phase 4d anchor features")
+    release_card("after phase 4d")
+    return dict(cells=cells, anchors=anchors)
+
+
+# ---------------------------------------------------------------------------
 # the recsys serving path (embedding_bag)
 # ---------------------------------------------------------------------------
 
@@ -5481,6 +5804,7 @@ def main() -> int:
             kernels, solves = report(graphs, device)
         finally:
             tdist.destroy_process_group()
+    kron = graphs[0][1]           # kept on the host for phase 4d
     del graphs
 
     lm = lm_phases(device)
@@ -5489,6 +5813,12 @@ def main() -> int:
     mark("phase 4b (four LMs served)")
     training = training_phase(device)
     mark("phase 4c (training)")
+    gnn = gnn_phase(kron, device)
+    mark("phase 4d (GNN training)")
+    del kron
+    batch_row = next(r for r in kernels if r["name"] == "edge_relax_batch")
+    batch_row["launches_gnn_anchors"] = gnn["anchors"]["batch_launches"]
+    batch_row["launches"] += gnn["anchors"]["batch_launches"]
     served = lm_configs["served"]
     row = lm["kernel"]
     row["launches_qwen3"] = row["launches"]
@@ -5519,6 +5849,7 @@ def main() -> int:
         "served": {a: {k: v for k, v in m.items() if k != "tokens"}
                    for a, m in served.items()},
         "moe": lm_configs["moe"]}, "training": training}))
+    log(json.dumps({"gnn": gnn}))
     log(json.dumps({"recsys": {"layer": recsys["layer"],
                                "mind": recsys["serving"]}}))
     print(card, flush=True)

@@ -5,8 +5,10 @@ Every ported module exposes ``FAMILY``, ``make_config(**kw)`` (the full
 configuration), ``SHAPES`` and ``smoke_config()`` (a reduced config of the
 same family for CPU tests), and, as the reference's, ``MICROBATCHES``
 (gradient-accumulation steps by train shape) and, for the MoE LMs,
-``PREFILL_CHUNKS``.  Ported: the five LMs, qwen3-0.6b-swa and MIND;
-:func:`get` raises for the GNN architectures.
+``PREFILL_CHUNKS``; the GNN modules also ``MODEL`` (the module of
+``repro_torch.models.gnn`` that runs it).  Every architecture is
+ported: the five LMs, qwen3-0.6b-swa, the four GNNs and MIND; :func:`get`
+raises for an unknown name.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ ARCHS = [
 
 BONUS_ARCHS = ["qwen3-0.6b-swa"]  # sub-quadratic variant for long_500k
 
-PORTED = ("deepseek-moe-16b", "granite-moe-3b-a800m", "qwen3-0.6b",
-          "phi4-mini-3.8b", "granite-34b", "qwen3-0.6b-swa", "mind")
+PORTED = tuple(ARCHS + BONUS_ARCHS)
 
 
 def _modname(arch: str) -> str:
@@ -40,9 +41,6 @@ def _modname(arch: str) -> str:
 
 def get(arch: str):
     if arch not in PORTED:
-        known = arch in ARCHS or arch in BONUS_ARCHS
-        raise NotImplementedError(
-            f"architecture {arch!r} is " + (
-                "not ported yet (ROADMAP.md, queue 1 item 12); ported: "
-                if known else "unknown; ported: ") + ", ".join(PORTED))
+        raise NotImplementedError(f"architecture {arch!r} is unknown; "
+                                  "ported: " + ", ".join(PORTED))
     return importlib.import_module(_modname(arch))

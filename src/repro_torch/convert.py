@@ -33,7 +33,9 @@ parameter pytree, flattened by the caller into ``{"embed": ...,
 "ln_f": ..., "layers/wq": ..., ...}`` numpy arrays (bf16 leaves as their
 exact float32 values: the port needs no ``ml_dtypes``), and
 :func:`mind_params_from_reference` for MIND's ``{"item_embed": ...,
-"s_map": ...}``.
+"s_map": ...}``, and :func:`gnn_params_from_reference` for the four GNN
+models' trees (``/``-joined paths, list positions as numbers:
+``layers/A``, ``head/w/0``, ``blocks/bilinear``).
 """
 from __future__ import annotations
 
@@ -201,3 +203,31 @@ def mind_params_from_reference(arrays: dict, device) -> dict:
                          f"{sorted(arrays)}")
     return {k: torch.from_numpy(np.array(a, np.float32)).to(
         torch.device(device)) for k, a in arrays.items()}
+
+
+def gnn_params_from_reference(arrays: dict, device) -> dict:
+    """The port's parameter tree of a GNN model (:mod:`repro_torch.models.
+    gnn`: GIN, GatedGCN, PNA, DimeNet) from the reference's
+    ``init_params`` pytree flattened into ``/``-joined paths, a list
+    position written as its number (``layer0/mlp/w/1``, ``layers/eps``,
+    ``head/b/0``, ``blocks/out_mlp/w/0``), float32 on ``device``.  The
+    stacked per-layer leaves keep their leading layer axis."""
+    dev = torch.device(device)
+    tree: dict = {}
+    for key, a in arrays.items():
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if all(k.isdigit() for k in node):
+            if sorted(map(int, node)) != list(range(len(node))):
+                raise ValueError(f"list positions {sorted(node)} have gaps")
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(tree)

@@ -1,4 +1,5 @@
-"""float32 ``exp``, ``log`` and ``log1p`` that round like the reference.
+"""float32 ``exp``, ``log``, ``log1p``, ``sin`` and ``cos`` that round like
+the reference.
 
 The stepping heuristic quantises ``ratio`` (Eq. 2, an ``exp``/``log1p``
 expression) onto the 4096-entry weight LUT, and the degree histogram
@@ -15,6 +16,18 @@ remaining multiplies and adds are plain float32 ops.  The results are
 the same bits on any device, except where that double rounding of a
 sum meets a tie at both widths, which a true fused multiply-add would
 round once (no such input has been seen).
+
+:func:`sqrt` is the correctly rounded float32 square root on every
+device: torch's float32 ``sqrt`` need not be, and a CPU build and the
+card have given DimeNet edge lengths an ulp apart.
+
+DimeNet's radial and spherical bases (``models/gnn/dimenet.py``) take
+``sin`` and ``cos`` of float32 arguments, and its spherical Bessel
+recurrence turns a one-ulp difference into a large one where the
+argument is short.  XLA:CPU calls the C library's ``sinf``/``cosf``
+(glibc's, from its float32 code for ``|x| < 120``); :func:`sinf` and
+:func:`cosf` evaluate that code's float64 steps with plain float64 adds
+and multiplies, which give the same bits on any device.
 """
 from __future__ import annotations
 
@@ -108,3 +121,82 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
         p = fma(p, x, c)
     small = x + fma(x2, -0.5, (x * x2) * (p / q))
     return torch.where(x.abs() < _LOG1P_SMALL, small, log(x + 1.0))
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sqrt``, correctly rounded (IEEE) on any device: the
+    float64 root rounded to float32, then moved by one ulp where the
+    square of a rounding midpoint (exact in float64) shows it on the
+    wrong side."""
+    return _nearest_root(x, torch.sqrt(x.double()).float())
+
+
+def _nearest_root(x, y):
+    """The float32 root of ``x`` nearest to the true one, from a candidate
+    ``y`` at most one ulp away."""
+    inf = torch.full_like(y, float("inf"))
+    down, up = torch.nextafter(y, -inf), torch.nextafter(y, inf)
+    xd, yd = x.double(), y.double()
+    lo, hi = (yd + down.double()) * 0.5, (yd + up.double()) * 0.5
+    fix = (x > 0) & torch.isfinite(x)
+    y = torch.where(fix & (xd < lo * lo), down, y)
+    return torch.where(fix & (xd > hi * hi), up, y)
+
+
+# glibc's float32 sin/cos (sysdeps/ieee754/flt-32: reduce_fast, sinf_poly
+# and __sincosf_table) for |x| < 120: 2/pi scaled by 2^24, pi/2, the cos
+# polynomial c0..c4 and the sin polynomial s1..s3, all float64
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_COS_P = tuple(float.fromhex(h) for h in (
+    "0x1p0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SIN_P = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+SINCOS_LIMIT = 120.0        # glibc changes its reduction at |x| >= 120
+
+
+def _sincos_poly(x, x2, odd, neg_cos):
+    """glibc's ``sinf_poly``: the sin polynomial where ``odd`` is false,
+    the cos polynomial (negated where ``neg_cos``) where it is true."""
+    x3 = x * x2
+    s = (x + x3 * _SIN_P[0]) + (x3 * x2) * (_SIN_P[1] + x2 * _SIN_P[2])
+    sign = torch.where(neg_cos, -1.0, 1.0).double()
+    c = [sign * k for k in _COS_P]
+    x4 = x2 * x2
+    cos = ((c[0] + x2 * c[1]) + x4 * c[2]) + (x4 * x2) * (c[3] + x2 * c[4])
+    return torch.where(odd, cos, s)
+
+
+def _sincos(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    if bool((y.abs() >= SINCOS_LIMIT).any()):
+        raise ValueError(f"f32math.sinf/cosf cover |x| < {SINCOS_LIMIT}")
+    a = y.abs()
+    x = y.double()
+    # reduce_fast: the quadrant n in bits 24..31 of x * 2/pi * 2^24
+    n = ((x * _HPI_INV).to(torch.int32) + 0x800000) >> 24
+    r = x - n.double() * _HPI
+    sign = torch.where((n & 3 == 1) | (n & 3 == 2), -1.0, 1.0).double()
+    quad = (n ^ 1) if cos else n
+    reduced = _sincos_poly(r * sign, r * r, (quad & 1) == 1, (n & 2) == 2)
+    near = _sincos_poly(x, x * x,
+                        torch.full_like(n, int(cos), dtype=torch.bool),
+                        torch.zeros_like(n, dtype=torch.bool))
+    out = torch.where(a < 0.75, near, reduced).float()
+    tiny = torch.ones_like(y) if cos else y
+    return torch.where(a < 2.0 ** -12, tiny, out)
+
+
+def sinf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``sin``, glibc's ``sinf`` bit for bit (``|x| < 120``; raises
+    beyond, where glibc reduces another way).  Without a reduction for
+    ``|x| < 0.75`` (glibc's test on the top 12 bits against pi/4), ``x``
+    itself for ``|x| < 2^-12``."""
+    return _sincos(x, cos=False)
+
+
+def cosf(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``cos``, glibc's ``cosf`` bit for bit (``|x| < 120``; raises
+    beyond); 1 for ``|x| < 2^-12``."""
+    return _sincos(x, cos=True)

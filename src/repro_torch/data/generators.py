@@ -5,8 +5,9 @@
 * :func:`uniform_random` — Urand-style Erdős–Rényi with fixed edge count.
 * :func:`road_grid`  — 2D lattice with local weights (Road-like: huge
   diameter, degree <= 4).
+* :func:`molecule_batch` — batched small graphs (GNN `molecule` shape).
 
-Each generator draws an undirected edge list from a numpy seed and
+Each graph generator draws an undirected edge list from a numpy seed and
 builds it with :func:`repro_torch.core.graph.build_csr`, so the same seed
 gives the same arrays as the reference package.
 """
@@ -94,6 +95,26 @@ def road_grid(side: int, seed: int = 0, diag: bool = False) -> HostGraph:
     v = np.concatenate(ev)
     w = rng.uniform(0.1, 1.0, u.shape[0])  # road weights: narrow band
     return build_csr(side * side, u, v, w)
+
+
+def molecule_batch(n_nodes: int = 30, n_edges: int = 64, batch: int = 128,
+                   seed: int = 0):
+    """Batched random small graphs: ``senders``/``receivers`` ``[batch,
+    n_edges]`` int32 (no self loops), 3D ``pos`` ``[batch, n_nodes, 3]``
+    float32 for geometric models (DimeNet) and an all-true ``node_mask``;
+    the reference's arrays for the same seed."""
+    rng = np.random.default_rng(seed)
+    senders = rng.integers(0, n_nodes, (batch, n_edges))
+    receivers = rng.integers(0, n_nodes, (batch, n_edges))
+    fix = senders == receivers
+    receivers = np.where(fix, (receivers + 1) % n_nodes, receivers)
+    pos = rng.normal(0, 1, (batch, n_nodes, 3)).astype(np.float32)
+    return {
+        "senders": senders.astype(np.int32),
+        "receivers": receivers.astype(np.int32),
+        "pos": pos,
+        "node_mask": np.ones((batch, n_nodes), bool),
+    }
 
 
 def _gen_weights(rng, m, kind: str):

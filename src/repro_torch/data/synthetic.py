@@ -1,10 +1,11 @@
-"""Synthetic LM and recsys traffic, the port's copy of the reference's
-``repro.data.synthetic.LMTokenStream`` and ``RecsysStream``.
+"""Synthetic LM, recsys and GNN data, the port's copy of the reference's
+``repro.data.synthetic`` (``LMTokenStream``, ``RecsysStream``,
+``gnn_node_classification``).
 
 Deterministic (seeded) numpy batches with a step -> sample-offset mapping
 (so a restarted job fast-forwards byte-identically, which
 ``train/failure.py`` relies on), byte-identical to the reference's for
-the same arguments.  The GNN streams come with their slice.
+the same arguments.
 """
 from __future__ import annotations
 
@@ -51,3 +52,29 @@ class RecsysStream:
             "hist_mask": mask,
             "target": target.astype(np.int32),
         }
+
+
+def gnn_node_classification(n_nodes: int, n_edges: int, d_feat: int,
+                            n_classes: int = 16, seed: int = 0,
+                            with_pos: bool = False):
+    """A random graph for full-batch node classification: ``n_edges``
+    uniform edges (a self loop moved to the next vertex), symmetrised
+    into ``2 * n_edges`` int32 ``senders``/``receivers``; normal float32
+    ``node_feat`` ``[n_nodes, d_feat]``, uniform int32 ``labels`` and,
+    with ``with_pos``, normal float32 ``pos`` ``[n_nodes, 3]``."""
+    rng = np.random.default_rng(seed)
+    snd = rng.integers(0, n_nodes, n_edges)
+    rcv = rng.integers(0, n_nodes, n_edges)
+    fix = snd == rcv
+    rcv = np.where(fix, (rcv + 1) % n_nodes, rcv)
+    senders = np.concatenate([snd, rcv]).astype(np.int32)
+    receivers = np.concatenate([rcv, snd]).astype(np.int32)
+    out = {
+        "node_feat": rng.normal(0, 1, (n_nodes, d_feat)).astype(np.float32),
+        "senders": senders,
+        "receivers": receivers,
+        "labels": rng.integers(0, n_classes, n_nodes).astype(np.int32),
+    }
+    if with_pos:
+        out["pos"] = rng.normal(0, 1, (n_nodes, 3)).astype(np.float32)
+    return out

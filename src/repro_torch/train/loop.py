@@ -1,16 +1,15 @@
 """Train-step builders with microbatch accumulation, the port's copy of
-``repro.train.loop`` for the LM and MIND families.
+``repro.train.loop`` for the LM, GNN and MIND families.
 
 ``make_*_train_step`` returns ``step(params, opt_state, batch) ->
 (params, opt_state, metrics)``, functional as the reference's jitted
 step: gradients by ``torch.autograd`` on detached copies of the
-parameter leaves, then the optimizer.  The batch (tensors or numpy
-arrays) is moved to the parameters' device.  Accumulation over
-microbatches is a Python loop (one microbatch's activations live at a
-time), the reference's ``lax.scan``.  The reference's sharding hook
-``act_spec`` has no counterpart on one card.  The GNN steps
-(``make_gnn_train_step``, ``make_gnn_regression_step``) come with the
-GNN models (ROADMAP.md, queue 1 item 12).
+parameter leaves, then the optimizer.  The batch (a dict of tensors or
+numpy arrays, or a GNN ``GraphBatch``) is moved to the parameters'
+device.  Accumulation over microbatches is a Python loop (one
+microbatch's activations live at a time), the reference's ``lax.scan``.
+The reference's sharding hook ``act_spec`` has no counterpart on one
+card.
 """
 from __future__ import annotations
 
@@ -18,12 +17,15 @@ import numpy as np
 import torch
 
 from ..models import transformer
+from ..models.gnn import common as gnn_common
 from ..models.recsys import mind as mind_mod
 from . import optimizer as opt_mod
 from .tree import leaves, tree_map, unflatten
 
 
-def _on_device(batch: dict, device) -> dict:
+def _on_device(batch, device):
+    if isinstance(batch, gnn_common.GraphBatch):
+        return batch.to(device)
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(
         v, torch.Tensor) else v, device=device) for k, v in batch.items()}
 
@@ -89,6 +91,31 @@ def make_lm_train_step(cfg: transformer.LMConfig,
     ``{"tokens": [B, S], "mask": [B, S] (optional)}`` batches."""
     return _step(lambda p, b: transformer.loss_fn(cfg, p, b), opt_cfg,
                  microbatches)
+
+
+def make_gnn_train_step(forward, cfg, opt_cfg, graph_level: bool = False,
+                        microbatches: int = 1):
+    """AdamW on ``forward(cfg, params, gb) -> logits`` with cross entropy
+    on ``gb.labels`` (node or graph level alike, as the reference's two
+    branches).  ``microbatches`` is accepted and unused, as in the
+    reference: a graph batch is one full batch."""
+    del graph_level, microbatches
+
+    def loss_fn(params, gb):
+        loss = gnn_common.node_ce_loss(forward(cfg, params, gb), gb.labels)
+        return loss, {"loss": loss}
+    return _step(loss_fn, opt_cfg, 1)
+
+
+def make_gnn_regression_step(forward, cfg, opt_cfg):
+    """AdamW on the mean squared error of ``forward(cfg, params, gb)``
+    against ``gb.labels`` (graph-level regression, the molecule shape)."""
+    def loss_fn(params, gb):
+        pred = forward(cfg, params, gb)
+        loss = torch.mean((pred.reshape(-1) -
+                           gb.labels.to(torch.float32).reshape(-1)) ** 2)
+        return loss, {"loss": loss}
+    return _step(loss_fn, opt_cfg, 1)
 
 
 def make_mind_train_step(cfg: mind_mod.MINDConfig, opt_cfg,

@@ -1685,3 +1685,74 @@ def test_cuda_train_step_matches_cpu(card):
         assert a.dtype == b.dtype
         assert float((a.cpu().float() - b.float()).abs().max()) <= \
             2 * float(m["lr"])
+
+
+def _gnn_batch(graph_level: bool):
+    from repro_torch.data.generators import molecule_batch
+    from repro_torch.data.synthetic import gnn_node_classification
+    from repro_torch.data.triplets import build_triplets
+    from repro_torch.models.gnn.common import GraphBatch
+    if graph_level:
+        n, b = 10, 4
+        mb = molecule_batch(n, 30, b, seed=0)
+        off = (np.arange(b, dtype=np.int32) * n)[:, None]
+        snd, rcv = (mb["senders"] + off).ravel(), (mb["receivers"] + off) \
+            .ravel()
+        rng = np.random.default_rng(1)
+        arrays = dict(node_feat=rng.normal(0, 1, (n * b, 8)).astype(
+            np.float32), senders=np.concatenate([snd, rcv]),
+            receivers=np.concatenate([rcv, snd]), pos=mb["pos"].reshape(-1, 3),
+            graph_ids=np.repeat(np.arange(b, dtype=np.int32), n),
+            labels=rng.normal(0, 1, b).astype(np.float32))
+    else:
+        arrays = gnn_node_classification(60, 150, 8, 4, seed=0, with_pos=True)
+        arrays["graph_ids"] = np.zeros(60, np.int32)
+        b = 1
+    kj, ji, mk = build_triplets(arrays["senders"], arrays["receivers"], 8)
+    return GraphBatch(edge_feat=None, n_graphs=b, triplet_kj=kj,
+                      triplet_ji=ji, triplet_mask=mk,
+                      **{k: v for k, v in arrays.items()})
+
+
+@pytest.mark.parametrize("arch,graph_level", [
+    ("gin-tu", False), ("gatedgcn", False), ("pna", False),
+    ("dimenet", False), ("dimenet", True)])
+def test_cuda_gnn_step_matches_cpu(card, arch, graph_level):
+    # one AdamW step of each GNN at full width (remat on), f32 with TF32
+    # off, on the card and on the CPU from the same weights and batch: the
+    # loss at rtol 1e-5, the parameters within 2·lr (the card's index_add
+    # atomics add in no fixed order); DimeNet's basis bitwise
+    import importlib
+    from repro_torch import configs
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.train import loop, optimizer as opt
+    from repro_torch.train.tree import leaves, tree_map
+    _no_tf32()
+    conf = configs.get(arch)
+    mod = importlib.import_module(f"repro_torch.models.gnn.{conf.MODEL}")
+    cfg = conf.make_config(d_in=8, n_classes=1 if graph_level else 4,
+                           graph_level=graph_level, remat=True)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, master_weights=False)
+    build = loop.make_gnn_regression_step if graph_level else \
+        loop.make_gnn_train_step
+    step = build(mod.forward, cfg, ocfg)
+    gb = _gnn_batch(graph_level)
+    params = mod.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    p, o, m = step(params, opt.adamw_init(params, ocfg), gb)
+    pc, oc, mc = step(cpu, opt.adamw_init(cpu, ocfg), gb)
+    assert np.isfinite(float(m["loss"]))
+    assert float(m["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-5)
+    assert all(t.is_cuda for t in leaves((p, o)))
+    for a, b in zip(leaves((p, o)), leaves((pc, oc))):
+        assert float((a.cpu() - b).abs().max()) <= 2 * float(m["lr"])
+    if arch == "dimenet":
+        got = []
+        for b in (gb.to(card), gb.to("cpu")):
+            vec, dist = dimenet.edge_geometry(b.pos, b.senders, b.receivers)
+            cos_t = dimenet.triplet_cos(b.pos, vec, b.senders, b.receivers,
+                                        b.triplet_kj, b.triplet_ji)
+            got.append([t.cpu().view(torch.int32) for t in (
+                dist, cos_t, dimenet.rbf_basis(cfg, dist),
+                dimenet.sbf_basis(cfg, dist[b.triplet_kj], cos_t))])
+        assert all(torch.equal(x, y) for x, y in zip(*got))

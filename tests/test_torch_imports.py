@@ -2,8 +2,8 @@
 device, fused, sharded v1, ALT p2p with a landmark build, bidirectional,
 a delta's patch and repair, a traced solve),
 CPU serving of the LM and the recsys path (embedding layer, MIND), and
-CPU training (LM and MIND steps, checkpoints, the launcher) load neither
-jax nor the reference package,
+CPU training (LM, MIND and GNN steps, checkpoints, the launcher, the
+anchor features) load neither jax nor the reference package,
 ``chip_smoke.py`` and the card-side tests import neither, entry points
 need ``cuda`` unless told ``device="cpu"``, and a CPU tensor never counts
 as a kernel launch."""
@@ -14,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -168,17 +169,35 @@ def test_recsys_path_imports_no_jax_and_no_reference():
 
 
 def test_unported_architectures_raise():
+    # every architecture is ported: all ten (and the swa variant) resolve,
+    # and an unknown name still raises
     from repro_torch import configs
     assert configs.get("qwen3-0.6b").make_config().n_layers == 28
     assert configs.get("mind").make_config().n_items == 10_000_000
-    for arch in ("dimenet", "pna", "gatedgcn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get(arch)
+    for arch in configs.ARCHS + configs.BONUS_ARCHS:
+        mod = configs.get(arch)
+        assert mod.FAMILY in ("lm", "gnn", "recsys"), arch
+        assert mod.smoke_config() is not None
+    widths = {arch: configs.get(arch).make_config() for arch in
+              ("gin-tu", "gatedgcn", "pna", "dimenet")}
+    assert (widths["gin-tu"].n_layers, widths["gin-tu"].d_hidden) == (5, 64)
+    assert (widths["gatedgcn"].n_layers, widths["gatedgcn"].d_hidden) == \
+        (16, 70)
+    assert (widths["pna"].n_layers, widths["pna"].d_hidden) == (4, 75)
+    assert (widths["dimenet"].n_blocks, widths["dimenet"].d_hidden) == \
+        (6, 128)
+    assert len(configs.ARCHS) == 10
     with pytest.raises(NotImplementedError, match="unknown"):
         configs.get("llama-7b")
 
 
 _STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/data/triplets.py",
+               "src/repro_torch/data/synthetic.py",
+               "src/repro_torch/core/f32math.py",
+               "src/repro_torch/configs/gnn_common.py",
+               "src/repro_torch/configs/__init__.py",
+               "src/repro_torch/models/gnn/__init__.py",
                "src/repro_torch/train/tree.py",
                "src/repro_torch/tune/objective.py",
                "src/repro_torch/obs/trace.py",
@@ -219,7 +238,30 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "src/repro_torch/train/checkpoint.py",
                                   "src/repro_torch/train/failure.py",
                                   "src/repro_torch/train/tree.py",
-                                  "src/repro_torch/launch/train.py"])
+                                  "src/repro_torch/launch/train.py",
+                                  "src/repro_torch/data/synthetic.py",
+                                  "src/repro_torch/data/generators.py",
+                                  "src/repro_torch/data/triplets.py",
+                                  "src/repro_torch/core/f32math.py",
+                                  "src/repro_torch/convert.py",
+                                  "src/repro_torch/configs/__init__.py",
+                                  "src/repro_torch/configs/gnn_common.py",
+               "src/repro_torch/configs/__init__.py",
+               "src/repro_torch/models/gnn/__init__.py",
+                                  "src/repro_torch/configs/gin_tu.py",
+                                  "src/repro_torch/configs/gatedgcn.py",
+                                  "src/repro_torch/configs/pna.py",
+                                  "src/repro_torch/configs/dimenet.py",
+                                  "src/repro_torch/models/gnn/__init__.py",
+                                  "src/repro_torch/models/gnn/common.py",
+                                  "src/repro_torch/models/gnn/"
+                                  "sharded_ops.py",
+                                  "src/repro_torch/models/gnn/gin.py",
+                                  "src/repro_torch/models/gnn/gatedgcn.py",
+                                  "src/repro_torch/models/gnn/pna.py",
+                                  "src/repro_torch/models/gnn/dimenet.py",
+                                  "src/repro_torch/models/gnn/anchors.py",
+                                  "tools/gnn_phase.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -293,6 +335,59 @@ def test_training_imports_no_jax_and_no_reference():
     assert res["loaded"] == [] and res["launches"] == 0
     assert res["ok"] == {"deepseek-moe-16b": True, "granite-34b": True,
                          "mind": True}
+
+
+_GNN_PROBE = """
+import json, sys
+import numpy as np
+import torch
+from repro_torch import configs
+from repro_torch.data.generators import kronecker, molecule_batch
+from repro_torch.data.synthetic import gnn_node_classification
+from repro_torch.data.triplets import build_triplets
+from repro_torch.kernels.edge_relax.ops import LAUNCHES
+from repro_torch.models.gnn import dimenet, gatedgcn, gin, pna
+from repro_torch.models.gnn.anchors import anchor_distance_features
+from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.train import loop, optimizer
+g = gnn_node_classification(40, 100, 8, 4, seed=0, with_pos=True)
+kj, ji, mk = build_triplets(g["senders"], g["receivers"], 4)
+gb = GraphBatch(edge_feat=None, graph_ids=np.zeros(40, np.int32),
+                triplet_kj=kj, triplet_ji=ji, triplet_mask=mk, **g)
+losses = {}
+for arch, mod in (("gin-tu", gin), ("gatedgcn", gatedgcn), ("pna", pna),
+                  ("dimenet", dimenet)):
+    cfg = configs.get(arch).make_config(d_in=8, n_classes=4,
+                                        graph_level=False, remat=True)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(0))
+    ocfg = optimizer.AdamWConfig(master_weights=False)
+    _, _, m = loop.make_gnn_train_step(mod.forward, cfg, ocfg)(
+        params, optimizer.adamw_init(params, ocfg), gb)
+    losses[arch] = float(m["loss"])
+mb = molecule_batch(6, 8, 2)
+feats, anchors = anchor_distance_features(kronecker(7, 4, seed=1), 4,
+                                          device="cpu")
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "losses": losses,
+                  "feats": list(feats.shape), "launches": LAUNCHES.edge_relax
+                  + LAUNCHES.edge_relax_batch}))
+"""
+
+
+def test_gnn_training_imports_no_jax_and_no_reference():
+    """A train step of each GNN at full width (remat on), the GNN data
+    functions and the anchor features load neither jax nor the
+    reference package."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _GNN_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["launches"] == 0
+    assert sorted(res["losses"]) == ["dimenet", "gatedgcn", "gin-tu", "pna"]
+    assert all(np.isfinite(v) for v in res["losses"].values())
+    assert res["feats"] == [128, 4]
 
 
 _SERVING_PROBE = """

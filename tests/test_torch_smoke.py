@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 from torch.autograd import DeviceType
@@ -67,3 +68,37 @@ def test_adaptive_parents_may_differ_only_at_exact_ties():
     assert chip_smoke.same_tree_up_to_ties(
         hg, dist, torch.tensor([0, 0, 0, 0], dtype=torch.int32), dist,
         static, keep, "square bounded") == 0
+
+
+@pytest.mark.parametrize("shape,nodes,edges,slots,graphs", [
+    ("full_graph_sm", 2708, 21112, 168896, 1),
+    ("molecule", 3840, 16384, 131072, 128)])
+def test_gnn_cells_have_the_shapes_the_cells_count(shape, nodes, edges, slots,
+                                                   graphs):
+    arrays, n_graphs, graph_level = chip_smoke.gnn_cell_batch(shape)
+    assert arrays["node_feat"].shape[0] == nodes
+    assert arrays["senders"].shape == arrays["receivers"].shape == (edges,)
+    assert arrays["triplet_kj"].shape == (slots,)
+    assert n_graphs == graphs and graph_level == (shape == "molecule")
+    assert arrays["graph_ids"].max() == graphs - 1
+    assert not np.any(arrays["senders"] == arrays["receivers"])
+
+
+def test_a_card_step_is_held_to_the_cpu_step():
+    p = {"w": torch.ones(3)}
+    cpu = ({"w": torch.ones(3)}, {"loss": 2.0, "lr": 1e-3})
+    row = chip_smoke.same_step((p, {"loss": 2.0}), cpu, "same")
+    assert row["max_param_gap"] == 0.0 and not row["fault5"]
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.same_step(({"w": torch.ones(3) + 0.01}, {"loss": 2.0}),
+                             cpu, "moved")
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.same_step((p, {"loss": 2.1}), cpu, "loss")
+    # a step the CPU also overflows: the same non-finite loss and NaN leaves
+    nan = {"w": torch.tensor([1.0, float("nan"), 1.0])}
+    over = (nan, {"loss": float("inf"), "lr": 1e-3})
+    assert chip_smoke.same_step(
+        ({"w": torch.tensor([1.0, float("nan"), 1.0])},
+         {"loss": float("inf")}), over, "fault 5")["fault5"]
+    with pytest.raises(AssertionError, match="differs"):
+        chip_smoke.same_step((p, {"loss": float("inf")}), over, "nan moved")

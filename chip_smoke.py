@@ -57,8 +57,8 @@ Phases, in order; any failure exits non-zero:
    unfused solve's invocations, and ``dist`` must match scipy's float64
    Dijkstra at ``rtol=1e-4, atol=1e-5``.
    Then point-to-point queries with ALT landmark pruning:
-   ``"farthest"`` landmarks (8 on kronecker, 4 on road_grid: a cut of
-   depth, the road build being one 23 s tree solve a landmark on an
+   ``"farthest"`` landmarks (8 on kronecker, 3 on road_grid: a cut of
+   depth, the road build being one 23–33 s tree solve a landmark on an
    H100) are
    built on the card with the fused blocked path (the build time is
    printed), and 2 seeded
@@ -324,6 +324,26 @@ Phases, in order; any failure exits non-zero:
    (remat) trained for 60 AdamW steps over the 33,554,432 directed
    edges (ms/step, peak memory, final accuracy); the batched solve's
    launches join row 1 batch's in the ``kernels`` line.
+4e. The workload side (``tools/tooling_phase.py``, ``[tooling]`` lines),
+   on phase 3's graphs and trees: ``bellman_ford`` on both graphs and
+   ``delta_stepping`` at one ``delta`` a graph, each ``dist`` bitwise
+   phase 3's tree but at vertices shown to be reference fault 1, each
+   parent tree valid; ``make_variant(kronecker(20,16), power=4)`` solved
+   on ``blocked`` unfused and fused (bitwise) and by ``bellman_ford``
+   (scipy's Dijkstra; EIC bitwise under the same rule); 32 Zipf queries
+   of ``make_traffic`` over both kronecker graphs through
+   ``GraphRegistry`` and ``QueryRouter`` (every answer bitwise the single
+   tier's); ``minibatch_lg`` (``tools/gnn_phase.py``: the Reddit-sized
+   graph, its CSR by receiver on the card, ``NeighborSampler`` (15, 10)
+   batches of 1,024 seeds padded to 181,248 nodes and 184,320 edges, the
+   four GNNs at full width, each held to its CPU step on a cut batch of
+   64 seeds); and the five ``examples/torch`` scripts, each ``main`` on
+   the card printing its correctness line.  Cut for the run's time
+   (``tools/tooling_phase.py::SMOKE_CUTS``): the examples are quickstart
+   and serving_demo only, road has no ``delta_stepping``, and
+   ``minibatch_lg`` one timed step after the warm-up.  The variant's
+   ``edge_relax`` and ``edge_relax_fused`` launches and the traffic's
+   ``edge_relax_batch`` launches join their rows in the ``kernels`` line.
 5. The recsys serving path (MIND at its published size: a 10^7 x 64
    float32 item table drawn on the card from a ``torch.Generator`` seeded
    with 0, batches from ``RecsysStream(10^7, 50, seed=0)`` at step 0 for
@@ -997,10 +1017,11 @@ def main_path(graphs, device):
 # ---------------------------------------------------------------------------
 
 N_PAIRS = 2
-# landmarks per graph: road_grid's build is one fused tree solve of about
-# 23 s a landmark on an H100, and its first four farthest landmarks (the
-# corners) are those of the eight
-N_LANDMARKS = {"kronecker(20,16)": 8, "road_grid(1024)": 4}
+# landmarks per graph: road_grid's build is one fused tree solve of 23 to
+# 33 s a landmark on an H100; its first four farthest landmarks are the
+# corners, and three are kept (a cut of depth paying for phase 4e: the
+# third corner's bound is as tight as the fourth's for both road pairs)
+N_LANDMARKS = {"kronecker(20,16)": 8, "road_grid(1024)": 3}
 # name, backend, options, the ALT launch counter the solve must move
 P2P_SOLVES = (("unpruned", "blocked", {}, None),
               ("alt", "blocked", {}, "edge_relax_alt"),
@@ -5801,10 +5822,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as store_dir:
         init_group(store_dir)
         try:
-            kernels, solves = report(graphs, device)
+            kernels, solves, trees = report(graphs, device)
         finally:
             tdist.destroy_process_group()
-    kron = graphs[0][1]           # kept on the host for phase 4d
+    kron = graphs[0][1]           # kept on the host for phases 4d and 4e
     del graphs
 
     lm = lm_phases(device)
@@ -5816,7 +5837,22 @@ def main() -> int:
     gnn = gnn_phase(kron, device)
     mark("phase 4d (GNN training)")
     del kron
-    batch_row = next(r for r in kernels if r["name"] == "edge_relax_batch")
+    # phase 4e's module imports this script by name: let it find this run
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    from tooling_phase import tooling_phase
+    tooling = tooling_phase(trees, device, cut=True)
+    mark("phase 4e (tooling)")
+    del trees
+    rows = {r["name"]: r for r in kernels}
+    for name, launches in (
+            ("edge_relax", tooling["variant"]["launches"]),
+            ("edge_relax_fused", tooling["variant"]["fused_launches"]),
+            ("edge_relax_batch",
+             tooling["traffic"]["launches"]["edge_relax_batch"])):
+        rows[name]["launches_tooling"] = launches
+        rows[name]["launches"] += launches
+    batch_row = rows["edge_relax_batch"]
     batch_row["launches_gnn_anchors"] = gnn["anchors"]["batch_launches"]
     batch_row["launches"] += gnn["anchors"]["batch_launches"]
     served = lm_configs["served"]
@@ -5850,6 +5886,7 @@ def main() -> int:
                    for a, m in served.items()},
         "moe": lm_configs["moe"]}, "training": training}))
     log(json.dumps({"gnn": gnn}))
+    log(json.dumps({"tooling": tooling}, default=str))
     log(json.dumps({"recsys": {"layer": recsys["layer"],
                                "mind": recsys["serving"]}}))
     print(card, flush=True)
@@ -6077,7 +6114,12 @@ def report(graphs, device):
     for row in facade_rows:
         row["launches_routed"] = routed["launches"][
             row["name"].replace("[alt]", "_alt")]
-    return kernels + facade_rows, solves
+    # phase 3's trees on the host, for phase 4e
+    trees = {n: dict(host=r["host"], source=r["source"],
+                     dist=r["dist"].cpu().numpy(),
+                     parent=r["parent"].cpu().numpy(), metrics=r["metrics"])
+             for n, r in results.items()}
+    return kernels + facade_rows, solves, trees
 
 
 if __name__ == "__main__":

@@ -5,8 +5,9 @@ Per-shape graph dimensions; ``n_edges_directed`` counts the symmetrized
 store.  ``triplet_cap`` bounds DimeNet triplets per edge (hub vertices on
 power-law graphs would otherwise explode the quadratic gather).  On one
 card the port trains ``full_graph_sm`` and ``molecule`` (``chip_smoke.py``
-phase 4d); ``minibatch_lg`` needs the sampler and ``ogb_products`` a
-sharded graph (ROADMAP.md, queue 1 items 13 and 10)."""
+phase 4d) and ``minibatch_lg`` on ``data/sampler.py``'s batches (phase
+4e-d, ``tools/gnn_phase.py``); ``ogb_products`` needs a sharded graph
+(ROADMAP.md, queue 1 item 10)."""
 
 SHAPES = {
     "full_graph_sm": {   # Cora-like full batch

@@ -1756,3 +1756,31 @@ def test_cuda_gnn_step_matches_cpu(card, arch, graph_level):
                 dist, cos_t, dimenet.rbf_basis(cfg, dist),
                 dimenet.sbf_basis(cfg, dist[b.triplet_kj], cos_t))])
         assert all(torch.equal(x, y) for x, y in zip(*got))
+
+
+@pytest.mark.parametrize("name", ["kronecker", "road", "pow4"])
+def test_baselines_on_the_card_match_the_cpu(card, name):
+    """``bellman_ford`` and ``delta_stepping`` on the card give the CPU's
+    dist, parent and logical counters bit for bit (plain torch ops; the
+    bucket edge ``floor(nxt / Δ) * Δ`` divides tensor by tensor, which on
+    the card is not the reciprocal multiply a Python divisor would get),
+    at a Δ that f32 holds exactly and at ones it does not."""
+    from repro_torch.core.baselines import bellman_ford, delta_stepping
+    from repro_torch.data.weights import make_variant
+    hg = {"kronecker": lambda: kronecker(12, 8, seed=1),
+          "road": lambda: road_grid(48, seed=5),
+          "pow4": lambda: make_variant(kronecker(12, 8, seed=1),
+                                       power=4)}[name]()
+    src = int(np.argmax(hg.deg))
+    runs = [lambda g: bellman_ford(g, src)] + [
+        (lambda f: lambda g: delta_stepping(g, src, f * hg.max_w))(f)
+        for f in (0.1, 0.5, 1.0)] + [lambda g: delta_stepping(g, src, 0.25)]
+    for run in runs:
+        d, p, m = run(hg.to_device(card))
+        dc, pc, mc = run(hg.to_device("cpu"))
+        assert torch.equal(d.cpu().view(torch.int32), dc.view(torch.int32))
+        assert torch.equal(p.cpu(), pc)
+        md, mdc = metrics_dict(m), metrics_dict(mc)
+        assert {f: md[f] for f in LOGICAL_METRIC_FIELDS} == \
+            {f: mdc[f] for f in LOGICAL_METRIC_FIELDS}
+        assert md["n_host_syncs"] == mdc["n_host_syncs"]

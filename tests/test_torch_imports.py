@@ -192,6 +192,7 @@ def test_unported_architectures_raise():
 
 
 _STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/data/sampler.py",
                "src/repro_torch/data/triplets.py",
                "src/repro_torch/data/synthetic.py",
                "src/repro_torch/core/f32math.py",
@@ -261,7 +262,17 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "src/repro_torch/models/gnn/pna.py",
                                   "src/repro_torch/models/gnn/dimenet.py",
                                   "src/repro_torch/models/gnn/anchors.py",
-                                  "tools/gnn_phase.py"])
+                                  "tools/gnn_phase.py",
+                                  "tools/tooling_phase.py",
+                                  "src/repro_torch/core/baselines.py",
+                                  "src/repro_torch/data/weights.py",
+                                  "src/repro_torch/data/traffic.py",
+                                  "src/repro_torch/data/sampler.py",
+                                  "examples/torch/quickstart.py",
+                                  "examples/torch/serving_demo.py",
+                                  "examples/torch/serve_lm.py",
+                                  "examples/torch/train_lm.py",
+                                  "examples/torch/gnn_sssp_features.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -429,6 +440,42 @@ def test_serving_plane_and_tuner_import_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["loaded"] == [] and res["evals"] >= 2
     assert res["after"] <= 0.5 and res["served"]
+
+
+_WORKLOAD_PROBE = """
+import json, sys
+import numpy as np
+from repro_torch.core.baselines import bellman_ford, delta_stepping
+from repro_torch.data.generators import kronecker
+from repro_torch.data.sampler import NeighborSampler, flat_subgraph
+from repro_torch.data.traffic import make_traffic
+from repro_torch.data.weights import make_variant
+g = kronecker(8, 8, seed=1)
+var = make_variant(g, power=4)
+dg = var.to_device("cpu")
+bf = bellman_ford(dg, 0)[0]
+ds = delta_stepping(dg, 0, 0.5 * var.max_w)[0]
+items = make_traffic({"a": g, "b": var}, 16, seed=0, rate_qps=10.0)
+batch = NeighborSampler(g.row_ptr.astype(np.int64), g.dst, (4, 3)).sample(
+    np.arange(8))
+sub = flat_subgraph(batch, 64, 128)
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "same": bool((bf == ds).all()),
+                  "items": len(items), "edges": int(sub[2].sum())}))
+"""
+
+
+def test_workload_side_imports_no_jax_and_no_reference():
+    """The baselines, the weight variants, the traffic and the sampler
+    load neither jax nor the reference."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _WORKLOAD_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["same"]
+    assert res["items"] == 16 and res["edges"] > 0
 
 
 def test_entry_point_needs_a_card_unless_told_cpu():

@@ -17,6 +17,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 
 import chip_smoke  # noqa: E402
 
@@ -102,3 +103,83 @@ def test_a_card_step_is_held_to_the_cpu_step():
          {"loss": float("inf")}), over, "fault 5")["fault5"]
     with pytest.raises(AssertionError, match="differs"):
         chip_smoke.same_step((p, {"loss": float("inf")}), over, "nan moved")
+
+
+def _fault1_case():
+    """The reference property test's seed 3679 (ROADMAP queue 3, fault
+    1), built with the port: its EIC tree, Bellman-Ford's and the EIC
+    solve's window edges."""
+    import tooling_phase
+    from repro_torch.core.baselines import bellman_ford
+    from repro_torch.core.graph import build_csr
+    from repro_torch.core.sssp import sssp
+    rng = np.random.default_rng(3679)
+    n = int(rng.integers(20, 150))
+    m = int(rng.integers(n, 6 * n))
+    u, v = rng.integers(0, n, m), rng.integers(0, n, m)
+    keep = u != v
+    w = rng.random(keep.sum()) * float(rng.uniform(0.5, 10)) + 1e-3
+    hg = build_csr(n, u[keep], v[keep], w)
+    nz = np.where(hg.deg > 0)[0]
+    src = int(nz[rng.integers(0, nz.size)])
+    dg = hg.to_device("cpu")
+    d, p, m = sssp(dg, src, backend="blocked", device="cpu")
+    bd, bp, _ = bellman_ford(dg, src)
+    lbs = tooling_phase.window_edges(dg, src, int(m.n_host_syncs), "cpu")
+    return hg, dg, src, (d, p, m), (bd, bp), lbs
+
+
+def test_phase_4e_names_reference_fault_1_and_fails_anything_else():
+    """Phase 4e holds an exact solver's dist bitwise to EIC's but at
+    vertices shown to be reference fault 1: on seed 3679 vertex 75 is the
+    dropped candidate (its exact parent 33 is right, the candidate equals
+    a window's lower edge, and the push band under it starts above 33)
+    and 39, 41, 49 lie below it.  A vertex EIC has shorter, or one whose
+    candidate no window dropped, fails the phase."""
+    import tooling_phase
+    hg, _, _, (d, _, _), (bd, bp), lbs = _fault1_case()
+    got = tooling_phase.explain_fault1(hg, d.numpy(), bd.numpy(), bp.numpy(),
+                                       lbs, "seed 3679")
+    assert got == dict(roots=[75], downstream=[49, 39, 41])
+    with pytest.raises(AssertionError, match="other than by reference fault"):
+        tooling_phase.explain_fault1(hg, d.numpy(), bd.numpy(), bp.numpy(),
+                                     lbs[:0], "seed 3679 without windows")
+    short = d.numpy().copy()
+    short[int(np.flatnonzero(np.isfinite(short) & (short > 0))[0])] -= 0.25
+    with pytest.raises(AssertionError, match="other than by reference fault"):
+        tooling_phase.explain_fault1(hg, short, bd.numpy(), bp.numpy(), lbs,
+                                     "seed 3679 shortened")
+
+
+def test_phase_4e_check_against_the_tree_fails_the_smoke():
+    """``against_tree`` (4e-a and 4e-b) raises on a tree that disagrees
+    with the exact solver, and on a parent tree that is not tight; the
+    smoke's ``main`` calls phase 4e outside any ``try``, so the error
+    ends the run with a traceback and a non-zero exit."""
+    import ast
+    import tooling_phase
+    from repro_torch.core.sssp import metrics_dict
+    hg, dg, src, (d, p, m), (bd, bp), _ = _fault1_case()
+    tree = dict(host=hg, source=src, dist=d.numpy(), parent=p.numpy(),
+                metrics=metrics_dict(m))
+    got = tooling_phase.against_tree("seed 3679", "bellman_ford", tree, dg,
+                                     bd, bp, "cpu")
+    assert len(got["fault1"]["roots"]) == 1
+    wrong = dict(tree, dist=bd.numpy() + np.float32(0.5))
+    with pytest.raises(AssertionError, match="other than by reference fault"):
+        tooling_phase.against_tree("seed 3679", "bellman_ford", wrong, dg,
+                                   bd, bp, "cpu")
+    loop = bp.clone()
+    loop[int(np.flatnonzero(bp.numpy() != src)[0])] = src
+    exact = dict(tree, dist=bd.numpy(), parent=bp.numpy())
+    with pytest.raises(AssertionError, match="parent edge is not tight"):
+        tooling_phase.against_tree("seed 3679", "bellman_ford", exact, dg,
+                                   bd, loop, "cpu")
+    main = next(f for f in ast.parse(Path(chip_smoke.__file__).read_text())
+                .body if isinstance(f, ast.FunctionDef) and f.name == "main")
+    calls = [n for n in ast.walk(main) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "tooling_phase"]
+    assert len(calls) == 1
+    guarded = [n for t in ast.walk(main) if isinstance(t, ast.Try)
+               and t.handlers for n in ast.walk(t) if n in calls]
+    assert not guarded

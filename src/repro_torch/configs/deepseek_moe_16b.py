@@ -3,7 +3,7 @@ vocab=102400, MoE: 2 shared + 64 routed top-6, fine-grained
 [arXiv:2401.06066; hf]."""
 import torch
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES  # noqa: F401
+from .lm_common import SHAPES, SKIP_SHAPES  # noqa: F401
 
 FAMILY = "lm"
 

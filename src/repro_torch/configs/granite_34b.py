@@ -6,7 +6,7 @@ sequence-sharded residual stream (Megatron-SP) + gradient accumulation.
 ``seq_shard`` is set as there; on one card it shards nothing."""
 import torch
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES  # noqa: F401
+from .lm_common import SHAPES, SKIP_SHAPES  # noqa: F401
 
 FAMILY = "lm"
 

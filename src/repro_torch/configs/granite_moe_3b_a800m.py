@@ -5,7 +5,7 @@ vocab=49155, MoE 40e top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base; hf].
 (d_ff sharded inside each expert; see parallel/sharding.py)."""
 import torch
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES  # noqa: F401
+from .lm_common import SHAPES, SKIP_SHAPES  # noqa: F401
 
 FAMILY = "lm"
 

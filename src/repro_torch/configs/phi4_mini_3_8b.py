@@ -2,7 +2,7 @@
 d_ff=8192, vocab=200064, RoPE SwiGLU GQA [arXiv:2412.08905; hf]."""
 import torch
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES  # noqa: F401
+from .lm_common import SHAPES, SKIP_SHAPES  # noqa: F401
 
 FAMILY = "lm"
 

@@ -3,7 +3,7 @@ vocab=151936, qk_norm [hf:Qwen/Qwen3-8B; hf]."""
 import torch
 
 from ..models.transformer import LMConfig
-from .lm_common import SHAPES  # noqa: F401
+from .lm_common import SHAPES, SKIP_SHAPES  # noqa: F401
 
 FAMILY = "lm"
 

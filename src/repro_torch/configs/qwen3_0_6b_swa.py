@@ -6,6 +6,9 @@ from ..models.transformer import LMConfig
 from .lm_common import SHAPES  # noqa: F401
 
 FAMILY = "lm"
+SKIP_SHAPES = {"train_4k": "bonus arch: long-context cell only",
+               "prefill_32k": "bonus arch: long-context cell only",
+               "decode_32k": "bonus arch: long-context cell only"}
 
 
 def make_config(**kw):

@@ -23,10 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...parallel.dtensor_ops import constrain, is_dtensor
 from ..layers import dense_init, softmax_cross_entropy
-
-_UNSHARDED = ("sharded GNN batches (a mesh in shard_ctx) are not ported: "
-              "ROADMAP.md, queue 1 item 10")
 
 
 @dataclasses.dataclass
@@ -43,8 +41,8 @@ class GraphBatch:
     triplet_kj: Optional[torch.Tensor] = None     # [T] edge index (k->j)
     triplet_ji: Optional[torch.Tensor] = None     # [T] edge index (j->i)
     triplet_mask: Optional[torch.Tensor] = None   # [T] bool
-    # the reference's sharding context (mesh, axis names); only None, one
-    # device, is ported
+    # sharding context (DeviceMesh, axis-name tuple) for full-batch cells;
+    # None on one device
     shard_ctx: Optional[tuple] = None
 
     def _replace(self, **kw):
@@ -52,20 +50,27 @@ class GraphBatch:
 
     def to(self, device) -> "GraphBatch":
         """The batch with every array field (tensors or numpy arrays) a
-        tensor on ``device``."""
+        tensor on ``device``; DTensor fields stay where they are."""
         moved = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
+            if is_dtensor(v):
+                continue
             if isinstance(v, (torch.Tensor, np.ndarray)):
                 moved[f.name] = torch.as_tensor(v, device=device)
         return dataclasses.replace(self, **moved)
 
 
 def shard0(gb: GraphBatch, x):
-    """Dim 0 of ``x`` kept on the graph sharding: nothing on one device."""
-    if gb.shard_ctx is not None:
-        raise NotImplementedError(_UNSHARDED)
-    return x
+    """Constrain dim 0 of ``x`` (edges/nodes/triplets) to the graph
+    sharding: a DTensor is redistributed to dim 0 split over the
+    context's axes; on one device, or for a plain tensor, nothing."""
+    if gb.shard_ctx is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, axes = gb.shard_ctx
+    return constrain(x, tuple(Shard(0) if n in axes else Replicate()
+                              for n in mesh.mesh_dim_names))
 
 
 def _index(ids, like):

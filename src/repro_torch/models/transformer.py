@@ -10,9 +10,14 @@ sort dispatch, the Switch aux loss) in plain torch ops, as the
 reference leaves them to XLA.  The reference's ``lax.scan`` over stacked
 layers is a Python loop over the same stacked parameters; its per-layer
 ``jax.checkpoint`` is ``torch.utils.checkpoint`` under ``cfg.remat``.
-Not here: the reference's ``_constrain``/``act_spec`` (sharding
-constraints; ``cfg.seq_shard`` is kept and, as the reference's
-constraint outside a mesh, does nothing on one card).
+The reference's ``_constrain(x, act_spec)`` is ``act_placements`` on
+:func:`forward`, :func:`loss_fn` and :func:`prefill` (a DTensor
+redistribution of the residual stream; nothing on plain tensors, so one
+card is unchanged); :func:`decode_step` takes it and, as the
+reference, does not use it.  On DTensors (the dry-run's cells) the
+attention core, the MoE experts and the decode step's cache run on each
+rank's local shards (:func:`_attention_sharded`, :func:`_moe_sharded`,
+:class:`_CacheBlock`), through the same code as one card.
 
 Attention runs one of two implementations, named by ``attn``:
 
@@ -43,6 +48,7 @@ import torch.utils.checkpoint
 
 from ..core.sssp import resolve_device
 from ..kernels.flash_attn.ops import flash_attention_pos
+from ..parallel.dtensor_ops import constrain, is_dtensor, local_of, wrap
 from .layers import apply_rope, dense_init, embed_init, gelu_mlp, rms_norm, \
     softmax_cross_entropy, swiglu
 
@@ -239,9 +245,13 @@ def _sdpa_blockwise(cfg: LMConfig, q, k_all, v_all, positions, t_pos, causal,
     return torch.cat(outs, dim=1)[:, :s].to(q.dtype)
 
 
-def _sdpa_decode(cfg: LMConfig, q, kc, vc, pos, kv_positions):
+def _sdpa_decode(cfg: LMConfig, q, kc, vc, pos, kv_positions, group=None):
     """The reference decode step's inline attention: one query per slot
-    at ``pos`` over the whole cache, keys at ``kv_positions``."""
+    at ``pos`` over the whole cache, keys at ``kv_positions``.  With a
+    ``group`` (a DTensor cache whose positions are split over it) the
+    cache is this rank's positions and the softmax is merged over the
+    group by the row maximum, sum and weighted values (the split
+    softmax of a flash decode)."""
     scores = torch.einsum("bskhd,btkd->bskht", q, kc).float()
     scores = scores / (cfg.hd ** 0.5)
     tp = kv_positions[:, None, None, None, :]
@@ -249,9 +259,19 @@ def _sdpa_decode(cfg: LMConfig, q, kc, vc, pos, kv_positions):
     mask = (tp <= qp) & (tp >= 0)
     if cfg.attn_window:
         mask = mask & (tp > qp - cfg.attn_window)
-    probs = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
-    probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
-    return torch.einsum("bskht,btkd->bskhd", probs.to(q.dtype), vc)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    if group is None:
+        probs = torch.softmax(scores, dim=-1)
+        probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
+        return torch.einsum("bskht,btkd->bskhd", probs.to(q.dtype), vc)
+    from torch.distributed import _functional_collectives as funcol
+    m = funcol.all_reduce(scores.amax(-1, keepdim=True), "max", group)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = funcol.all_reduce(p.sum(-1, keepdim=True), "sum", group)
+    acc = funcol.all_reduce(torch.einsum(
+        "bskht,btkd->bskhd", p.to(q.dtype), vc).float(), "sum", group)
+    return (acc / torch.where(l > 0, l, 1.0)).to(q.dtype)
 
 
 def attention(cfg: LMConfig, lp: dict, x, *, attn="plain"):
@@ -259,16 +279,30 @@ def attention(cfg: LMConfig, lp: dict, x, *, attn="plain"):
     row (the reference's ``attention`` as prefill and forward call it;
     the decode step attends over its cache itself).  x: ``[B, S, D]``.
     Returns ``(out [B, S, D], k, v)`` with the new keys (after RoPE) and
-    values ``[B, S, KV, HD]``."""
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = (x @ lp["wq"]).reshape(b, s, kv, h // kv, hd)
-    k = (x @ lp["wk"]).reshape(b, s, kv, hd)
-    v = (x @ lp["wv"]).reshape(b, s, kv, hd)
+    values ``[B, S, KV, HD]``.  On DTensors the projections are
+    DTensor matmuls and the rest runs on each rank's heads
+    (:func:`_attention_sharded`)."""
+    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    if is_dtensor(q):
+        return _attention_sharded(cfg, lp, q, k, v, attn)
+    out, k, v = _attend(cfg, lp, q, k, v, attn, cfg.n_heads, cfg.n_kv)
+    return out @ lp["wo"], k, v
+
+
+def _attend(cfg: LMConfig, lp: dict, q, k, v, attn: str, h: int, kv: int):
+    """The attention of the projections ``q [B, S, h*HD]`` and ``k``,
+    ``v [B, S, kv*HD]`` (``h`` query and ``kv`` key heads): qk-norm, RoPE
+    at positions ``0..S-1`` and the causal core.  Returns ``(out [B, S,
+    h*HD], k, v [B, S, kv, HD])``."""
+    b, s = q.shape[:2]
+    hd = cfg.hd
+    q = q.reshape(b, s, kv, h // kv, hd)
+    k = k.reshape(b, s, kv, hd)
+    v = v.reshape(b, s, kv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"])
         k = rms_norm(k, lp["k_norm"])
-    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(
+    positions = torch.arange(s, dtype=torch.int32, device=q.device).expand(
         b, s)
     q = apply_rope(q.reshape(b, s, h, hd), positions,
                    cfg.rope_theta).reshape(b, s, kv, h // kv, hd)
@@ -276,11 +310,55 @@ def attention(cfg: LMConfig, lp: dict, x, *, attn="plain"):
     if attn == "flash":     # positions 0..S-1: a causal block stops early
         out = flash_attention_pos(q, k, v, causal=True,
                                   window=cfg.attn_window)
-    elif s * s > (1 << 21):
+    elif s * s > (1 << 21) and q.device.type != "meta":
+        # on ``meta`` (the dry-run's shape trace) the dense form stands
+        # for the tiles: the same matmuls in one op instead of one a tile
         out = _sdpa_blockwise(cfg, q, k, v, positions, positions, True)
     else:
         out = _sdpa_dense(cfg, q, k, v, positions, positions, True)
-    return out.reshape(b, s, h * hd) @ lp["wo"], k, v
+    return out.reshape(b, s, h * hd), k, v
+
+
+def _head_placements(cfg: LMConfig, t):
+    """Placements for a ``[B, S, heads * HD]`` projection DTensor ``t``:
+    its batch shards kept, heads split over ``model`` where both head
+    counts divide that axis (whole query groups per rank), every other
+    mesh dim replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = t.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    msz = mesh.size(names.index("model")) if "model" in names else 1
+    split = msz > 1 and cfg.n_kv % msz == 0 and cfg.n_heads % msz == 0
+    out = []
+    for name, p in zip(names, t.placements):
+        if name == "model" and split:
+            out.append(Shard(2))
+        elif isinstance(p, Shard) and p.dim == 0:
+            out.append(p)
+        else:
+            out.append(Replicate())
+    return tuple(out), (msz if split else 1)
+
+
+def _attention_sharded(cfg: LMConfig, lp: dict, q, k, v, attn: str):
+    """:func:`attention` after the projections, on DTensors: ``q``, ``k``
+    and ``v`` redistributed to :func:`_head_placements`, :func:`_attend`
+    on each rank's local rows and heads, the output back as a DTensor
+    for the ``wo`` matmul (the reference leaves this to XLA's
+    partitioner)."""
+    mesh = q.device_mesh
+    places, div = _head_placements(cfg, q)
+    q, k, v = (t.redistribute(mesh, places) for t in (q, k, v))
+    norms = {n: local_of(lp[n]) for n in ("q_norm", "k_norm") if n in lp}
+    out, kl, vl = _attend(cfg, norms, q.to_local(), k.to_local(),
+                          v.to_local(), attn, cfg.n_heads // div,
+                          cfg.n_kv // div)
+    b, s = q.shape[:2]
+    kv_shape = (b, s, cfg.n_kv, cfg.hd)
+    out = wrap(out, mesh, places, (b, s, cfg.n_heads * cfg.hd))
+    return (out @ lp["wo"], wrap(kl, mesh, places, kv_shape),
+            wrap(vl, mesh, places, kv_shape))
 
 
 class Route(NamedTuple):
@@ -318,8 +396,7 @@ def moe_route(cfg: LMConfig, lp: dict, xt) -> Route:
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = top.values[:, :k], top.indices[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-    me = probs.mean(0)
-    ce = F.one_hot(idx, e).sum(1).float().mean(0)
+    me, ce = _load_stats(cfg, probs, idx)
     aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
     cap = max(int(t * k / e * cfg.capacity_factor), 8)
     flat_e = idx.reshape(-1)
@@ -330,6 +407,14 @@ def moe_route(cfg: LMConfig, lp: dict, xt) -> Route:
     rank = torch.arange(t * k, device=xt.device) - first
     return Route(probs, gate, idx, aux, cap, order, se, st,
                  gate.reshape(-1)[order], rank, rank < cap)
+
+
+def _load_stats(cfg: LMConfig, probs, idx):
+    """The aux loss's per-expert mean router probability ``p_e`` and
+    share of the top-k choices ``f_e`` (``[E]`` each)."""
+    me = probs.mean(0)
+    ce = F.one_hot(idx, cfg.n_experts).sum(1).float().mean(0)
+    return me, ce
 
 
 def moe_combine(y_tok, order, t: int, k: int):
@@ -351,37 +436,96 @@ def moe_combine(y_tok, order, t: int, k: int):
 def moe_block(cfg: LMConfig, lp: dict, x):
     """Top-k routed experts with capacity-based sort dispatch, plus the
     shared experts.  x: ``[B, S, D]``, flattened to tokens.  Returns
-    ``(y [B, S, D], aux)``.
-
-    Every kept (expert, rank) slot of the ``[E, cap, D]`` dispatch buffer
-    is written once (dropped choices go to a spare row that is thrown
-    away); the experts run as batched matmuls; :func:`moe_combine` adds
-    each token's gated rows.  Padding tokens route like any other and
-    use up capacity, as in the reference."""
+    ``(y [B, S, D], aux)``; on a DTensor :func:`_moe_sharded`.  Padding
+    tokens route like any other and use up capacity, as in the
+    reference."""
+    if is_dtensor(x):
+        return _moe_sharded(cfg, lp, x)
     b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
     xt = x.reshape(b * s, d)
-    t = b * s
     r = moe_route(cfg, lp, xt)
-    slot = torch.where(r.keep, r.se * r.cap + r.rank, e * r.cap)
-    buf = torch.zeros((e * r.cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((slot,), xt[r.st])[:-1].reshape(e, r.cap, d)
-    if cfg.mlp == "swiglu":
-        hidden = F.silu(torch.bmm(buf, lp["e_gate"])) * torch.bmm(
-            buf, lp["e_up"])
-    else:
-        hidden = F.gelu(torch.bmm(buf, lp["e_up"]), approximate="tanh")
-    out_buf = torch.bmm(hidden, lp["e_down"])
-    y_tok = out_buf[r.se, r.rank.clamp(max=r.cap - 1)]
-    y_tok = torch.where(r.keep[:, None], y_tok, 0.0) * r.sg[:, None].to(
-        x.dtype)
-    y = moe_combine(y_tok, r.order, t, k)
+    y = _moe_experts(cfg, lp, xt, r)
     if cfg.n_shared:
         if cfg.mlp == "swiglu":
             y = y + swiglu(xt, lp["s_gate"], lp["s_up"], lp["s_down"])
         else:
             y = y + gelu_mlp(xt, lp["s_up"], lp["s_down"])
     return y.reshape(b, s, d), r.aux
+
+
+def _moe_experts(cfg: LMConfig, w: dict, xt, r: Route, e0: int = 0):
+    """The routed experts' sum for each token of ``xt [T, D]``: every
+    kept (expert, rank) slot of the ``[E, cap, D]`` dispatch buffer is
+    written once (dropped choices go to a spare row that is thrown
+    away), the experts of ``w`` (``e_up [E_w, ...]``: experts ``e0 ..
+    e0 + E_w``, every expert on one card) run as batched matmuls, and
+    :func:`moe_combine` adds each token's gated rows; a choice of an
+    expert outside ``w`` adds zero."""
+    t, d = xt.shape
+    e = cfg.n_experts
+    e_w = w["e_up"].shape[0]
+    slot = torch.where(r.keep, r.se * r.cap + r.rank, e * r.cap)
+    buf = torch.zeros((e * r.cap + 1, d), dtype=xt.dtype, device=xt.device)
+    buf = buf.index_put((slot,), xt[r.st])[:-1].reshape(e, r.cap, d)
+    if e_w != e:
+        buf = buf[e0:e0 + e_w]
+    if cfg.mlp == "swiglu":
+        hidden = F.silu(torch.bmm(buf, w["e_gate"])) * torch.bmm(
+            buf, w["e_up"])
+    else:
+        hidden = F.gelu(torch.bmm(buf, w["e_up"]), approximate="tanh")
+    out_buf = torch.bmm(hidden, w["e_down"])
+    if e_w != e:
+        out_buf = F.pad(out_buf, (0, 0, 0, 0, e0, e - e0 - e_w))
+    y_tok = out_buf[r.se, r.rank.clamp(max=r.cap - 1)]
+    y_tok = torch.where(r.keep[:, None], y_tok, 0.0) * r.sg[:, None].to(
+        xt.dtype)
+    return moe_combine(y_tok, r.order, t, cfg.top_k)
+
+
+def _moe_sharded(cfg: LMConfig, lp: dict, x):
+    """:func:`moe_block` on a DTensor ``x``, rank by rank as
+    expert-parallel layers run: each rank routes its own rows (split
+    over the DP axes, whole over ``model``; capacity from its token
+    count) and averages the load statistics over the DP ranks; the
+    expert weights are gathered over every axis but ``model`` (FSDP),
+    so a rank runs its block of experts (EP) or every expert on its
+    slice of ``d_ff`` (expert-TP), and its output is a partial sum over
+    ``model``."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names or ())
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in x.placements)
+    x = x.redistribute(mesh, rows)
+    b, s, d = x.shape
+    xt = x.to_local().reshape(-1, d)
+    r = moe_route(cfg, {"router": local_of(lp["router"])}, xt)
+    me, ce = _load_stats(cfg, r.probs, r.idx)
+    for i, p in enumerate(rows):
+        if isinstance(p, Shard):
+            me = funcol.all_reduce(me, "sum", (mesh, i)) / mesh.size(i)
+            ce = funcol.all_reduce(ce, "sum", (mesh, i)) / mesh.size(i)
+    aux = cfg.aux_loss_coef * cfg.n_experts * torch.sum(me * ce)
+    on_model = lambda t: tuple(p if n == "model" else Replicate()
+                               for n, p in zip(names, t.placements))
+    w = {n: lp[n].redistribute(mesh, on_model(lp[n])).to_local()
+         for n in ("e_up", "e_down", "e_gate") if n in lp}
+    e_w = w["e_up"].shape[0]
+    e0 = mesh.get_local_rank("model") * e_w if e_w != cfg.n_experts else 0
+    y = _moe_experts(cfg, w, xt, r, e0).reshape(x.to_local().shape)
+    y = wrap(y, mesh, tuple(Partial() if isinstance(m, Shard) else p
+                            for m, p in zip(on_model(lp["e_up"]), rows)),
+             x.shape)
+    aux = wrap(aux, mesh, (Replicate(),) * mesh.ndim, ())
+    if cfg.n_shared:
+        if cfg.mlp == "swiglu":
+            y = y + swiglu(x, lp["s_gate"], lp["s_up"], lp["s_down"])
+        else:
+            y = y + gelu_mlp(x, lp["s_up"], lp["s_down"])
+    return y, aux
 
 
 def mlp_block(cfg: LMConfig, lp: dict, x):
@@ -396,43 +540,55 @@ def mlp_block(cfg: LMConfig, lp: dict, x):
 # forward passes
 # ---------------------------------------------------------------------------
 
-def _layer_fwd(cfg: LMConfig, x, lp: dict, attn: str):
+def _layer_fwd(cfg: LMConfig, x, lp: dict, attn: str, act_placements=None):
     a, _, _ = attention(cfg, lp, rms_norm(x, lp["ln1"]), attn=attn)
-    x = x + a
+    x = constrain(x + a, act_placements)
     m, aux = mlp_block(cfg, lp, rms_norm(x, lp["ln2"]))
-    return x + m, aux
+    return constrain(x + m, act_placements), aux
 
 
-def forward(cfg: LMConfig, params: dict, tokens, *, attn=None):
+def forward(cfg: LMConfig, params: dict, tokens, *, attn=None,
+            act_placements=None):
     """Prefill-style forward: tokens ``[B, S]`` -> (logits ``[B, S, V]``,
     aux loss averaged over the layers; 0.0 for a dense model).  With
     ``cfg.remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in backward, as the reference's ``jax.checkpoint``."""
+    recomputed in backward, as the reference's ``jax.checkpoint``.
+
+    ``act_placements``: DTensor placements of the ``[B, S, D]`` residual
+    stream, applied after the embedding and after each residual add (the
+    reference's ``act_spec`` constraint); ``None``, or plain tensors,
+    leave it alone."""
     attn = resolve_attn(attn, tokens.device)
-    x = params["embed"][tokens].to(cfg.dtype)
+    if is_dtensor(tokens):
+        act_placements = _rows_that_divide(act_placements,
+                                           tokens.device_mesh,
+                                           tokens.shape[0])
+    x = constrain(params["embed"][tokens].to(cfg.dtype), act_placements)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _layer_fwd, cfg, x, lp, attn, use_reentrant=False)
+                _layer_fwd, cfg, x, lp, attn, act_placements,
+                use_reentrant=False)
         else:
-            x, a = _layer_fwd(cfg, x, lp, attn)
+            x, a = _layer_fwd(cfg, x, lp, attn, act_placements)
         aux = aux + a
     x = rms_norm(x, params["ln_f"])
     return _logits(cfg, params, x), aux / cfg.n_layers
 
 
-def loss_fn(cfg: LMConfig, params: dict, batch: dict):
+def loss_fn(cfg: LMConfig, params: dict, batch: dict, act_placements=None):
     """Next-token cross entropy of ``batch["tokens"] [B, S]`` (mean over
     the ``S - 1`` predicted positions, or over those where the optional
     ``batch["mask"] [B, S]`` is set), plus the MoE aux loss.  Returns
     ``(loss + aux, {"loss", "aux"})``.  Attention is the plain path
     (``attn="plain"``): the flash kernel has no backward."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens, attn="plain")
+    logits, aux = forward(cfg, params, tokens, attn="plain",
+                          act_placements=act_placements)
     loss = softmax_cross_entropy(logits[:, :-1], tokens[:, 1:])
     mask = batch.get("mask")
     if mask is not None:
@@ -456,13 +612,16 @@ def init_cache(cfg: LMConfig, batch: int, s_cache: int, device=None):
 
 
 def prefill(cfg: LMConfig, params: dict, tokens, s_cache: int,
-            batch_chunks: int = 1, *, attn=None):
+            batch_chunks: int = 1, *, attn=None, act_placements=None):
     """Run the prompt ``tokens [B, S]``; returns ``(cache, last_logits
     [B, V])`` with the cache zero past ``S`` and ``pos = S``.
 
     ``batch_chunks > 1`` runs the batch in that many sequential groups
     (chunked prefill in the batch dimension), bounding the attention
-    working set to one group at a time.
+    working set to one group at a time.  ``act_placements`` as in
+    :func:`forward`.  On DTensor tokens the cache is made of the
+    layers' keys and values (DTensors, placed as the attention left
+    them) instead of written into a zero cache.
     """
     b, s = tokens.shape
     if s > s_cache:
@@ -472,25 +631,63 @@ def prefill(cfg: LMConfig, params: dict, tokens, s_cache: int,
             raise ValueError(f"batch {b} is not {batch_chunks} equal chunks")
         g = b // batch_chunks
         parts = [prefill(cfg, params, tokens[i * g:(i + 1) * g], s_cache,
-                         attn=attn) for i in range(batch_chunks)]
+                         attn=attn, act_placements=act_placements)
+                 for i in range(batch_chunks)]
         cache = {key: torch.cat([c[key] for c, _ in parts],
                                 dim=0 if key == "pos" else 1)
                  for key in ("k", "v", "pos")}
         return cache, torch.cat([lg for _, lg in parts])
     attn = resolve_attn(attn, tokens.device)
-    cache = init_cache(cfg, b, s_cache, tokens.device)
-    x = params["embed"][tokens].to(cfg.dtype)
+    sharded = is_dtensor(tokens)
+    if sharded:
+        act_placements = _rows_that_divide(act_placements,
+                                           tokens.device_mesh, b)
+    else:
+        cache = init_cache(cfg, b, s_cache, tokens.device)
+    kvs = []
+    x = constrain(params["embed"][tokens].to(cfg.dtype), act_placements)
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         a, k, v = attention(cfg, lp, rms_norm(x, lp["ln1"]), attn=attn)
-        x = x + a
+        x = constrain(x + a, act_placements)
         m, _ = mlp_block(cfg, lp, rms_norm(x, lp["ln2"]))
-        x = x + m
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        x = constrain(x + m, act_placements)
+        if sharded:
+            kvs.append((k, v))
+        else:
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
     x = rms_norm(x, params["ln_f"])
-    cache["pos"].fill_(s)
+    if sharded:
+        cache = {key: torch.stack([kv[j] for kv in kvs])
+                 for j, key in enumerate(("k", "v"))}
+        if s < s_cache:
+            cache = {key: F.pad(t, (0, 0, 0, 0, 0, s_cache - s))
+                     for key, t in cache.items()}
+        cache["pos"] = torch.full_like(tokens[:, 0], s, dtype=torch.int32)
+    else:
+        cache["pos"].fill_(s)
     return cache, _logits(cfg, params, x[:, -1])
+
+
+def _rows_that_divide(places, mesh, rows: int):
+    """``places`` with dim 0 split only over the mesh dims (in order)
+    whose running product divides ``rows``; the rest of dim 0's splits
+    replicated (a chunk of fewer rows than ranks is computed whole on
+    the ranks that would split it unevenly)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if places is None:
+        return None
+    out, k = [], 1
+    for i, p in enumerate(places):
+        if isinstance(p, Shard) and p.dim == 0:
+            if rows % (k * mesh.size(i)) == 0:
+                k *= mesh.size(i)
+            else:
+                p = Replicate()
+        out.append(p)
+    return tuple(out)
 
 
 def ring_positions(pos, s_cache: int):
@@ -506,7 +703,7 @@ def ring_positions(pos, s_cache: int):
 
 
 def decode_step(cfg: LMConfig, params: dict, cache: dict, tok, *,
-                attn=None):
+                attn=None, act_placements=None):
     """One decode step.  tok: ``[B]`` int.  Returns ``(logits [B, V],
     cache)``: the same cache dict, its K/V written in place at each
     slot's position and ``pos`` advanced by one.
@@ -514,51 +711,112 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict, tok, *,
     With ``cfg.attn_window == s_cache`` the cache is a ring buffer.
     Otherwise a slot at ``pos >= s_cache`` writes nothing and attends the
     whole cache, as the reference's dropped out-of-range scatter does.
+
+    ``act_placements`` is accepted and unused, as the reference's
+    ``act_spec`` here.  A DTensor cache may have its batch and positions
+    split (``lm_cache_specs``): each rank writes the slots its block
+    holds and attends over its positions, merged by :func:`_sdpa_decode`
+    over the ranks that share a row.
     """
+    del act_placements
     attn = resolve_attn(attn, tok.device)
     b = tok.shape[0]
     s_cache = cache["k"].shape[2]
-    pos = cache["pos"]                                       # [B] int32
+    blk = _CacheBlock(cache["k"])
+    pos = blk.rows(cache["pos"])                             # [B] int32
+    kc_all, vc_all = blk.local(cache["k"]), blk.local(cache["v"])
     x = params["embed"][tok][:, None, :].to(cfg.dtype)       # [B, 1, D]
 
+    p0, s_loc = blk.p0, kc_all.shape[2]
     if cfg.attn_window and s_cache == cfg.attn_window:
         write_at = pos % s_cache                             # ring buffer
-        kv_positions = ring_positions(pos, s_cache)
+        kv_positions = ring_positions(pos, s_cache)[:, p0:p0 + s_loc]
     else:
         write_at = pos
         kv_positions = None                                  # slot t at t
-    keep = (write_at < s_cache)[:, None, None]
-    slot = write_at.clamp(max=s_cache - 1).long()
-    rows = torch.arange(b, device=tok.device)
+    at = write_at - p0
+    keep = ((write_at < s_cache) & (at >= 0) & (at < s_loc))[:, None, None]
+    slot = at.clamp(0, max(s_loc - 1, 0)).long()
+    b_loc = pos.shape[0]
+    rows = torch.arange(b_loc, device=pos.device)
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
 
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        kc, vc = cache["k"][i], cache["v"][i]                # [B, T, KV, HD]
+        kc, vc = kc_all[i], vc_all[i]                        # [B, T, KV, HD]
         xn = rms_norm(x, lp["ln1"])
-        q = (xn @ lp["wq"]).reshape(b, 1, kv, h // kv, hd)
-        k = (xn @ lp["wk"]).reshape(b, 1, kv, hd)
-        v = (xn @ lp["wv"]).reshape(b, 1, kv, hd)
+        q = blk.rows(xn @ lp["wq"]).reshape(b_loc, 1, kv, h // kv, hd)
+        k = blk.rows(xn @ lp["wk"]).reshape(b_loc, 1, kv, hd)
+        v = blk.rows(xn @ lp["wv"]).reshape(b_loc, 1, kv, hd)
         if cfg.qk_norm:
-            q = rms_norm(q, lp["q_norm"])
-            k = rms_norm(k, lp["k_norm"])
-        q = apply_rope(q.reshape(b, 1, h, hd), pos[:, None],
+            q = rms_norm(q, local_of(lp["q_norm"]))
+            k = rms_norm(k, local_of(lp["k_norm"]))
+        q = apply_rope(q.reshape(b_loc, 1, h, hd), pos[:, None],
                        cfg.rope_theta).reshape(q.shape)
         k = apply_rope(k, pos[:, None], cfg.rope_theta)
-        kc[rows, slot] = torch.where(keep, k[:, 0], kc[rows, slot])
-        vc[rows, slot] = torch.where(keep, v[:, 0], vc[rows, slot])
-        if attn == "flash":
+        if s_loc:
+            kc[rows, slot] = torch.where(keep, k[:, 0], kc[rows, slot])
+            vc[rows, slot] = torch.where(keep, v[:, 0], vc[rows, slot])
+        if attn == "flash" and blk.mesh is None:
             out = flash_attention_pos(q, kc, vc, pos[:, None], kv_positions,
                                       causal=True, window=cfg.attn_window)
         else:
             tp = kv_positions
             if tp is None:
-                tp = torch.arange(s_cache, dtype=torch.int32,
-                                  device=tok.device).expand(b, s_cache)
-            out = _sdpa_decode(cfg, q, kc, vc, pos, tp)
-        x = x + out.reshape(b, 1, h * hd) @ lp["wo"]
+                tp = torch.arange(p0, p0 + s_loc, dtype=torch.int32,
+                                  device=pos.device).expand(b_loc, s_loc)
+            out = _sdpa_decode(cfg, q, kc, vc, pos, tp, blk.group)
+        out = blk.whole(out.reshape(b_loc, 1, h * hd), (b, 1, h * hd))
+        x = x + out @ lp["wo"]
         m, _ = mlp_block(cfg, lp, rms_norm(x, lp["ln2"]))
         x = x + m
     x = rms_norm(x, params["ln_f"])
-    cache["pos"] = pos + 1
+    cache["pos"] = cache["pos"] + 1
     return _logits(cfg, params, x[:, 0]), cache
+
+
+class _CacheBlock:
+    """This rank's block of a ``[L, B, S_cache, KV, HD]`` cache for
+    :func:`decode_step`: ``p0`` its first position, ``group`` the mesh
+    dim its positions are split over (``None``: every position here),
+    :meth:`rows` a ``[B, ...]`` tensor's rows of the block, :meth:`local`
+    the block itself and :meth:`whole` a block's rows back as a DTensor.
+    A plain cache is one block: ``p0 = 0`` and the methods return their
+    argument."""
+
+    def __init__(self, kc):
+        self.mesh, self.group, self.p0 = None, None, 0
+        if not is_dtensor(kc):
+            return
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        places = kc.placements
+        if any(isinstance(p, Shard) and p.dim not in (1, 2)
+               for p in places):
+            raise ValueError(f"cache placements {places}: only the batch "
+                             "and positions may be sharded")
+        seq = [i for i, p in enumerate(places)
+               if isinstance(p, Shard) and p.dim == 2]
+        if len(seq) > 1:
+            raise ValueError("positions sharded over more than one mesh dim")
+        self.mesh = kc.device_mesh
+        self.group = (self.mesh, seq[0]) if seq else None
+        self.p0 = compute_local_shape_and_global_offset(
+            tuple(kc.shape), self.mesh, tuple(places))[1][2]
+        self.row_places = tuple(Shard(0) if isinstance(p, Shard) and
+                                p.dim == 1 else Replicate() for p in places)
+
+    def rows(self, t):
+        if self.mesh is None:
+            return t
+        return t.redistribute(self.mesh, self.row_places).to_local()
+
+    def local(self, t):
+        return t if self.mesh is None else t.to_local()
+
+    def whole(self, t, shape):
+        if self.mesh is None:
+            return t
+        return wrap(t, self.mesh, self.row_places, shape)

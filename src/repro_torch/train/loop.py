@@ -8,8 +8,10 @@ parameter leaves, then the optimizer.  The batch (a dict of tensors or
 numpy arrays, or a GNN ``GraphBatch``) is moved to the parameters'
 device.  Accumulation over microbatches is a Python loop (one
 microbatch's activations live at a time), the reference's ``lax.scan``.
-The reference's sharding hook ``act_spec`` has no counterpart on one
-card.
+``make_lm_train_step``'s ``act_placements`` is the reference's
+``act_spec`` (DTensor placements of the residual stream; nothing for
+plain tensors).  DTensor parameters and batches (the dry-run's cells)
+run the same code.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ..models import transformer
 from ..models.gnn import common as gnn_common
 from ..models.recsys import mind as mind_mod
+from ..parallel.dtensor_ops import is_dtensor
 from . import optimizer as opt_mod
 from .tree import leaves, tree_map, unflatten
 
@@ -26,8 +29,29 @@ from .tree import leaves, tree_map, unflatten
 def _on_device(batch, device):
     if isinstance(batch, gnn_common.GraphBatch):
         return batch.to(device)
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(
-        v, torch.Tensor) else v, device=device) for k, v in batch.items()}
+    return {k: v if is_dtensor(v) else torch.as_tensor(
+        np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+        device=device) for k, v in batch.items()}
+
+
+def _split(v, microbatches: int):
+    """The ``microbatches`` equal leading-dim parts of ``v``.  A DTensor
+    whose local rows split evenly is split rank by rank (each part keeps
+    the placements; microbatch ``i`` holds every rank's ``i``-th local
+    part, a mean over the same rows); otherwise by global slices."""
+    b = v.shape[0]
+    m = b // microbatches
+    if is_dtensor(v):
+        from ..parallel.dtensor_ops import wrap
+        loc = v.to_local()
+        if loc.shape[0] % microbatches == 0:
+            lm = loc.shape[0] // microbatches
+            return [wrap(loc[i * lm:(i + 1) * lm], v.device_mesh,
+                         v.placements, (m, *v.shape[1:]))
+                    for i in range(microbatches)]
+        return [v[i * m:(i + 1) * m] for i in range(microbatches)]
+    split = v.reshape(microbatches, m, *v.shape[1:])
+    return [split[i] for i in range(microbatches)]
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -58,10 +82,9 @@ def _accumulate(loss_fn, params, batch: dict, microbatches: int):
     if b % microbatches:
         raise ValueError(f"batch {b} is not {microbatches} equal "
                          "microbatches")
-    split = {k: v.reshape(microbatches, b // microbatches, *v.shape[1:])
-             for k, v in batch.items()}
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params)
+    split = {k: _split(v, microbatches) for k, v in batch.items()}
+    acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params)
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=leaves(params)[0].device)
     for i in range(microbatches):
@@ -86,11 +109,12 @@ def _step(loss_fn, opt_cfg, microbatches: int):
 
 
 def make_lm_train_step(cfg: transformer.LMConfig,
-                       opt_cfg: opt_mod.AdamWConfig, microbatches: int = 1):
+                       opt_cfg: opt_mod.AdamWConfig, act_placements=None,
+                       microbatches: int = 1):
     """AdamW on :func:`transformer.loss_fn` (plain attention) over
     ``{"tokens": [B, S], "mask": [B, S] (optional)}`` batches."""
-    return _step(lambda p, b: transformer.loss_fn(cfg, p, b), opt_cfg,
-                 microbatches)
+    return _step(lambda p, b: transformer.loss_fn(cfg, p, b, act_placements),
+                 opt_cfg, microbatches)
 
 
 def make_gnn_train_step(forward, cfg, opt_cfg, graph_level: bool = False,

@@ -5,8 +5,9 @@ empty segments exactly) and the tie gradient of the segment max and min
 (both packages split it evenly); PNA on a graph with isolated nodes and
 tied maxima, and its graph-level overflow there (reference fault 5);
 remat on and off (bitwise); DimeNet's triplet chunks against one chunk
-and the reference; edge-mask padding; a sharded context refused; graph
-batches, the train-step builders' inputs and the parameter conversion.
+and the reference; edge-mask padding; a sharded context (plain tensors
+are a rank's shards: on a one-rank mesh the ops give the one-device
+result; a context without a mesh refused); graph batches, the train-step builders' inputs and the parameter conversion.
 Tolerances are ``torch_gnn_common``'s (the forward within 1e-4 of its
 largest magnitude, gradients at rtol 1e-4 with a floor of 1e-4 of the
 leaf's scale)."""
@@ -222,16 +223,32 @@ def test_edge_mask_padding(arch):
 
 # --- one device only, batches, conversion ------------------------------------
 
-def test_a_sharded_context_raises():
+def test_a_sharded_context_raises(tmp_path):
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
     tb = case("gin-tu", "smoke", False)[-1][1]
     sharded = tb._replace(shard_ctx=("mesh", ("x",)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tc.shard0(sharded, tb.node_feat)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    # a plain tensor is this rank's shard: nothing to constrain
+    assert tc.shard0(sharded, tb.node_feat) is tb.node_feat
+    with pytest.raises(TypeError, match="DeviceMesh"):
         gather0(("mesh", ("x",)), tb.node_feat, tb.senders)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         scatter_sum0(("mesh", ("x",)), tb.node_feat, tb.senders, 60)
     assert tc.shard0(tb, tb.node_feat) is tb.node_feat
+    tdist.init_process_group(
+        "gloo", store=tdist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        ctx = (init_device_mesh("cpu", (1,), mesh_dim_names=("x",)), ("x",))
+        senders = tb.senders.long()
+        assert torch.equal(gather0(ctx, tb.node_feat, senders),
+                           gather0(None, tb.node_feat, senders))
+        msg = tb.node_feat.index_select(0, senders)
+        torch.testing.assert_close(scatter_sum0(ctx, msg, senders, 60),
+                                   scatter_sum0(None, msg, senders, 60),
+                                   rtol=1e-6, atol=1e-6)
+    finally:
+        tdist.destroy_process_group()
 
 
 def test_graph_batch_moves_its_arrays():

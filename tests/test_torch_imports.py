@@ -192,6 +192,10 @@ def test_unported_architectures_raise():
 
 
 _STANDALONE = ("src/repro_torch/delta/edits.py",
+               "src/repro_torch/launch/mesh.py",
+               "src/repro_torch/launch/comm_stats.py",
+               "src/repro_torch/parallel/__init__.py",
+               "src/repro_torch/parallel/dtensor_ops.py",
                "src/repro_torch/data/sampler.py",
                "src/repro_torch/data/triplets.py",
                "src/repro_torch/data/synthetic.py",
@@ -272,7 +276,18 @@ _STANDALONE = ("src/repro_torch/delta/edits.py",
                                   "examples/torch/serving_demo.py",
                                   "examples/torch/serve_lm.py",
                                   "examples/torch/train_lm.py",
-                                  "examples/torch/gnn_sssp_features.py"])
+                                  "examples/torch/gnn_sssp_features.py",
+                                  "tools/dryrun_phase.py",
+                                  "src/repro_torch/launch/mesh.py",
+                                  "src/repro_torch/launch/cells.py",
+                                  "src/repro_torch/launch/dryrun.py",
+                                  "src/repro_torch/launch/comm_stats.py",
+                                  "src/repro_torch/parallel/__init__.py",
+                                  "src/repro_torch/parallel/sharding.py",
+                                  "src/repro_torch/parallel/compress.py",
+                                  "src/repro_torch/parallel/"
+                                  "dtensor_ops.py",
+                                  "src/repro_torch/configs/lm_common.py"])
 def test_card_side_files_import_no_jax(path):
     # the machine with the card has no jax: these files run there (a
     # relative import inside the package is an import of repro_torch)
@@ -499,3 +514,34 @@ def test_serve_launcher_needs_a_card_unless_told_cpu(capsys):
             serve.main(["--requests", "1", "--max-new", "2"])
     serve.main(["--device", "cpu", "--requests", "2", "--max-new", "3"])
     assert "served 2 requests (6 tokens)" in capsys.readouterr().out
+
+
+_DRYRUN_PROBE = """
+import json, sys
+from repro_torch import configs
+from repro_torch.launch import cells, comm_stats, dryrun, mesh
+from repro_torch.parallel import compress, sharding
+dryrun.start_fake_group(4)
+m = mesh.make_mesh((2, 2), ("data", "model"), device_type="cpu")
+fn, args, meta, out = cells.build_cell("gin-tu", "molecule", m, smoke=True)
+_, records, flops, _, _ = dryrun.trace_cell(fn, args, out)
+art = dryrun.run_sssp("single", 8, 4, "v3", "blocked", device="cpu",
+                      out_dir=sys.argv[1], world=4)
+loaded = sorted(k for k in sys.modules
+                if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"loaded": loaded, "flops": flops, "ok": art["ok"],
+                  "records": len(records), "cells": len(list(
+                      configs.all_cells()))}))
+"""
+
+
+def test_dryrun_imports_no_jax_and_no_reference(tmp_path):
+    """The many-device tooling (mesh, rules, compression, cells, the
+    dry-run) loads neither jax nor the reference."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _DRYRUN_PROBE,
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=300, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and res["ok"] and res["cells"] == 35
+    assert res["flops"] > 0 and res["records"] > 0

@@ -8,7 +8,7 @@ smoke's graph at scale 20, about 40 s of numpy), then runs
 ``chip_smoke.gnn_phase``: GIN, GatedGCN, PNA and DimeNet at full width
 on ``full_graph_sm`` and ``molecule`` (each step on the card against the
 CPU's, DimeNet's basis bitwise), then 8 anchors solved as one batched
-tree on ``blocked`` and gin-tu trained for 60 steps on their features:
+tree on ``blocked`` and gin-tu trained for 30 steps on their features:
 the same ``[gnn]`` and ``[anchors]`` lines and checks as in the smoke.
 With ``--profile``, then one step of each model on ``full_graph_sm``
 under ``torch.profiler`` after a warm-up (``[gnn profile]`` lines: the

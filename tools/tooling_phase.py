@@ -60,9 +60,12 @@ EXPLORE_MAX_ITERS = 20_000
 # the cuts of depth chip_smoke.py makes for its time limit, in the order
 # the phase gives them up (uncut, the smoke took 1,167.1 s of its 1,200 on
 # an H100): the LM and GNN examples (the CPU tests keep them), Δ-stepping
-# on road (2.8 s), then minibatch_lg's timed steps down to one
+# on road (2.8 s), then minibatch_lg's timed steps down to one, then
+# (paying for phase 4f) the Zipf traffic from 32 items to 16 (part c took
+# 37.5 s for 32)
 SMOKE_CUTS = dict(examples=("quickstart", "serving_demo"),
-                  road_delta_stepping=False, minibatch_steps=2)
+                  road_delta_stepping=False, minibatch_steps=2,
+                  traffic_n=16)
 VARIANT_POWER = 4
 TRAFFIC = dict(n=32, seed=0, max_batch=8)
 # the served answer's normalized metrics that count logical work (the
@@ -289,8 +292,9 @@ def variant_part(tree, device):
     return out, var
 
 
-def traffic_part(graphs, device) -> dict:
-    """Part c over ``graphs`` (gid -> host graph, hottest first)."""
+def traffic_part(graphs, device, n: int = TRAFFIC["n"]) -> dict:
+    """Part c over ``graphs`` (gid -> host graph, hottest first): ``n``
+    items of Zipf traffic."""
     cs = _cs()
     from repro_torch.api import EngineConfig, Solver
     from repro_torch.data.traffic import make_traffic
@@ -298,7 +302,7 @@ def traffic_part(graphs, device) -> dict:
     from repro_torch.serve.queries import finalize
     from repro_torch.serve.registry import GraphRegistry
     from repro_torch.serve.router import QueryRouter
-    traffic = make_traffic(graphs, TRAFFIC["n"], seed=TRAFFIC["seed"])
+    traffic = make_traffic(graphs, n, seed=TRAFFIC["seed"])
     cfg = EngineConfig(backend="blocked", max_batch=TRAFFIC["max_batch"],
                        registry_capacity=4 * len(graphs))
     registry = GraphRegistry(config=cfg, device=device)
@@ -417,7 +421,7 @@ def tooling_phase(trees, device, parts="abcde", explore=False,
     if "c" in parts:
         out["traffic"] = traffic_part(
             {"social": kron["host"], f"social_pow{VARIANT_POWER}": var},
-            device)
+            device, SMOKE_CUTS["traffic_n"] if cut else TRAFFIC["n"])
         cs.mark("phase 4e-c (Zipf traffic)")
     del var
     cs.release_card("before phase 4e-d")

@@ -4,9 +4,10 @@
 
 ``--parent DIR`` (a checkout of another commit, e.g. ``git archive`` of
 the parent unpacked into an ignored directory) also times that checkout's
-``edge_relax``, ``edge_relax_partials``, ``edge_relax_fused`` and
-``embedding_bag`` kernels, and its embedding layer, on the same inputs as
-this tree's, in turns (parent, this, this, parent).  Run with no argument, the script needs one card and nothing
+``edge_relax`` (one-state and over slots), ``edge_relax_partials``,
+``edge_relax_fused`` and ``embedding_bag`` kernels, and its embedding
+layer, on the same inputs as this tree's, in turns (parent, this, this,
+parent).  Run with no argument, the script needs one card and nothing
 else.
 
 Phases, in order; any failure exits non-zero:
@@ -27,15 +28,18 @@ Phases, in order; any failure exits non-zero:
    ``frontier`` and the eight counters bitwise equal), and
    ``flash_attention`` on seeded cases in float32 (at 2e-5) and bfloat16
    (at 2e-2), each call launching once, of the design ``ops.variant``
-   names ("tc" bf16 tensor cores, "split" split-KV decode, "simt" CUDA
-   cores): S not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64
-   and 128, causal, non-causal and windowed masks; prefill calls at S = T
-   of 64, 200, 2048 and 3072 with qwen3-0.6b's 8 KV heads of 2 and D =
-   128, and S = 130 with groups of 8 at D = 64; a chunk of queries at
-   positions 300..369 over keys at 0..T-1 and -1 padded; decode calls
-   over a cache slice with keys at 0..T-1, -1 padded or at ring-buffer
-   positions, slots past the cache and below T - 1, with and without a
-   window.  Then the ALT branches of
+   names ("tc" bf16 tensor cores, "split" split-KV decode, "split_tc"
+   split-KV on the tensor cores for 9 to 63 rows, "simt" CUDA cores): S
+   not a multiple of a tile, GQA groups 1, 2, 8 and 16, D 64 and 128,
+   causal, non-causal and windowed masks; prefill calls at S = T of 64,
+   200, 2048 and 3072 with qwen3-0.6b's 8 KV heads of 2 and D = 128, and
+   S = 130 with groups of 8 at D = 64; a chunk of queries at positions
+   300..369 over keys at 0..T-1 and -1 padded, and one of 48 rows (3
+   queries in groups of 16 over one KV head); decode calls over a cache
+   slice with keys at 0..T-1, -1 padded or at ring-buffer positions,
+   slots past the cache and below T - 1, with and without a window, at
+   2 to 63 rows (granite-34b's 48 over one KV head among them).  Then
+   the ALT branches of
    ``edge_relax`` and ``edge_relax_fused`` (``alt_lb`` with +inf entries;
    prune bounds of +inf, below every candidate, at a tie and in between;
    fused targets reached before and within the call, so that the bound
@@ -68,8 +72,8 @@ Phases, in order; any failure exits non-zero:
    with ``fused_rounds=4`` (``edge_relax_fused``'s ALT branch),
    bidirectionally on ``blocked``, and, on kronecker only
    (``PLAIN_GRAPHS``), on ``segment_min`` (plain); on road_grid the
-   bidirectional queries and pair 2's fused ALT query are cut for the
-   run's time (``P2P_CUTS``, a cut of depth).
+   bidirectional queries and pair 1's ALT and fused ALT queries are cut
+   for the run's time (``P2P_CUTS``, a cut of depth).
    ``dist[t]`` and the reconstructed path must be bitwise equal across
    the solves, ``dist[t]`` must equal the tree solve's (same source) or
    scipy Dijkstra's at ``rtol=1e-4``, the three unidirectional ALT solves
@@ -143,9 +147,10 @@ Phases, in order; any failure exits non-zero:
 3c. The facade (``repro_torch.api``: ``Solver``, ``SolveSpec``,
    ``sssp_batch`` underneath), on the graphs and layouts above.  First
    ``edge_relax`` over slots against its plain version on 20 seeded
-   random slabs (1, 3 and 8 slots, with and without ALT, each over every
-   slot, every other slot and the last alone; each call twice; every
-   active slot's ``vals``, ``wins`` and four counters bitwise).  On
+   random slabs (1, 3, 8 and 33 slots, each slot with its own frontier
+   density, none included, with and without ALT, each over every slot,
+   every other slot and the last alone; each call twice; every active
+   slot's ``vals``, ``wins`` and four counters bitwise).  On
    kronecker(20,16), ``Solver.open(g, EngineConfig(backend="blocked",
    use_alt=True))`` (its landmark distances bitwise the p2p phase's):
    a ``SolveSpec.tree`` of 8 sources (the max-degree one and 7 seeded),
@@ -275,7 +280,8 @@ Phases, in order; any failure exits non-zero:
    design ``ops.variant`` names and timed (``[flash_attention] <arch>``
    lines: graph replay, eager, plain, ``scaled_dot_product_attention``,
    the bound): phi4-mini 8 KV heads of 3, granite-34b's MQA (48 query
-   heads over one KV head: its decode runs "simt"), deepseek-moe's MHA,
+   heads over one KV head: its decode runs "split_tc", timed beside
+   "simt" forced on the same call), deepseek-moe's MHA,
    granite-moe's D = 64.  Then ``moe_block`` on the card against the CPU
    in float32 with TF32 off at deepseek-moe-16b's and granite-moe's full
    width cut to one layer, 512 seeded tokens (``[moe]`` lines: routing
@@ -407,14 +413,16 @@ Phases, in order; any failure exits non-zero:
    parent design's bound (:func:`bound_bytes`), and with ``--parent``
    the parent design's times on the same inputs; the
    ``[layout]`` lines give the vertex->tile index's build seconds; the
-   ALT rows at the middle kernel call of the first p2p pair's
-   ALT query, unfused and fused, captured by solving that query again,
+   ALT rows at the middle kernel call of the first p2p pair's (road's
+   second, ``ALT_ROW_PAIR``) ALT query, unfused and fused, captured by
+   solving that query again,
    with their launches over the p2p queries; ``edge_relax_partials``'
    ALT row at the middle call of each graph's first v1 ALT query,
    captured in that query, with its launches over the v1 queries;
    ``edge_relax_batch`` and ``edge_relax_batch[alt]`` at the middle call
    of phase 3c's batched tree and p2p specs (8 and 4 slots): graph
-   replay and eager, beside the same slots as one-state calls, the plain
+   replay and eager (with ``--parent`` beside the parent design's, in
+   turns), beside the same slots as one-state calls, the plain
    version, one ``scatter_reduce_`` over all slots' keys and the bound
    (:func:`batch_bound_bytes`: the slab read once for all slots), with
    their launches per batched solve; ``[facade]`` lines with each
@@ -1055,12 +1063,17 @@ ALT_SOLVES = ("alt", "alt fused", "alt segment_min")
 # solves cut from the p2p phase for the run's time, by graph and pair
 # index (a cut of depth, paying for phases 4b and 4c; seconds on an
 # H100): road_grid's bidirectional queries (26.4 s for pair 1, 13.3 for
-# pair 2) and pair 2's fused ALT query (6.3 s).  Road pair 1 keeps
-# its unpruned, ALT and fused ALT queries (the ALT rows are measured at
-# its middle calls), pair 2 its unpruned and ALT queries (the v1 engine
-# answers pair 2 against them).
-P2P_CUTS = {"road_grid(1024)": {0: ("alt bidirectional",),
-                                1: ("alt fused", "alt bidirectional")}}
+# pair 2) and pair 1's ALT and fused ALT queries (16.9 and 15.3 s, where
+# pair 2's took 8.6 s and about as long again; PERF.md §4).
+# Road pair 1 keeps its unpruned query, pair 2 its unpruned, ALT and
+# fused ALT queries (the ALT rows are measured at their middle calls,
+# ALT_ROW_PAIR, and the v1 engine answers pair 2 against them).
+P2P_CUTS = {"road_grid(1024)": {0: ("alt", "alt fused",
+                                    "alt bidirectional"),
+                                1: ("alt bidirectional",)}}
+# the pair, by index, whose ALT queries' middle calls give a graph's ALT
+# rows (default the first)
+ALT_ROW_PAIR = {"road_grid(1024)": 1}
 
 
 def pick_pairs(hg, n_pairs: int, seed: int):
@@ -2525,7 +2538,9 @@ def batch_slab_case(rng, n, m, *, block_v, tile_e, ties, n_slots, alt,
     dist = (rng.integers(0, 6, shape) if ties
             else rng.random(shape) * 3).astype(np.float32)
     dist[rng.random(shape) < 0.2] = np.inf
-    paths = (rng.random(shape) < rng.choice([0.01, 0.3, 1.0])) \
+    # uneven frontiers: each slot's own density, none at all included
+    paths = (rng.random(shape) < rng.choice([0.0, 0.01, 0.3, 1.0],
+                                            (n_slots, 1))) \
         & np.isfinite(dist)
     parent = np.where(np.isfinite(dist), rng.integers(0, n_out, shape),
                       -1).astype(np.int32)
@@ -2570,14 +2585,15 @@ def batch_pair(args, kw, what):
 
 def batch_vs_plain(device, seed: int = 7, n_random: int = 20) -> int:
     """The batched one-round kernel against its plain version on
-    ``n_random`` seeded random slabs: slot counts 1, 3 and 8 in turn,
-    with and without ALT, each over every slot, every other slot and the
-    last slot alone.  Returns the number of calls checked."""
+    ``n_random`` seeded random slabs: slot counts 1, 3, 8 and 33 (two
+    groups of the 32 a tile's slot mask holds) in turn, with and without
+    ALT, each over every slot, every other slot and the last slot alone.
+    Returns the number of calls checked."""
     rng = np.random.default_rng(seed)
     checked = 0
     for i in range(n_random):
         n = int(rng.integers(64, 20000))
-        n_slots = (1, 3, FACADE_SLOTS)[i % 3]
+        n_slots = (1, 3, FACADE_SLOTS, 33)[i % 4]
         case = dict(n=n, m=int(rng.integers(0, 8 * n)),
                     block_v=int(rng.choice([64, 1024, -(-n // 256) * 256])),
                     tile_e=int(rng.choice([32, 64, 256, 512])),
@@ -2881,9 +2897,11 @@ def library_batch(args, kw, want):
 def batch_numbers(args, kw, what: str) -> dict:
     """One batched ``relax_bucket`` call on the main path's inputs: the
     check against the plain version (:func:`batch_pair`), its device time
-    (:func:`graph_ms`) and eager time beside the same slots as one-state
-    calls (all of them in one graph, and eagerly), the plain version's,
-    the library yardstick's and the bounds (:func:`batch_bound_bytes`)."""
+    (:func:`graph_ms`) and eager time (with ``--parent`` beside the
+    parent design's on the same inputs, in turns: :func:`in_turns`)
+    beside the same slots as one-state calls (all of them in one graph,
+    and eagerly), the plain version's, the library yardstick's and the
+    bounds (:func:`batch_bound_bytes`)."""
     from repro_torch.kernels.edge_relax import ops, ref
     out, want = batch_pair(args, kw, what)
     active = kw["active"].tolist()
@@ -2900,8 +2918,10 @@ def batch_numbers(args, kw, what: str) -> dict:
     call = lambda: ops.relax_bucket(*args, **kw)
     plain_kw = {k: v for k, v in kw.items() if k != "index"}
     bound_b, singles_b = batch_bound_bytes(args, kw)
+    parent_call = None if PARENT is None else \
+        lambda: PARENT.relax_bucket(*args, **kw)
     return dict(
-        ms=graph_ms(call), eager_ms=cuda_ms(call),
+        **in_turns(call, parent_call),
         singles_ms=graph_ms(singles), singles_eager_ms=cuda_ms(singles),
         plain_ms=cuda_ms(lambda: ref.edge_relax_batch_ref(*args,
                                                           **plain_kw)),
@@ -2933,8 +2953,8 @@ def facade_phase(results, p2p, device):
     of the batched tree and p2p specs on kronecker(20,16)."""
     from repro_torch.api import SolveSpec
     log(f"[kernel-vs-plain] edge_relax_batch: {batch_vs_plain(device)} "
-        "batched calls on random slabs bitwise equal (1, 3 and 8 slots, "
-        "active lists that skip slots, with and without ALT)")
+        "batched calls on random slabs bitwise equal (1, 3, 8 and 33 "
+        "slots, active lists that skip slots, with and without ALT)")
     f = facade_solves(results, p2p, device)
     mark("facade solves")
     solver, name = f.pop("solver"), "kronecker(20,16)"
@@ -2960,7 +2980,9 @@ def facade_phase(results, p2p, device):
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": "bytes", "library_ms": m["library_ms"],
-            "eager_ms": m["eager_ms"], "singles_ms": m["singles_ms"],
+            "eager_ms": m["eager_ms"], "parent_ms": m["parent_ms"],
+            "parent_eager_ms": m["parent_eager_ms"],
+            "singles_ms": m["singles_ms"],
             "singles_eager_ms": m["singles_eager_ms"],
             "bound_ms_singles": m["bound_ms_singles"], "slots": m["slots"],
             "active": m["active"], "launches_per_solve": {
@@ -3857,14 +3879,37 @@ def flash_vs_plain(device, seed: int = 3):
                               *args, causal=True),
                           lambda args=args: ops.flash_attention_pos_ref(
                               *args, causal=True)))
+        # 48 rows of 3 queries at 500..502 in groups of 16 over one KV head
+        # (split_tc in bf16), keys at 0..599 and -1 padded, with a window
+        q, k, v = rand(2, 3, 1, 16, 128), rand(2, 600, 1, 128), \
+            rand(2, 600, 1, 128)
+        q_pos = (500 + torch.arange(3, dtype=torch.int32, device=device)
+                 ).expand(2, 3)
+        pad = torch.arange(600, dtype=torch.int32, device=device).expand(
+            2, 600).clone()
+        pad[:, torch.from_numpy(rng.integers(0, 600, 200)).to(device)] = -1
+        for name, k_pos, window in (("arange", None, 0), ("padded", pad, 0),
+                                    ("arange", None, 77)):
+            args = (q, k, v, q_pos, k_pos)
+            kw = dict(causal=True, window=window)
+            cases.append((f"query chunk 500..502 HG=16 {name} {kw}",
+                          (48, 128),
+                          lambda args=args, kw=kw: ops.flash_attention_pos(
+                              *args, **kw),
+                          lambda args=args, kw=kw:
+                          ops.flash_attention_pos_ref(*args, **kw)))
         # decode calls: one query per slot at its position over one layer
         # of a [L, B, T, KV, D] cache, keys at 0..T-1, -1 padded, or a ring;
-        # positions past the cache, and below T - 1 with a window
+        # positions past the cache, and below T - 1 with a window; the last
+        # four with 9 to 63 rows (split_tc in bf16; granite-34b's 48 heads
+        # over one KV head at its served cache first)
         for b, kv, hg, d, t, window, below in (
                 (8, 8, 2, 128, 4096, 0, False), (5, 2, 1, 64, 700, 0, False),
                 (3, 1, 8, 128, 513, 0, False),
                 (4, 8, 2, 128, 1024, 1024, False),
-                (8, 8, 2, 128, 300, 0, True), (8, 8, 2, 128, 4096, 97, True)):
+                (8, 8, 2, 128, 300, 0, True), (8, 8, 2, 128, 4096, 97, True),
+                (4, 1, 48, 128, 512, 0, False), (2, 2, 24, 64, 300, 0, False),
+                (3, 1, 9, 128, 700, 61, True), (1, 1, 63, 64, 1000, 0, False)):
             cache = rand(2, 2, b, t, kv, d)
             kc, vc = cache[0, 1], cache[1, 1]
             q = rand(b, 1, kv, hg, d)
@@ -4525,6 +4570,16 @@ def flash_config_shapes(device):
             m = _flash_numbers(calls, flops=flops, bytes_=bytes_,
                                what=f"{arch} {call}")
             m.update(design=kind, kv=kv, hg=hg, d=d, rows=rows)
+            if kind == "split_tc":
+                # the CUDA-core design that served this call before, on the
+                # same inputs
+                o = torch.empty_like(q)
+                simt = lambda: ops._flash_cuda(q, kc, vc, pos, None, o, True,
+                                               0, kind="simt")
+                simt()
+                m["simt_max_abs_err"] = flash_check(
+                    o, calls["plain"](), bf, f"{arch} {call} simt")
+                m["simt_ms"] = graph_ms(simt)
             row[call] = m
             log(f"[flash_attention] {arch} {call} (KV={kv} HG={hg} D={d}, "
                 f"{kind}): " + json.dumps(m))
@@ -5908,6 +5963,7 @@ def main() -> int:
         m["max_abs_err"] for by in lm_configs["flash"].values()
         for m in by.values()])
     kernels.append(row)
+    kernels.append(split_tc_row(lm_configs))
     torch.cuda.empty_cache()
     recsys = recsys_phases(device, profiled)
     mark("phase 5 (recsys)")
@@ -5929,6 +5985,32 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def split_tc_row(lm_configs) -> dict:
+    """The ``kernels`` entry of flash_attention's "split_tc" design: its
+    numbers at granite-34b's decode call (phase 4b, beside "simt" forced
+    on the same call) and its launches in phase 4b's served runs."""
+    served = lm_configs["served"]
+    m = lm_configs["flash"]["granite-34b"]["decode"]
+    eng = ARCH_SERVE["granite-34b"]["serve"]
+    if m["design"] != "split_tc":
+        raise AssertionError(f"granite-34b's decode call ran {m['design']}")
+    by_arch = {arch: sum(r["launches_by_design"][call]["split_tc"]
+                         for call in ("prefill", "decode"))
+               for arch, r in served.items()}
+    return {
+        "name": "flash_attention[split_tc]", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash_attn.py:77",
+        "launches": sum(by_arch.values()), "launches_by_config": by_arch,
+        **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "eager_ms",
+                             "simt_ms", "simt_max_abs_err")},
+        "shape": f"granite-34b decode: B = {eng['max_batch']} slots of a "
+                 f"{eng['s_cache']}-slot cache, {m['hg']} query heads over "
+                 f"{m['kv']} KV head, D = {m['d']}, bf16",
+    }
 
 
 def report(graphs, device):
@@ -5974,13 +6056,14 @@ def report(graphs, device):
                     for name, res in results.items()}
     for name, m in partials_alt.items():
         log(f"[edge_relax_partials[alt]] {name}: " + json.dumps(m))
-    alt = {name: measure_alt(res, p2p[name]["landmarks"],
-                             p2p[name]["queries"][0], device)
+    row_query = lambda name: p2p[name]["queries"][ALT_ROW_PAIR.get(name, 0)]
+    alt = {name: measure_alt(res, p2p[name]["landmarks"], row_query(name),
+                             device)
            for name, res in results.items()}
     for name, m in alt.items():
         log(f"[edge_relax[alt]] {name}: " + json.dumps(m))
     fused_alt = {name: measure_fused_alt(res, p2p[name]["landmarks"],
-                                         p2p[name]["queries"][0], device)
+                                         row_query(name), device)
                  for name, res in results.items()}
     for name, m in fused_alt.items():
         log(f"[edge_relax_fused[alt]] {name}: " + json.dumps(m))

@@ -39,21 +39,21 @@ __device__ __forceinline__ void schedule_tile(int32_t t,
     sched[atomicAdd(sched_n, 1)] = t;
 }
 
-// Schedule the tiles vt_tile[lo, hi) of each lane's index entry (lo == hi
-// for a lane with nothing to schedule), leaving out every tile whose
-// `skip` byte is set when `skip` is not null.  An entry of more than
+// Call f(t) for the tiles t = vt_tile[lo, hi) of each lane's index entry
+// (lo == hi for a lane with nothing to schedule), leaving out every tile
+// whose `skip` byte is set when `skip` is not null.  An entry of more than
 // kWarpTiles tiles (a Kronecker hub) is walked by the whole warp.  All 32
 // lanes of the warp must call it together.
-__device__ __forceinline__ void schedule_entries(
+template <typename F>
+__device__ __forceinline__ void for_entry_tiles(
     int32_t lo, int32_t hi, const int32_t* __restrict__ vt_tile,
-    const uint8_t* __restrict__ skip, unsigned int* flags, int32_t* sched,
-    int32_t* sched_n) {
+    const uint8_t* __restrict__ skip, F&& f) {
   const int lane = threadIdx.x & 31;
   const bool wide = hi - lo > kWarpTiles;
   if (!wide)
     for (int32_t k = lo; k < hi; ++k) {
       const int32_t t = vt_tile[k];
-      if (skip == nullptr || !skip[t]) schedule_tile(t, flags, sched, sched_n);
+      if (skip == nullptr || !skip[t]) f(t);
     }
   for (unsigned todo = __ballot_sync(kFull, wide); todo; todo &= todo - 1) {
     const int owner = __ffs(todo) - 1;
@@ -61,9 +61,20 @@ __device__ __forceinline__ void schedule_entries(
     const int32_t whi = __shfl_sync(kFull, hi, owner);
     for (int32_t k = wlo + lane; k < whi; k += 32) {
       const int32_t t = vt_tile[k];
-      if (skip == nullptr || !skip[t]) schedule_tile(t, flags, sched, sched_n);
+      if (skip == nullptr || !skip[t]) f(t);
     }
   }
+}
+
+// Schedule the tiles of each lane's index entry (for_entry_tiles) in a
+// one-state call's flags.
+__device__ __forceinline__ void schedule_entries(
+    int32_t lo, int32_t hi, const int32_t* __restrict__ vt_tile,
+    const uint8_t* __restrict__ skip, unsigned int* flags, int32_t* sched,
+    int32_t* sched_n) {
+  for_entry_tiles(lo, hi, vt_tile, skip, [&](int32_t t) {
+    schedule_tile(t, flags, sched, sched_n);
+  });
 }
 
 // Blocks the card holds at once for `kernel` at `threads` (a multiple of

@@ -14,11 +14,12 @@ All three kernels schedule their tiles from the layout's vertex->tile
 index (``index=``, a :class:`~repro_torch.core.graph.TileIndex`) and
 keep scratch buffers between calls, cached per (device, tile count,
 destination count, and slot count for a batched call) for the life of
-the process: for the one-round kernels a flag word per tile and the
-packed keys, which every call leaves cleared, and the schedule (a row of
-each per slot); for the fused kernel the same plus the
-touched list, two frontier lists, two planes of path marks and the round
-scalars (:class:`_FusedScratch`), also left clean.  Calls on one device
+the process: for the one-round kernels a flag word per tile (a slot mask
+in a batched call, which also keeps a bit per slot and destination) and
+the packed keys (a row per slot), which every call leaves cleared, and
+the schedule; for the fused kernel the same plus the touched list, two
+frontier lists, two planes of path marks and the round scalars
+(:class:`_FusedScratch`), also left clean.  Calls on one device
 must therefore be ordered on one stream.  Calls from several host
 threads on one device are safe when they launch on one stream (a
 thread's current stream is the device's default stream unless it sets
@@ -31,9 +32,9 @@ launch counts (:data:`LAUNCHES`) take a module lock.  A call may be
 captured in a CUDA graph only after an eager call of the same sizes has
 made its scratch; the graph then holds that scratch's addresses, which
 stay valid because the cache never evicts (about 8 B a tile and 8 B a
-destination per layout size for a one-round kernel, 8 B a tile and 22 B
-a destination for the fused one) and drops an entry only when a launch
-on it failed.  Each wrapper allocates only its outputs.
+destination and slot per layout size for a one-round kernel, 8 B a tile
+and 22 B a destination for the fused one) and drops an entry only when
+a launch on it failed.  Each wrapper allocates only its outputs.
 """
 from __future__ import annotations
 
@@ -59,7 +60,8 @@ class _Counter:
     :func:`relax_bucket` call of one state on the card without ALT and
     ``edge_relax_alt`` one per call with it, ``edge_relax_batch`` and
     ``edge_relax_batch_alt`` one per batched call (whatever its slot
-    count), ``edge_relax_fused`` and
+    count: more than 32 active slots run as groups of 32, one launch
+    sequence a group, still counted once), ``edge_relax_fused`` and
     ``edge_relax_fused_alt`` the same for :func:`relax_fused`, and
     ``edge_relax_partials`` and ``edge_relax_partials_alt`` the same for
     :func:`relax_partials`; CPU calls never count."""
@@ -148,17 +150,21 @@ def _drop(cache: dict, key, bufs) -> None:
             del cache[key]
 
 
-def _scratch(dev, nt: int, n_out: int, slots: int = 1):
-    """The cached scratch of a one-round call over ``slots`` states (1
-    for a one-state call): ``flags`` int32 ``[slots, nt + 1]`` (a word
-    per tile, then the schedule's append counter; all 0), ``sched`` int32
-    ``[slots, nt]`` and ``keys`` int64 ``[slots, n_out]`` (all
-    ``EMPTY_KEY``).  Returns ``(cache key, buffers, lock)``."""
+def _scratch(dev, nt: int, n_out: int, slots: int | None = None):
+    """The cached scratch of a one-state call (``slots`` None) or of a
+    call over ``slots`` states: ``flags`` int32 (a word per tile, a
+    batched call's slot masks; then the schedule's counter; then a
+    batched call's touched bits, ``ceil(n_out / 32)`` words a slot; all
+    0), ``sched`` int32 ``[nt]`` (the schedule) and ``keys`` int64
+    ``[slots or 1, n_out]`` (all ``EMPTY_KEY``).  Returns ``(cache key,
+    buffers, lock)``."""
     key = (dev, nt, n_out, slots)
+    rows = slots or 1
+    touched = slots * -(-n_out // 32) if slots else 0
     return key, *_cached(_SCRATCH, key, "edge_relax", lambda: (
-        torch.zeros(slots, nt + 1, dtype=torch.int32, device=dev),
-        torch.empty(slots, nt, dtype=torch.int32, device=dev),
-        torch.full((slots, n_out), EMPTY_KEY, dtype=torch.int64,
+        torch.zeros(nt + 1 + touched, dtype=torch.int32, device=dev),
+        torch.empty(nt, dtype=torch.int32, device=dev),
+        torch.full((rows, n_out), EMPTY_KEY, dtype=torch.int64,
                    device=dev)))
 
 
@@ -210,7 +216,7 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
     extra = []
     if active is not None:
         n_active = active.shape[0]
-        if not 1 <= n_active <= min(lead[0], 65535):
+        if not 1 <= n_active <= lead[0]:
             raise ValueError(f"{n_active} active slots for {lead[0]} slots")
         _check("active", active, torch.int32, (n_active,), dev)
         extra, name = [active.data_ptr(), n_active], f"{name}_batch"
@@ -233,7 +239,7 @@ def _relax_round_cuda(name, dist, paths, parent, src, dst, w, tile_first,
     vals = empty(lead + (n_out,), torch.float32)
     wins = empty(lead + (n_out,), torch.int32)
     counts = empty(lead + (4,), torch.int32)
-    key, bufs, lock = _scratch(dev, nt, n_out, lead[0] if extra else 1)
+    key, bufs, lock = _scratch(dev, nt, n_out, lead[0] if extra else None)
     flags, sched, keys = bufs
     with lock, torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

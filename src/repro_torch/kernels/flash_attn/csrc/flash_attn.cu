@@ -1,7 +1,7 @@
 // flash_attention for Hopper (sm_90a): online-softmax attention with
 // grouped-query heads, causal and sliding-window masks, and per-key
 // positions (padding keys at a negative position, ring-buffer caches), in
-// three designs chosen per call by the wrapper (ops.py::variant).
+// four designs chosen per call by the wrapper (ops.py::variant).
 //
 // Replaces the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attn/flash_attn.py:77, body `_kernel` at :30).
@@ -57,7 +57,25 @@
 // order.  So the result is deterministic.  A chunk with no visible key
 // gives m = -inf, l = 0 and adds nothing.
 //
-// "simt" (everything else: f32 prefill, D 16 or 32, bf16 with 9..63
+// "split_tc" (bf16, D 64 or 128, 9..63 rows: granite-34b's MQA decode,
+// 48 query heads over one KV head).  Bound by bytes like "split", but its
+// rows do not fit split's per-group registers and shared memory, and
+// B*KV blocks (4 for granite's 4 slots) would leave 128 of the 132 SMs
+// idle.  So it is split's grid over "tc"'s tile: one block of one
+// warpgroup (128 threads) per (key chunk, KV head, batch row), holding all
+// of the group's flattened rows padded to 64 (the padding rows of Q are
+// zero, read like the others and never written); chunks are whole 64-key
+// tiles, n_split chosen by the wrapper (ops.py::split_count) so that
+// B*KV*n_split fills the SMs.  Per tile: S = Q K^T by wgmma m64n64k16 with
+// Q and K in shared memory in the 128-byte-swizzle layout, the online
+// softmax in the accumulator registers, O += P V by wgmma with P rounded
+// to bf16 (the same departure from the TPU kernel's f32 as "tc"), K/V fed
+// by a cp.async double buffer (16-byte copies, keys past the chunk zero).
+// The block writes split's f32 partials and flash_fwd_combine merges them
+// in chunk order, so the result is deterministic.  A chunk with no
+// visible key gives m = -inf, l = 0.
+//
+// "simt" (everything else: f32 prefill, D 16 or 32, f32 with 9..63
 // rows).  f32 on the CUDA cores: 64-row x 64-key tiles, cp.async double
 // buffering, scores in registers, one warp per row for the softmax through
 // shared memory.  f32 stays here so that its results keep the f32
@@ -944,30 +962,40 @@ flash_fwd_split(const Params p, float* part, int n_split) {
   }
 }
 
-// One block per (KV head, batch row): merges the n_split partials of each
-// row in chunk order and writes acc / max(l, 1e-30) in the output type.
+// One thread per (row, column) of a (KV head, batch row): merges the
+// n_split partials of its row in chunk order and writes acc / max(l,
+// 1e-30) in the output type.
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 flash_fwd_combine(const Params p, const float* part, int n_split) {
-  const int kvh = blockIdx.x, b = blockIdx.y, n_rows = p.S * p.HG;
+  const int kvh = blockIdx.y, b = blockIdx.z, n_rows = p.S * p.HG;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_rows * D) return;
   const float* in = part + (long long)(b * p.KV + kvh) * n_split * n_rows *
                                (D + 2);
   T* O = static_cast<T*>(p.o) + b * p.osb + kvh * p.osk;
-  for (int i = threadIdx.x; i < n_rows * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int c = 0; c < n_split; ++c)
-      mx = fmaxf(mx, in[(c * n_rows + r) * (D + 2)]);
-    float lsum = 0.f, a = 0.f;
-    for (int c = 0; c < n_split; ++c) {
-      const float* rec = in + (c * n_rows + r) * (D + 2);
-      const float w = rec[0] == -INFINITY ? 0.f : exp2f(rec[0] - mx);
-      lsum = fmaf(w, rec[1], lsum);
-      a = fmaf(w, rec[2 + d], a);
-    }
-    store_f(O + (r / p.HG) * p.oss + (r % p.HG) * p.osg + d,
-            a / fmaxf(lsum, 1e-30f));
+  const int r = i / D, d = i % D;
+  float mx = -INFINITY;
+  for (int c = 0; c < n_split; ++c)
+    mx = fmaxf(mx, in[(c * n_rows + r) * (D + 2)]);
+  float lsum = 0.f, a = 0.f;
+  for (int c = 0; c < n_split; ++c) {
+    const float* rec = in + (c * n_rows + r) * (D + 2);
+    const float w = rec[0] == -INFINITY ? 0.f : exp2f(rec[0] - mx);
+    lsum = fmaf(w, rec[1], lsum);
+    a = fmaf(w, rec[2 + d], a);
   }
+  store_f(O + (r / p.HG) * p.oss + (r % p.HG) * p.osg + d,
+          a / fmaxf(lsum, 1e-30f));
+}
+
+template <typename T, int D>
+cudaError_t launch_combine(const Params& p, const float* part, int n_split,
+                           cudaStream_t st) {
+  const int n = p.S * p.HG * D;
+  flash_fwd_combine<T, D><<<dim3((n + 127) / 128, p.KV, p.B), 128, 0, st>>>(
+      p, part, n_split);
+  return cudaGetLastError();
 }
 
 template <typename T, int D, int R>
@@ -982,8 +1010,7 @@ cudaError_t launch_split_rows(const Params& p, float* part, int n_split,
       p, part, n_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_fwd_combine<T, D><<<dim3(p.KV, p.B), 128, 0, st>>>(p, part, n_split);
-  return cudaGetLastError();
+  return launch_combine<T, D>(p, part, n_split, st);
 }
 
 template <typename T, int D>
@@ -997,8 +1024,240 @@ cudaError_t launch_split(const Params& p, float* part, int n_split,
 }
 
 // ---------------------------------------------------------------------------
+// "split_tc": split-KV on the tensor cores for 9..63 rows (MQA decode)
+// ---------------------------------------------------------------------------
 
-enum Variant { kSimt = 0, kTc = 1, kSplit = 2 };
+namespace stc {
+constexpr int kRows = 64;        // one warpgroup's rows
+constexpr int kThreads = 128;    // that warpgroup
+constexpr int kKeys = 64;        // keys per K/V tile (N of S = Q K^T)
+constexpr int kStages = 2;       // the cp.async double buffer
+template <int D>
+struct Smem {
+  static constexpr int Q = kRows * D * 2;        // the block's Q tile
+  static constexpr int KV = kKeys * D * 2;       // K or V of one key tile
+  static constexpr int TOTAL = Q + kStages * 2 * KV + 1024;  // + alignment
+};
+}  // namespace stc
+
+// Partials as flash_fwd_split writes them (m in log2 units of the scaled
+// scores), for chunk blockIdx.x of whole 64-key tiles.
+template <int D>
+__global__ void __launch_bounds__(stc::kThreads)
+flash_fwd_split_tc(const Params p, float* part, int n_split) {
+  using SM = stc::Smem<D>;
+  constexpr int BM = stc::kRows, BK = stc::kKeys, CPR = D / 8;  // 16 B chunks
+  constexpr int NO = D / 2, NS = BK / 2;   // accumulator floats per thread
+  static_assert(BK == 64 && D % 64 == 0, "tile");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ int qp_s[BM];
+  __shared__ int kp_s[stc::kStages][BK];
+  // every swizzle atom 1024-byte aligned
+  unsigned char* q_s =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* kv_s = q_s + SM::Q;   // [stage][K, V][panel][BK][64]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int n_rows = p.S * p.HG;
+  using bf16 = __nv_bfloat16;
+  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.qsb + kvh * p.qsk;
+  const bf16* Kb = static_cast<const bf16*>(p.k) + b * p.ksb + kvh * p.ksk;
+  const bf16* Vb = static_cast<const bf16*>(p.v) + b * p.vsb + kvh * p.vsk;
+
+  // Q: [BM][D] in 64-column panels of 128-byte rows, 16-byte chunk c of
+  // row r at chunk c ^ (r % 8); rows past the last are zero.  Committed
+  // with the first K/V tile.
+  for (int i = tid; i < BM * CPR; i += stc::kThreads) {
+    const int row = i / CPR, cc = i % CPR, c = cc & 7;
+    const bool ok = row < n_rows;
+    cp_async16(q_s + (cc >> 3) * BM * 128 + row * 128 + ((c ^ (row & 7)) << 4),
+               ok ? Q + (row / p.HG) * p.qss + (row % p.HG) * p.qsg + cc * 8
+                  : Q,
+               ok ? 16 : 0);
+  }
+  if (tid < BM) qp_s[tid] = query_pos(p, b, min(tid, n_rows - 1) / p.HG);
+  __syncthreads();
+  int qmin = INT_MAX, qmax = INT_MIN;
+  for (int r = 0; r < n_rows; ++r) {
+    qmin = min(qmin, qp_s[r]);
+    qmax = max(qmax, qp_s[r]);
+  }
+  int lo, hi;
+  key_range(p, qmin, qmax, lo, hi);
+  const int len = ((hi - lo + n_split - 1) / n_split + BK - 1) / BK * BK;
+  const int c0 = min(hi, lo + chunk * len), c1 = min(hi, c0 + len);
+  const int n_tiles = (c1 - c0 + BK - 1) / BK;
+
+  // K and V of tile `it` into stage `st` (the 128-byte-swizzle layout TMA
+  // writes in "tc"), and its keys' positions (-1 past the chunk)
+  const auto load_tile = [&](int it, int st) {
+    const int k0 = c0 + it * BK;
+    unsigned char* dst = kv_s + st * 2 * SM::KV;
+    for (int i = tid; i < 2 * BK * CPR; i += stc::kThreads) {
+      const int which = i / (BK * CPR), rem = i % (BK * CPR);
+      const int j = rem / CPR, cc = rem % CPR, c = cc & 7, t = k0 + j;
+      const bool ok = t < c1;
+      const bf16* src = which ? Vb : Kb;
+      const long long stride = which ? p.vst : p.kst;
+      cp_async16(dst + which * SM::KV + (cc >> 3) * BK * 128 + j * 128 +
+                     ((c ^ (j & 7)) << 4),
+                 ok ? src + t * stride + cc * 8 : src, ok ? 16 : 0);
+    }
+    if (tid < BK) kp_s[st][tid] = k0 + tid < c1 ? key_pos(p, b, k0 + tid) : -1;
+    cp_async_commit();
+  };
+
+  // This thread's two rows: r0 and r0 + 8 (wgmma's accumulator layout).
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qp0 = qp_s[r0], qp1 = qp_s[r0 + 8];
+  const float sl = p.scale * kLog2e;
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (n_tiles > 0) load_tile(0, 0);
+  else cp_async_commit();                  // Q alone
+  if (n_tiles > 1) load_tile(1, 1);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) cp_async_wait<1>();
+    else cp_async_wait<0>();
+    wg::fence_proxy_async();
+    __syncthreads();
+    const int st = it & 1;
+    const unsigned char* ks = kv_s + st * 2 * SM::KV;
+    const unsigned char* vs = ks + SM::KV;
+
+    // S = Q K^T: D / 16 k-steps of m64n64k16, both operands K-major
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wg::wgmma_ss_n64(
+          s, wg::desc_sw128(q_s + (kk / 4) * BM * 128 + 32 * (kk % 4), 16),
+          wg::desc_sw128(ks + (kk / 4) * BK * 128 + 32 * (kk % 4), 16),
+          kk > 0);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(s);
+
+    // s[4 j + e] is (row r0, key 8 j + 2 (lane % 4) + e of the tile),
+    // s[4 j + 2 + e] the same key for row r0 + 8
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = kp_s[st][8 * j + 2 * (lane & 3) + e];
+        if (!visible(p, kp, qp0)) s[4 * j + e] = -INFINITY;
+        if (!visible(p, kp, qp1)) s[4 * j + 2 + e] = -INFINITY;
+      }
+
+    // online softmax in registers: a row's 64 scores lie on 4 threads
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(~0u, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(~0u, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float base0 = mn0 == -INFINITY ? 0.f : mn0 * sl;
+    const float base1 = mn1 == -INFINITY ? 0.f : mn1 * sl;
+    const float corr0 = m0 == -INFINITY ? 0.f : exp2f(m0 * sl - base0);
+    const float corr1 = m1 == -INFINITY ? 0.f : exp2f(m1 * sl - base1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = exp2f(fmaf(s[4 * j + e], sl, -base0));  // -inf -> 0
+        s[4 * j + 2 + e] = exp2f(fmaf(s[4 * j + 2 + e], sl, -base1));
+        sum0 += s[4 * j + e];
+        sum1 += s[4 * j + 2 + e];
+      }
+    l0 = l0 * corr0 + sum0;                // this thread's part of the row
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    // O += P V: V [BK][D] in panels, MN-major (16 keys = 2048 bytes)
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], wg::desc_sw128(vs + 2048 * kk, BK * 128));
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_regs(o);
+    __syncthreads();                       // the stage is free again
+    if (it + 2 < n_tiles) load_tile(it + 2, st);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(~0u, l0, off);
+    l1 += __shfl_xor_sync(~0u, l1, off);
+  }
+  float* out = part + ((long long)(b * p.KV + kvh) * n_split + chunk) *
+                          n_rows * (D + 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= n_rows) continue;
+    float* rec = out + r * (D + 2);
+    const float m = h ? m1 : m0;
+    if ((lane & 3) == 0) {
+      rec[0] = m == -INFINITY ? -INFINITY : m * sl;
+      rec[1] = h ? l1 : l0;
+    }
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j)
+      *reinterpret_cast<float2*>(rec + 2 + 8 * j + col) =
+          make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_split_tc(const Params& p, float* part, int n_split,
+                            cudaStream_t st) {
+  if (p.S * p.HG > stc::kRows || n_split < 1 || part == nullptr)
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_split_tc<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, stc::Smem<D>::TOTAL);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(n_split, p.KV, p.B), stc::kThreads, stc::Smem<D>::TOTAL, st>>>(
+      p, part, n_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_combine<__nv_bfloat16, D>(p, part, n_split, st);
+}
+
+// ---------------------------------------------------------------------------
+
+enum Variant { kSimt = 0, kTc = 1, kSplit = 2, kSplitTc = 3 };
 
 template <typename T, int D>
 cudaError_t dispatch_variant(int variant, const Params& p, float* part,
@@ -1009,6 +1268,10 @@ cudaError_t dispatch_variant(int variant, const Params& p, float* part,
     case kTc:
       if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
         return launch_tc<D>(p, st);
+      return cudaErrorInvalidValue;
+    case kSplitTc:
+      if constexpr (sizeof(T) == 2 && (D == 64 || D == 128))
+        return launch_split_tc<D>(p, part, n_split, st);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -1032,8 +1295,9 @@ extern "C" const char* flash_attn_error_name(int code) {
   return cudaGetErrorName((cudaError_t)code);
 }
 
-// variant 0 = simt, 1 = tc (bfloat16, D 64 or 128), 2 = split (S*HG <= 8;
-// `scratch` holds B*KV*n_split*S*HG*(D+2) floats); dtype 0 = float32,
+// variant 0 = simt, 1 = tc (bfloat16, D 64 or 128), 2 = split (S*HG <= 8),
+// 3 = split_tc (bfloat16, D 64 or 128, S*HG <= 64); for 2 and 3 `scratch`
+// holds B*KV*n_split*S*HG*(D+2) floats; dtype 0 = float32,
 // 1 = bfloat16; strides (in elements) in the order q (b, s, kv, g),
 // k (b, t, kv), v (b, t, kv), out (b, s, kv, g), q_pos (b, s),
 // k_pos (b, t).  Returns 0 or the cudaError_t of the launch.

@@ -9,8 +9,9 @@ tensors where they lie: CPU tensors go to the plain versions in
 ``csrc/flash_attn.cu`` (built on first use), which read them in place
 through their strides, or the call raises.  :func:`variant` names the
 design a call gets from its type, head width and rows: ``"tc"`` (bf16
-tensor cores, prefill), ``"split"`` (split-KV decode) or ``"simt"``
-(f32 on the CUDA cores).  There is no fallback from one to another, nor
+tensor cores, prefill), ``"split"`` (split-KV decode), ``"split_tc"``
+(split-KV on the tensor cores, MQA decode) or ``"simt"`` (f32 on the
+CUDA cores).  There is no fallback from one to another, nor
 to the plain version.  The kernel has no backward: on the card a call
 whose inputs require grad under grad mode raises (the plain version on
 the CPU is differentiable torch code).
@@ -31,32 +32,37 @@ __all__ = ["flash_attention", "flash_attention_pos", "flash_attention_ref",
 
 HEAD_DIMS = (16, 32, 64, 128)       # the kernel's compiled head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = ("simt", "tc", "split")  # in the C launcher's numbering
+# in the C launcher's numbering
+VARIANTS = ("simt", "tc", "split", "split_tc")
 TC_HEAD_DIMS = (64, 128)            # wgmma's N for O += P V
 TC_MIN_ROWS = 64                    # one warpgroup's rows
 SPLIT_MAX_ROWS = 8                  # S * HG of a decode call
 SPLIT_MIN_KEYS = 128                # keys a split chunk holds at least
+SPLIT_TC_MIN_KEYS = 64              # a split_tc chunk: whole 64-key tiles
 
 
 def variant(dtype, d: int, rows: int) -> str:
     """The design that serves a call on the card: ``"split"`` for at most
-    ``SPLIT_MAX_ROWS`` rows ``S * HG`` (decode), ``"tc"`` for bfloat16
-    with ``d`` in ``TC_HEAD_DIMS`` and at least ``TC_MIN_ROWS`` rows
-    (prefill on the tensor cores), ``"simt"`` otherwise (float32 keeps
-    its 2e-5 tolerance there; D 16 and 32; 9 to 63 rows)."""
+    ``SPLIT_MAX_ROWS`` rows ``S * HG`` (decode); for bfloat16 with ``d``
+    in ``TC_HEAD_DIMS``, ``"tc"`` from ``TC_MIN_ROWS`` rows (prefill on
+    the tensor cores) and ``"split_tc"`` below (MQA decode: granite-34b's
+    48 heads over one KV head); ``"simt"`` otherwise (float32 keeps its
+    2e-5 tolerance there; D 16 and 32)."""
     if rows <= SPLIT_MAX_ROWS:
         return "split"
-    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS and rows >= TC_MIN_ROWS:
-        return "tc"
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        return "tc" if rows >= TC_MIN_ROWS else "split_tc"
     return "simt"
 
 
-def split_count(b: int, kv: int, t: int, sms: int) -> int:
-    """Chunks of the key range for ``"split"``: the most that keep the
-    ``b * kv * n`` blocks within two per SM (two are resident at once, so
-    the launch is one wave with no tail), each chunk at least
-    ``SPLIT_MIN_KEYS`` keys of the ``t``, and at least one."""
-    return max(1, min(2 * sms // max(1, b * kv), -(-t // SPLIT_MIN_KEYS)))
+def split_count(b: int, kv: int, t: int, sms: int,
+                min_keys: int = SPLIT_MIN_KEYS) -> int:
+    """Chunks of the key range for ``"split"`` (``"split_tc"`` passes
+    ``SPLIT_TC_MIN_KEYS``): the most that keep the ``b * kv * n`` blocks
+    within two per SM (two are resident at once, so the launch is one
+    wave with no tail), each chunk at least ``min_keys`` keys of the
+    ``t``, and at least one."""
+    return max(1, min(2 * sms // max(1, b * kv), -(-t // min_keys)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,7 +106,7 @@ def _library():
 
 
 def _check_rows(name, t, elem):
-    """k and v rows (and q's, in ``"tc"`` and ``"split"``) are read 16
+    """k and v rows (and q's, in every design but ``"simt"``) are read 16
     bytes at a time: their start and row stride must be 16-byte aligned,
     their last dimension contiguous."""
     if t.stride(-1) != 1:
@@ -169,10 +175,12 @@ def _flash_cuda(q, k, v, q_pos, k_pos, out, causal, window, kind=None):
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4],
         *qps, *kps)
     n_split, scratch = 0, None
-    if kind == "split":
+    if kind in ("split", "split_tc"):
         index = torch.cuda.current_device() if dev.index is None else \
             dev.index
-        n_split = split_count(b, kv, t, _sm_count(index))
+        n_split = split_count(b, kv, t, _sm_count(index),
+                              SPLIT_TC_MIN_KEYS if kind == "split_tc"
+                              else SPLIT_MIN_KEYS)
         scratch = torch.empty(b * kv * n_split * s * hg * (d + 2),
                               dtype=torch.float32, device=dev)
     lib = _library()

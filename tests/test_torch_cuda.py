@@ -10,8 +10,8 @@ and numpy.  Every test needs the card and skips without one; the kernels
 build with nvcc on first use.  The edge-relax comparisons are bitwise;
 flash attention is held to its plain version (f32 inside) at 2e-5 in
 float32 and 2e-2 in bfloat16, the tolerances of the reference's own
-kernel tests, and each of its designs ("tc", "split", "simt") is checked
-to serve the calls that ``ops.variant`` gives it.  embedding_bag is held
+kernel tests, and each of its designs ("tc", "split", "split_tc",
+"simt") is checked to serve the calls that ``ops.variant`` gives it.  embedding_bag is held
 bitwise against its plain version (both sum in lookup order with
 separately rounded multiplies and adds), and the recsys layer on the
 card bitwise against the same call on the CPU.
@@ -983,6 +983,42 @@ def test_cuda_flash_split_matches_plain_version(card, dtype, tol, t):
             assert not out[3].any()
 
 
+@pytest.mark.parametrize("rows", [9, 24, 48, 63])
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_split_tc_matches_plain_version(card, rows, d):
+    # the tensor-core split-KV design at 9..63 flattened rows (S * HG:
+    # granite-34b's decode is 48 heads over one KV head), B 1 to 8, one or
+    # two KV heads, T not a multiple of 64; keys at 0..T-1, -1 padded (a
+    # slot with no written key gives 0), a ring buffer, and windows
+    rng = np.random.default_rng(rows * d)
+    s, hg = {9: (3, 3), 24: (1, 24), 48: (1, 48), 63: (7, 9)}[rows]
+    for b, kv, t in ((1, 1, 777), (4, 1, 512), (8, 2, 300)):
+        cache = _normal(rng, (2, b, t, kv, d), torch.bfloat16, card)
+        kc, vc = cache[0], cache[1]
+        q = _normal(rng, (b, s, kv, hg, d), torch.bfloat16, card)
+        first = rng.integers(0, 3 * t, b)
+        q_pos = torch.from_numpy((first[:, None] + np.arange(s)).astype(
+            np.int32)).to(card)
+        pad = torch.arange(t, device=card, dtype=torch.int32).expand(
+            b, t).clone()
+        pad[:, rng.integers(0, t, t // 3)] = -1
+        pad[b - 1] = -1
+        ring = ring_positions(q_pos[:, -1], t)
+        for k_pos, causal, window in ((None, True, 0), (pad, True, 0),
+                                      (ring, True, 0), (None, True, 97),
+                                      (ring, True, t // 2),
+                                      (None, False, 0)):
+            args = (q, kc, vc, q_pos, k_pos)
+            kw = dict(causal=causal, window=window)
+            out = _flash_checked(fops.flash_attention_pos, "split_tc", *args,
+                                 **kw)
+            want = fops.flash_attention_pos_ref(*args, **kw)
+            torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+            if k_pos is pad:
+                assert not out[b - 1].any()
+
+
 def _bits(out, want):
     """Bitwise equal, NaN where the other is NaN."""
     out, want = out.cpu(), want.cpu()
@@ -1219,10 +1255,13 @@ def test_cuda_embedding_bag_masked_wrapper_refuses(card):
 
 def _slot_states(rng, bg, n_slots, card):
     """``n_slots`` states of :func:`_state` stacked ``[S, n_out]``, with
-    windows and (for ALT) lower bounds and prune bounds per slot."""
-    rows = [_state(rng, bg, int(rng.choice([3, 40, -1])), card,
-                   lb=float(rng.integers(0, 3)), ub=float(rng.integers(3, 8)))
-            for _ in range(n_slots)]
+    windows and (for ALT) lower bounds and prune bounds per slot; the
+    frontiers are very uneven (3, 40 or every reached source), and slot 1
+    has no path source at all."""
+    rows = [_state(rng, bg, 0 if i == 1 else int(rng.choice([3, 40, -1])),
+                   card, lb=float(rng.integers(0, 3)),
+                   ub=float(rng.integers(3, 8)))
+            for i in range(n_slots)]
     dist, paths, parent = (torch.stack([r[k] for r in rows])
                            for k in range(3))
     lb, ub = (torch.stack([r[k] for r in rows]) for k in (3, 4))
@@ -1233,13 +1272,14 @@ def _slot_states(rng, bg, n_slots, card):
     return (dist, paths, parent, lb, ub), (alt_lb, bound)
 
 
-@pytest.mark.parametrize("n_slots", [1, 3, 8])
+@pytest.mark.parametrize("n_slots", [1, 3, 8, 32, 33, 40])
 @pytest.mark.parametrize("alt", [False, True], ids=["plain", "alt"])
 def test_cuda_batch_kernel_matches_plain_version(card, n_slots, alt):
-    """One batched launch over an active list (every slot, and one that
-    skips slots), twice: each active slot's vals, wins and counters
-    bitwise the plain version's and the one-state call's on its row; the
-    launch counted once; the scratch left clean."""
+    """One batched launch over an active list (every slot, one that
+    skips slots, the last alone), twice: each active slot's vals, wins
+    and counters bitwise the plain version's and the one-state call's on
+    its row; the launch counted once (more than 32 slots run as groups of
+    32); the scratch left clean."""
     rng = np.random.default_rng(40 + n_slots)
     bg = build_blocked(_graph(rng, ties=True), block_v=256, tile_e=64,
                        device=card)

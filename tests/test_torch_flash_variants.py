@@ -1,10 +1,11 @@
-"""The flash kernel's three designs and the split-KV decode's algebra, on
+"""The flash kernel's four designs and the split-KV decode's algebra, on
 the CPU.
 
 ``ops.variant`` names the design that serves a call on the card:
-``"tc"`` (bf16 tensor cores, prefill), ``"split"`` (split-KV decode) or
+``"tc"`` (bf16 tensor cores, prefill), ``"split"`` (split-KV decode),
+``"split_tc"`` (split-KV on the tensor cores, 9 to 63 rows) or
 ``"simt"`` (f32 on the CUDA cores); ``ops.split_count`` sizes the decode
-split.  ``flash_attention_split_ref`` states the split design as plain
+splits.  ``flash_attention_split_ref`` states the split design as plain
 torch, chunk partials ``(m, l, acc)`` merged in chunk order, and is held
 against the dense plain version and the JAX package's
 ``flash_attention_ref`` at 1e-6 in float32: chunking changes only the
@@ -33,8 +34,11 @@ TOL = dict(rtol=1e-6, atol=1e-6)
     (torch.float32, 128, 2 * 2048, "simt"),   # f32 keeps its 2e-5
     (torch.bfloat16, 16, 4096, "simt"),
     (torch.bfloat16, 32, 4096, "simt"),
-    (torch.bfloat16, 128, 63, "simt"),        # below one warpgroup's rows
-    (torch.bfloat16, 128, 9, "simt"),
+    (torch.bfloat16, 128, 63, "split_tc"),    # below one warpgroup's rows
+    (torch.bfloat16, 128, 9, "split_tc"),
+    (torch.bfloat16, 128, 48, "split_tc"),    # granite-34b decode (MQA)
+    (torch.float32, 128, 48, "simt"),         # f32 keeps its 2e-5
+    (torch.bfloat16, 32, 48, "simt"),         # no wgmma head width
 ], ids=lambda x: str(x).replace("torch.", ""))
 def test_variant_picks_the_design(dtype, d, rows, want):
     assert ops.variant(dtype, d, rows) == want
@@ -47,9 +51,19 @@ def test_variant_picks_the_design(dtype, d, rows, want):
     (1, 8, 300, 132, 3),        # capped by SPLIT_MIN_KEYS
     (64, 8, 4096, 132, 1),      # more heads than SMs: no split
     (2, 1, 0, 132, 1),          # an empty cache still gets one chunk
+    (4, 1, 512, 132, 4),        # granite-34b's decode in split's chunks
 ])
 def test_split_count(b, kv, t, sms, want):
     assert ops.split_count(b, kv, t, sms) == want
+
+
+@pytest.mark.parametrize("b,kv,t,sms,want", [
+    (4, 1, 512, 132, 8),        # granite-34b's decode: one tile a chunk
+    (4, 1, 4096, 132, 64),      # a long cache: two blocks per SM
+    (1, 1, 100, 132, 2),        # a chunk is whole tiles of 64 keys
+])
+def test_split_count_split_tc(b, kv, t, sms, want):
+    assert ops.split_count(b, kv, t, sms, ops.SPLIT_TC_MIN_KEYS) == want
 
 
 def _inputs(rng, b, s, kv, hg, d, t):
